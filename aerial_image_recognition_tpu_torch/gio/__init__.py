@@ -1,0 +1,1 @@
+"""gio layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,159 @@
+"""YOLOv7-tiny — the ITCVD car detector — as a torch ``nn.Module``.
+
+Counterpart of ``aerial_image_recognition_tpu/models/yolov7.py`` (``YOLOv7``,
+``_tiny``, ``ELANTiny``, ``SPPCSPCTiny``). Submodule names equal the flax
+scope names (``elan1.cv1``, ``sppcspc.out``, ``detect0`` …), so the weight
+bridge maps the flax tree leaf for leaf.
+
+Every concat keeps the reference's order channel for channel
+(``[cv4, cv3, cv2, cv1]``, ``[p13, p9, p5, cv2]``, ``[r4, x]`` …): the 1×1
+kernels that follow are sliced in that order.
+
+The detect heads run in f32 whatever the trunk's dtype, and return NHWC maps
+``[B, H/s, W/s, 3·(5+nc)]`` like the reference. They are 1×1 convolutions
+computed as matmuls over the channel axis, so their precision is PyTorch's
+f32 matmul precision. On the card that must be full f32 ("highest", the
+default): TF32 keeps ~3 decimal digits, which at 640-px coordinates is the
+same class of error the reference hit with bf16 box arithmetic, so
+``forward`` refuses to run the heads under anything else.
+"""
+
+from typing import List
+
+import torch
+from torch import nn
+
+from aerial_image_recognition_tpu_torch.models.layers import (
+    ConvBN, concat, max_pool_same, maxpool2, upsample2)
+
+# Upstream anchor priors (pixels at 640 input).
+ANCHORS_TINY = (
+    ((10, 13), (16, 30), (33, 23)),      # P3/8
+    ((30, 61), (62, 45), (59, 119)),     # P4/16
+    ((116, 90), (156, 198), (373, 326)), # P5/32
+)
+STRIDES = (8, 16, 32)
+# upstream yolov7 uses nn.BatchNorm2d's default eps (1e-5)
+BN_EPS = 1e-5
+
+
+def _conv(c_in, c_out, k=1, s=1):
+    return ConvBN(c_in, c_out, k, s, bn_eps=BN_EPS)
+
+
+class ELANTiny(nn.Module):
+    """yolov7-tiny ELAN: two 1×1 stems, two chained 3×3, concat all four."""
+
+    def __init__(self, c_in: int, c_mid: int, c_out: int):
+        super().__init__()
+        self.cv1 = _conv(c_in, c_mid)
+        self.cv2 = _conv(c_in, c_mid)
+        self.cv3 = _conv(c_mid, c_mid, 3)
+        self.cv4 = _conv(c_mid, c_mid, 3)
+        self.out = _conv(4 * c_mid, c_out)
+
+    def forward(self, x):
+        x = concat(x)
+        cv1 = self.cv1(x)
+        cv2 = self.cv2(x)
+        cv3 = self.cv3(cv2)
+        cv4 = self.cv4(cv3)
+        return self.out([cv4, cv3, cv2, cv1])
+
+
+class SPPCSPCTiny(nn.Module):
+    """yolov7-tiny SPP-CSP-lite. Three chained 5×5 stride-1 pools equal the
+    parallel 5/9/13 pools of the upstream graph (max5∘max5 = max9)."""
+
+    def __init__(self, c_in: int, c: int):
+        super().__init__()
+        self.cv1 = _conv(c_in, c)
+        self.cv2 = _conv(c_in, c)
+        self.cv3 = _conv(4 * c, c)
+        self.out = _conv(2 * c, c)
+
+    def forward(self, x):
+        cv1 = self.cv1(x)
+        cv2 = self.cv2(x)
+        p5 = max_pool_same(cv2, 5)
+        p9 = max_pool_same(p5, 5)       # = max9 of cv2
+        p13 = max_pool_same(p9, 5)      # = max13 of cv2
+        y = self.cv3([p13, p9, p5, cv2])
+        return self.out([y, cv1])
+
+
+class YOLOv7(nn.Module):
+    """Full detector; ``forward`` returns the three raw head maps, NHWC f32."""
+
+    def __init__(self, num_classes: int = 1, variant: str = "tiny"):
+        super().__init__()
+        if variant != "tiny":
+            raise NotImplementedError(
+                f"yolov7 variant {variant!r} arrives with the other-families "
+                "slice; this port has YOLOv7-tiny only")
+        self.num_classes = num_classes
+        self.variant = variant
+        no = 3 * (5 + num_classes)
+        self.stem0 = _conv(3, 32, 3, 2)                       # P1/2
+        self.stem1 = _conv(32, 64, 3, 2)                      # P2/4
+        self.elan1 = ELANTiny(64, 32, 64)
+        self.elan2 = ELANTiny(64, 64, 128)                    # P3/8
+        self.elan3 = ELANTiny(128, 128, 256)                  # P4/16
+        self.elan4 = ELANTiny(256, 256, 512)                  # P5/32
+        self.sppcspc = SPPCSPCTiny(512, 256)
+        self.up4_cv = _conv(256, 128)
+        self.route4 = _conv(256, 128)
+        self.head_elan4 = ELANTiny(256, 64, 128)
+        self.up3_cv = _conv(128, 64)
+        self.route3 = _conv(128, 64)
+        self.head_elan3 = ELANTiny(128, 32, 64)
+        self.down4_cv = _conv(64, 128, 3, 2)
+        self.pan_elan4 = ELANTiny(256, 64, 128)
+        self.down5_cv = _conv(128, 256, 3, 2)
+        self.pan_elan5 = ELANTiny(512, 128, 256)
+        self.out3 = _conv(64, 128, 3)
+        self.out4 = _conv(128, 256, 3)
+        self.out5 = _conv(256, 512, 3)
+        self.detect0 = nn.Linear(128, no)
+        self.detect1 = nn.Linear(256, no)
+        self.detect2 = nn.Linear(512, no)
+
+    @property
+    def anchors(self):
+        return ANCHORS_TINY
+
+    def heads(self) -> List[nn.Linear]:
+        return [self.detect0, self.detect1, self.detect2]
+
+    def set_dtype(self, dtype: torch.dtype) -> "YOLOv7":
+        """Cast the trunk to ``dtype``; the detect heads stay f32."""
+        self.to(dtype)
+        for h in self.heads():
+            h.float()
+        return self
+
+    def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.stem1(self.stem0(x))
+        x = self.elan1(x)
+        p3 = self.elan2(maxpool2(x))
+        p4 = self.elan3(maxpool2(p3))
+        p5 = self.elan4(maxpool2(p4))
+        spp = self.sppcspc(p5)
+        x = upsample2(self.up4_cv(spp))
+        f4 = self.head_elan4([self.route4(p4), x])
+        x = upsample2(self.up3_cv(f4))
+        f3 = self.head_elan3([self.route3(p3), x])
+        f4b = self.pan_elan4([self.down4_cv(f3), f4])
+        f5b = self.pan_elan5([self.down5_cv(f4b), spp])
+        return [self.out3(f3), self.out4(f4b), self.out5(f5b)]
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x [B,3,S,S] (already /255, trunk dtype) → three NHWC f32 maps."""
+        if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
+            raise RuntimeError(
+                "the f32 detect heads need full-precision f32 matmuls; "
+                "torch.get_float32_matmul_precision() is "
+                f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
+                "back to 'highest'")
+        return [head(f.float().permute(0, 2, 3, 1))
+                for f, head in zip(self.trunk(x), self.heads())]

@@ -1,0 +1,81 @@
+"""Wrapper of the CUDA NMS suppression kernel (``csrc/nms_suppress.cu``).
+
+Replaces the Pallas TPU kernel
+``aerial_image_recognition_tpu/ops/pallas_kernels.py:nms_suppress_pallas``.
+On a CUDA tensor ``nms_suppress`` launches the kernel on the current stream
+or raises; on a CPU tensor it runs the plain version,
+``ops/nms._suppress_plain``, which gives the same picks bit for bit. There
+is no fallback from the card to the plain version.
+
+``nms_suppress.launches`` counts kernel launches (not plain-version calls),
+so a run can show that its main path went through the kernel.
+"""
+
+import ctypes
+
+import torch
+
+MAX_K = 1024                   # one thread per candidate, one block per image
+
+
+def _lib():
+    from aerial_image_recognition_tpu_torch.kernels.build import load
+    fn = load("nms_suppress").nms_suppress_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p, p, p, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"nms_suppress: {name} must be {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"nms_suppress: {name} must be contiguous")
+
+
+def nms_suppress(boxes_t: torch.Tensor, scores: torch.Tensor,
+                 classes: torch.Tensor, *, iou_threshold: float = 0.45,
+                 max_det: int = 128, class_aware: bool = True):
+    """boxes_t [B,4,K] f32 cxcywh, scores [B,K] f32 (−1 below conf),
+    classes [B,K] int32 → (idx [B,D] int32, conf [B,D] f32, cls [B,D]
+    int32), D = max_det."""
+    if boxes_t.device.type == "cpu":
+        from aerial_image_recognition_tpu_torch.ops.nms import (
+            _suppress_plain)
+        return _suppress_plain(boxes_t, scores, classes,
+                               iou_threshold=iou_threshold, max_det=max_det,
+                               class_aware=class_aware)
+    if boxes_t.device.type != "cuda":
+        raise ValueError(f"nms_suppress: no kernel for {boxes_t.device}")
+    b, four, k = boxes_t.shape
+    if four != 4:
+        raise ValueError(f"nms_suppress: boxes_t must be [B,4,K], got "
+                         f"{tuple(boxes_t.shape)}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"nms_suppress: K={k} candidates; the kernel takes "
+                         f"1..{MAX_K} (one thread per candidate)")
+    dev = boxes_t.device
+    _check("boxes_t", boxes_t, torch.float32, (b, 4, k), dev)
+    _check("scores", scores, torch.float32, (b, k), dev)
+    _check("classes", classes, torch.int32, (b, k), dev)
+    idx = torch.empty((b, max_det), dtype=torch.int32, device=dev)
+    conf = torch.empty((b, max_det), dtype=torch.float32, device=dev)
+    cls = torch.empty((b, max_det), dtype=torch.int32, device=dev)
+    fn = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(boxes_t.data_ptr(), scores.data_ptr(), classes.data_ptr(),
+             b, k, max_det, float(iou_threshold), int(bool(class_aware)),
+             idx.data_ptr(), conf.data_ptr(), cls.data_ptr(),
+             dev.index if dev.index is not None
+             else torch.cuda.current_device(), stream)
+    if err != 0:
+        raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error "
+                           f"{err}")
+    nms_suppress.launches += 1
+    return idx, conf, cls
+
+
+nms_suppress.launches = 0

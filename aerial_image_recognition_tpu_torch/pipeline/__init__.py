@@ -1,0 +1,1 @@
+"""pipeline layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""post layer of the PyTorch port (see the package docstring)."""

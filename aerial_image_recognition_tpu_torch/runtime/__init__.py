@@ -1,0 +1,1 @@
+"""runtime layer of the PyTorch port (see the package docstring)."""
