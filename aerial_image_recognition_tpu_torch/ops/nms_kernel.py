@@ -15,6 +15,9 @@ import ctypes
 
 import torch
 
+from aerial_image_recognition_tpu_torch.kernels.args import (
+    check_tensor, device_index)
+
 MAX_K = 1024                   # one thread per candidate, one block per image
 
 
@@ -25,15 +28,6 @@ def _lib():
     fn.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p, p, p, i, p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"nms_suppress: {name} must be {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"nms_suppress: {name} must be contiguous")
 
 
 def nms_suppress(boxes_t: torch.Tensor, scores: torch.Tensor,
@@ -58,9 +52,11 @@ def nms_suppress(boxes_t: torch.Tensor, scores: torch.Tensor,
         raise ValueError(f"nms_suppress: K={k} candidates; the kernel takes "
                          f"1..{MAX_K} (one thread per candidate)")
     dev = boxes_t.device
-    _check("boxes_t", boxes_t, torch.float32, (b, 4, k), dev)
-    _check("scores", scores, torch.float32, (b, k), dev)
-    _check("classes", classes, torch.int32, (b, k), dev)
+    for name, t, dtype, shape in (
+            ("boxes_t", boxes_t, torch.float32, (b, 4, k)),
+            ("scores", scores, torch.float32, (b, k)),
+            ("classes", classes, torch.int32, (b, k))):
+        check_tensor("nms_suppress", name, t, dtype, shape, dev)
     idx = torch.empty((b, max_det), dtype=torch.int32, device=dev)
     conf = torch.empty((b, max_det), dtype=torch.float32, device=dev)
     cls = torch.empty((b, max_det), dtype=torch.int32, device=dev)
@@ -69,8 +65,7 @@ def nms_suppress(boxes_t: torch.Tensor, scores: torch.Tensor,
     err = fn(boxes_t.data_ptr(), scores.data_ptr(), classes.data_ptr(),
              b, k, max_det, float(iou_threshold), int(bool(class_aware)),
              idx.data_ptr(), conf.data_ptr(), cls.data_ptr(),
-             dev.index if dev.index is not None
-             else torch.cuda.current_device(), stream)
+             device_index(dev), stream)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error "
                            f"{err}")

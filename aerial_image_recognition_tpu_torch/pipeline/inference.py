@@ -2,9 +2,13 @@
 
 Counterpart of ``aerial_image_recognition_tpu/pipeline/inference.py``
 (``DetectStep``, ``make_detect_fn``, ``build_detect_step``,
-``detection_sets_agree``). One call runs preprocess → YOLOv7-tiny trunk →
-f32 heads → decode → NMS (CUDA kernel on the card) → lon/lat on the device,
-so only ~max_det·6 numbers per tile come back to the host.
+``detection_sets_agree``). One call runs preprocess (crop, resize, /255) →
+YOLOv7-tiny trunk → f32 heads → decode → NMS (CUDA kernel on the card) →
+lon/lat on the device, so only ~max_det·6 numbers per tile come back to the
+host. The accuracy modes — the TTA ladder (whose CLAHE variations run the
+CUDA LUT-apply kernel on the card), multiscale, box voting, shadow
+enhancement — widen the middle of that chain and leave its ends as they
+are.
 
 PyTorch runs eagerly, so there is no compile step: the step is a plain
 function over device tensors. ``DetectStep`` keeps the surface that
@@ -23,20 +27,14 @@ import torch
 from aerial_image_recognition_tpu_torch.models.registry import (
     ModelBundle, create_model)
 from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
-from aerial_image_recognition_tpu_torch.ops.preprocess import preprocess_batch
+from aerial_image_recognition_tpu_torch.ops.preprocess import (
+    matmul_resize_float, preprocess_batch)
 from aerial_image_recognition_tpu_torch.post.georef import lonlat, to_numpy
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
 from aerial_image_recognition_tpu_torch.runtime.device import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-# config switches of the reference whose code arrives with a later slice
-_LATER_EXTRAS = {
-    "tta": "accuracy-modes",
-    "multiscale": "accuracy-modes",
-    "box_voting": "accuracy-modes",
-    "enhance_shadows": "accuracy-modes",
-}
+_CLAHE_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
 
 
 def _upload(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -84,30 +82,128 @@ class DetectStep:
         return images_u8
 
 
+def _resolve_vote_iou(cfg: DetectorConfig):
+    """extra.box_voting → the vote_iou passed to batched_nms.
+
+    Explicitly set: that value (0/False/None = off; ``True`` is
+    ``float(True)``, an IoU gate of 1.0, as in the reference). Unset: 0.5
+    when multiscale is on (candidates from every scale refine the kept
+    box), off single-scale (each box has ~1 voter there).
+    """
+    if "box_voting" in cfg.extra:
+        v = cfg.extra["box_voting"]
+        return float(v) if v else None
+    return 0.5 if cfg.extra.get("multiscale") else None
+
+
 def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
+                   src_size: Optional[int] = None,
+                   crop_size: Optional[int] = None,
                    model_size: Optional[int] = None):
     """Build the (images_u8, bounds) → (Detections, lon, lat) function for
-    device tensors. model_size overrides the network input edge (the model
-    is fully convolutional; small sizes serve tests)."""
+    device tensors.
+
+    src_size: source pixel edge of incoming tiles (e.g. 1024 mosaics or
+    864 crops; the step resizes whatever arrives, so it only documents the
+    caller's intent); crop_size: center crop before the resize; model_size
+    overrides the network input edge (the model is fully convolutional;
+    small sizes serve tests).
+
+    Accuracy modes, from ``cfg.extra``: ``enhance_shadows``; ``tta`` (the
+    variation ladder of ``ops/augment`` folded into the batch dimension:
+    one forward for B·V images, the V candidate sets of a tile joined
+    before NMS with per-variation score weights; ``tta_hist_subsample``;
+    ``tta_clahe_backend`` is checked against the reference's names and
+    otherwise ignored, so that a config written for it works unchanged:
+    CLAHE has one path here, the CUDA kernel on the card); ``multiscale`` (a forward per scale, sizes
+    rounded to multiples of 32, boxes rescaled to the base frame and
+    joined before NMS; ``multiscale_weights``, default 0.8 for every
+    non-native scale so that the native box wins ties against a misfit
+    off-scale one); ``box_voting`` (see ``_resolve_vote_iou``);
+    ``nms_suppression``.
+    """
     spec = bundle.spec
     model_size = model_size or spec.input_size
     dtype = _DTYPES[cfg.dtype]
+    extra = cfg.extra
+    tta = bool(extra.get("tta", False))
+    if extra.get("multiscale") \
+            and extra.get("multiscale_weights") is not None \
+            and len(extra["multiscale_weights"]) != len(extra["multiscale"]):
+        raise ValueError(
+            f"multiscale_weights has {len(extra['multiscale_weights'])} "
+            f"entries for {len(extra['multiscale'])} scales")
+    vote_iou = _resolve_vote_iou(cfg)
+    if extra.get("tta_clahe_backend", "auto") not in _CLAHE_BACKENDS:
+        raise ValueError(
+            f"unknown tta_clahe_backend {extra['tta_clahe_backend']!r} "
+            f"(expected one of {_CLAHE_BACKENDS})")
 
-    @torch.inference_mode()
-    def detect(images_u8: torch.Tensor, bounds: torch.Tensor):
-        x = preprocess_batch(images_u8, out_size=model_size, dtype=dtype)
-        boxes, scores = bundle.forward(x)
+    def finish(boxes, scores, bounds):
         det = batched_nms(
             boxes, scores,
             num_classes=spec.num_classes,
             conf_threshold=cfg.confidence_threshold,
             iou_threshold=cfg.nms_iou_threshold,
             max_det=cfg.max_detections_per_tile,
-            pre_topk=int(cfg.extra.get("nms_pre_topk", 256)),
+            pre_topk=int(extra.get("nms_pre_topk", 256)),
             class_aware=True,
-            preselect=cfg.extra.get("nms_preselect", "approx"))
+            preselect=extra.get("nms_preselect", "approx"),
+            suppression=extra.get("nms_suppression"),
+            vote_iou=vote_iou)
         lon, lat = lonlat(det.boxes[..., :2], bounds, model_size)
         return det, lon, lat
+
+    def forward_tta(x):
+        from aerial_image_recognition_tpu_torch.ops.augment import (
+            DEFAULT_VARIATIONS, expand_tta)
+        b = x.shape[0]
+        xv, wts = expand_tta(
+            x, clahe_hist_subsample=int(extra.get("tta_hist_subsample", 1)))
+        boxes_v, scores_v = bundle.forward(xv)
+        v = len(DEFAULT_VARIATIONS)
+        a = boxes_v.shape[1]
+        boxes = boxes_v.reshape(v, b, a, 4).transpose(0, 1) \
+            .reshape(b, v * a, 4)
+        scores = (scores_v.reshape(v, b, a, -1)
+                  * wts[:, None, None, None].to(scores_v.dtype)) \
+            .transpose(0, 1).reshape(b, v * a, -1)
+        return boxes, scores
+
+    def forward_multiscale(x):
+        scales = tuple(extra["multiscale"])
+        ms_wts = extra.get("multiscale_weights")
+        if ms_wts is None:
+            ms_wts = [1.0 if float(sc) == 1.0 else 0.8 for sc in scales]
+        boxes_l, scores_l = [], []
+        for sc, wt in zip(scales, ms_wts):
+            size_s = max(32, int(round(model_size * sc / 32)) * 32)
+            xs = x if size_s == model_size \
+                else matmul_resize_float(x, size_s, "bilinear")
+            bb, ss = bundle.forward(xs)
+            boxes_l.append(bb * (model_size / size_s))
+            if float(wt) != 1.0:
+                ss = ss * float(wt)
+            scores_l.append(ss)
+        return torch.cat(boxes_l, dim=1), torch.cat(scores_l, dim=1)
+
+    @torch.inference_mode()
+    def detect(images_u8: torch.Tensor, bounds: torch.Tensor):
+        x = preprocess_batch(
+            images_u8, out_size=model_size, crop_size=crop_size,
+            method="bilinear", dtype=dtype,
+            matmul=bool(extra.get("resize_matmul", True)))
+        if extra.get("enhance_shadows"):
+            from aerial_image_recognition_tpu_torch.ops.augment import (
+                enhance_shadows)
+            x = enhance_shadows(x)
+        if tta:
+            boxes, scores = forward_tta(x)
+        elif extra.get("multiscale"):
+            boxes, scores = forward_multiscale(x)
+        else:
+            boxes, scores = bundle.forward(x)
+        return finish(boxes, scores, bounds)
 
     return detect
 
@@ -116,6 +212,7 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
                       batch: Optional[int] = None,
                       bundle: Optional[ModelBundle] = None,
                       src_size: Optional[int] = None,
+                      crop_size: Optional[int] = None,
                       model_size: Optional[int] = None,
                       mesh=None,
                       device: Optional[Union[str, torch.device]] = None
@@ -125,9 +222,10 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
 
     The model is the BN-folded deploy form of ``cfg.model_path`` with the
     weights of ``cfg.params_path`` (random from seed 0 without one), its
-    trunk in ``cfg.dtype`` and its heads in f32. Tiles must arrive at the
-    model size: a ``src_size`` that needs resizing, ``mesh`` data
-    parallelism, turnkey int8 and the accuracy modes raise
+    trunk in ``cfg.dtype`` and its heads in f32. Tiles of ``src_size`` px
+    (center-cropped to ``crop_size`` first, if given) are resized to the
+    model size on the device. The accuracy modes of ``make_detect_fn`` come
+    from ``cfg.extra``. ``mesh`` data parallelism and turnkey int8 raise
     NotImplementedError naming the slice that brings them.
     """
     device = resolve_device(device)
@@ -138,10 +236,6 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     if cfg.extra.get("quantize") == "int8":
         raise NotImplementedError("int8 steps arrive with the turnkey-int8 "
                                   "slice")
-    for key, slice_name in _LATER_EXTRAS.items():
-        if cfg.extra.get(key):
-            raise NotImplementedError(
-                f"extra.{key} arrives with the {slice_name} slice")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
     if bundle is None:
@@ -152,14 +246,13 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
         raise ValueError(f"bundle lives on {bundle.device}, step asked for "
                          f"{device}")
     model_size = model_size or bundle.spec.input_size
-    if src_size not in (None, model_size):
-        raise NotImplementedError(
-            f"{src_size}-px tiles need the device resize to {model_size} "
-            "px, which arrives with the preprocess slice")
     return DetectStep(bundle=bundle,
-                      fn=make_detect_fn(bundle, cfg, model_size=model_size),
+                      fn=make_detect_fn(bundle, cfg, src_size=src_size,
+                                        crop_size=crop_size,
+                                        model_size=model_size),
                       batch=batch or cfg.device_batch,
-                      input_size=model_size, model_size=model_size)
+                      input_size=src_size or model_size,
+                      model_size=model_size)
 
 
 def detection_sets_agree(out_a, out_b, *, min_match_frac: float = 0.9,

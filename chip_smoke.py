@@ -7,20 +7,33 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits nonzero, and no result line is printed):
   1. the card, from nvidia-smi (name, power limit);
-  2. build every CUDA kernel of the main path from ``csrc/`` (timed);
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (NMS: B=64, K=256, D=64; class-agnostic and class-aware,
-     score ties, all below the confidence threshold): bit-identical outputs
-     required (tolerance 0); kernel, plain and bound times;
+  2. build every CUDA kernel from ``csrc/``, all nvcc processes at once
+     (timed);
+  3. each kernel against its plain PyTorch version on the card, at the
+     paths' shapes, tolerance 0: NMS (B=64, K=256, D=64; class-agnostic and
+     class-aware, score ties, all below the confidence threshold) with
+     bit-identical picks; the CLAHE LUT application (B=64, 640x640, 8x8
+     tiles, V=3 and V=1; ragged B=2, 250x237) with raw f32 outputs equal;
+     kernel, plain and bound times; and the rest of CLAHE on the card
+     against the same functions on the CPU: histograms, LUTs and the gray
+     path equal (tolerance 0), the RGB path within the CPU tests' tolerance;
   4. the main path at full width: the YOLOv7-tiny detect step from the
      trained fixture, 640 px, batch 64, bf16, on synthetic 0.5 m/px tiles
      with known car positions; step time and tiles/s; its detections held
      against the port's f32 step on the same card (matched fraction ≥ 0.9 at
      IoU 0.5, detection_sets_agree) and against the rendered cars;
   5. the port's DetectionServer over that step answers JPEG POST /detect
-     requests.
-Launch counts are zeroed just before phase 4 and read just after phase 5;
-every kernel of the path must have launched in that window.
+     requests;
+  6. the TTA step (8 variations, 512 images per forward) at the same width,
+     batch and dtype: step time, tiles/s, stage times, peak memory; its
+     detections held against the rendered cars (recall ≥ 0.8) and against
+     the single-scale bf16 step of phase 4 (matched ≥ 0.9);
+  7. the multiscale step ([0.85, 1.0, 1.15], default weights and box
+     voting), with the same two checks.
+Launch counts are zeroed just before each path (4–5, 6, 7) and read just
+after it; every kernel of a path must have launched in its window. The
+profiler runs after every timed run; the multiscale step is then timed once
+more, to show whether a profile earlier in the process moves later timings.
 
 Output: the card line, then a ``{"kernels": [...]}`` JSON line, then the
 last line ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -40,6 +53,7 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "yolov7_tiny_fakeworld.npz")
 B, SIZE, K, D = 64, 640, 256, 64
+GRID, CLIPS = (8, 8), (2.0, 3.0, 4.0)       # the TTA ladder's CLAHE
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 (non-tensor)
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -190,6 +204,230 @@ def check_nms_kernel(torch, record):
             "library_ms": None}
 
 
+def lightness_levels(rng, b: int, h: int, w: int):
+    """int32 [b,h,w] lightness planes: smooth structure plus noise and a
+    flat patch, so histograms clip and the tiles' LUTs differ."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = 110 + 70 * np.sin(yy / 9.0) * np.cos(xx / 13.0) \
+        + rng.normal(0, 25, (b, h, w))
+    img[:, : h // 3, : w // 4] = 17
+    return np.clip(np.round(img), 0, 255).astype(np.int32)
+
+
+def check_clahe_kernel(torch, record):
+    """Kernel vs plain on the card; returns the kernel's record entry."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.clahe import (
+        _apply_luts_plain, _luts_from_hist, _tile_histograms,
+        clahe_gray_device_multi)
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    gh, gw = GRID
+    cases = [("production", B, SIZE, SIZE, CLIPS),
+             ("production-v1", B, SIZE, SIZE, CLIPS[:1]),
+             ("ragged", 2, 250, 237, CLIPS),
+             ("ragged-v1", 2, 250, 237, CLIPS[:1])]
+    max_err = 0.0
+    for name, b, h, w, clips in cases:
+        l8 = torch.from_numpy(lightness_levels(rng, b, h, w)).to(dev)
+        hist, (th, tw), n_px = _tile_histograms(l8, GRID)
+        luts = torch.stack([_luts_from_hist(hist, c, n_px) for c in clips],
+                           dim=3)
+        # the stages before the kernel, card against CPU, tolerance 0
+        l8_cpu = l8.cpu()
+        hist_cpu, geom_cpu, n_px_cpu = _tile_histograms(l8_cpu, GRID)
+        luts_cpu = torch.stack([_luts_from_hist(hist_cpu, c, n_px_cpu)
+                                for c in clips], dim=3)
+        if (geom_cpu, n_px_cpu) != ((th, tw), n_px) \
+                or not torch.equal(hist.cpu(), hist_cpu):
+            fail(f"clahe {name}: tile histograms on the card differ from "
+                 f"the CPU's in {int((hist.cpu() != hist_cpu).sum())} bins")
+        if luts.dtype != luts_cpu.dtype or not torch.equal(luts.cpu(),
+                                                           luts_cpu):
+            fail(f"clahe {name}: LUTs on the card differ from the CPU's in "
+                 f"{int((luts.cpu() != luts_cpu).sum())} of {luts.numel()} "
+                 f"entries")
+        # the gray path as a whole (histograms, LUTs, kernel, rounding)
+        # against the CPU's (plain version); a slice of the big batch
+        nb = min(b, 4)
+        gray = clahe_gray_device_multi(l8[:nb], clips, GRID)
+        gray_cpu = clahe_gray_device_multi(l8_cpu[:nb], clips, GRID)
+        if gray.dtype != gray_cpu.dtype or not torch.equal(gray.cpu(),
+                                                           gray_cpu):
+            fail(f"clahe {name}: clahe_gray_device_multi on the card differs "
+                 f"from the CPU's in {int((gray.cpu() != gray_cpu).sum())} "
+                 f"of {gray.numel()} pixels")
+        got = apply_luts(luts, l8, gh, gw, th, tw)
+        torch.cuda.synchronize()
+        want = _apply_luts_plain(luts, l8, gh, gw, th, tw)
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = int((got != want).sum())
+            levels = int((torch.round(got) != torch.round(want)).sum())
+            fail(f"clahe_apply {name}: raw f32 differs from the plain "
+                 f"version in {bad} of {got.numel()} values (max abs "
+                 f"{err}, {levels} rounded levels)")
+        if float(want.std()) < 10.0:
+            fail(f"clahe_apply {name}: degenerate comparison input")
+        record["clahe_cases"].append(
+            {"case": name, "shape": [len(clips), b, h, w],
+             "raw_f32_equal": True, "hist_equal_cpu": True,
+             "luts_equal_cpu": True, "gray_multi_equal_cpu_images": nb})
+        if name == "production":
+            args = (luts, l8, gh, gw, th, tw)
+            hist_ms = cuda_ms(lambda: _tile_histograms(l8, GRID), 20)
+            luts_ms = cuda_ms(lambda: [_luts_from_hist(hist, c, n_px)
+                                       for c in clips], 20)
+    ms = cuda_ms(lambda: apply_luts(*args), 200)
+    plain_ms = cuda_ms(lambda: _apply_luts_plain(*args), 5, warmup=1)
+    luts, l8 = args[:2]
+    v, npx = luts.shape[3], l8.numel()
+    # each input read once, each output written once: pixels, LUTs, the two
+    # weight vectors and cell boundaries in; V planes out
+    nbytes = npx * 4 + luts.numel() * 4 + 2 * (SIZE * 4) \
+        + (gh + 1 + gw + 1) * 4 + v * npx * 4
+    # per pixel 1−wx (1−wy is per row); per pixel and variant 6 multiplies
+    # and 3 adds
+    flops = npx * (1 + 9 * v)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS * 1e3
+    record["clahe_stage_ms"] = {"histograms_bincount": hist_ms,
+                                "luts_from_hist_x3": luts_ms}
+    return {"name": "clahe_apply", "route": "cuda",
+            "source": "aerial_image_recognition_tpu_torch/csrc/clahe_apply.cu",
+            "replaces": "aerial_image_recognition_tpu/ops/clahe_pallas.py:103",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def check_clahe_rgb_on_card(torch, images, n: int = 4):
+    """The RGB CLAHE path (LAB forward, levels, gray path, LAB inverse) on
+    the card against the same functions on the CPU, on n rendered tiles in
+    f32. ``pow(x, 1/3)`` may differ by ULPs between the two, so the
+    tolerance is the one the CPU tests hold against the reference:
+    lightness levels equal except <= 1 level on < 1e-3 of the pixels, RGB
+    within 2/255 max and 1e-4 mean."""
+    from aerial_image_recognition_tpu_torch.ops.clahe import (
+        _lightness_levels, clahe_rgb_device_multi)
+    x_cpu = (torch.from_numpy(images[:n]).float() / 255.0).permute(0, 3, 1, 2)
+    x = x_cpu.cuda()
+    lev = (_lightness_levels(x)[0].cpu() - _lightness_levels(x_cpu)[0]).abs()
+    frac = float((lev > 0).float().mean())
+    if int(lev.max()) > 1 or frac >= 1e-3:
+        fail(f"clahe rgb: lightness levels on the card differ from the "
+             f"CPU's by up to {int(lev.max())} on {frac:.2e} of the pixels")
+    err = (clahe_rgb_device_multi(x, CLIPS).cpu()
+           - clahe_rgb_device_multi(x_cpu, CLIPS)).abs()
+    if float(err.max()) > 2 / 255 or float(err.mean()) > 1e-4:
+        fail(f"clahe rgb: output on the card differs from the CPU's by max "
+             f"{float(err.max()):.5f}, mean {float(err.mean()):.2e}")
+    return {"images": n, "levels_differing_frac": frac,
+            "levels_max_diff": int(lev.max()),
+            "rgb_max_abs_err": float(err.max()),
+            "rgb_mean_abs_err": float(err.mean())}
+
+
+def timed_steps(torch, step, images, bounds, n: int):
+    """One warm-up call, then n timed calls: (last output, ms per step)."""
+    out = step(images, bounds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = step(images, bounds)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / n * 1e3
+
+
+def check_output(torch, label, out):
+    """Shapes and finiteness of a step's (Detections, lon, lat)."""
+    det, lon, lat = out
+    if tuple(det.boxes.shape) != (B, D, 4) or tuple(lon.shape) != (B, D):
+        fail(f"{label}: output shapes {tuple(det.boxes.shape)} "
+             f"{tuple(lon.shape)}")
+    for name, t in (("boxes", det.boxes), ("scores", det.scores),
+                    ("lon", lon), ("lat", lat)):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{label}: non-finite {name}")
+    if int(det.valid.sum()) == 0:
+        fail(f"{label}: no detections")
+
+
+def tta_stage_times(torch, step, dev_images):
+    """Device ms of the TTA step's stages, each alone, on the batch that
+    is already on the card (CUDA events)."""
+    from aerial_image_recognition_tpu_torch.ops.augment import expand_tta
+    from aerial_image_recognition_tpu_torch.ops.clahe import (
+        _lightness_levels, _tile_histograms, clahe_rgb_device_multi)
+    from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        preprocess_batch)
+    with torch.inference_mode():
+        x = preprocess_batch(dev_images, out_size=SIZE, dtype=torch.bfloat16)
+        l8 = _lightness_levels(x)[0]
+        xv, _ = expand_tta(x)
+        boxes, scores = step.bundle.forward(xv)
+        a = boxes.shape[1]
+        boxes = boxes.reshape(8, B, a, 4).transpose(0, 1).reshape(B, -1, 4)
+        scores = scores.reshape(8, B, a, -1).transpose(0, 1) \
+            .reshape(B, 8 * a, -1)
+        return {
+            "preprocess": cuda_ms(lambda: preprocess_batch(
+                dev_images, out_size=SIZE, dtype=torch.bfloat16), 5),
+            "expand_tta": cuda_ms(lambda: expand_tta(x), 5),
+            "clahe_rgb_device_multi": cuda_ms(
+                lambda: clahe_rgb_device_multi(x, CLIPS), 5),
+            "lab_forward_and_levels": cuda_ms(
+                lambda: _lightness_levels(x), 5),
+            "histograms_bincount": cuda_ms(
+                lambda: _tile_histograms(l8, GRID), 5),
+            "forward_512_images": cuda_ms(
+                lambda: step.bundle.forward(xv), 3, warmup=1),
+            "nms_over_8x_anchors": cuda_ms(lambda: batched_nms(
+                boxes, scores, num_classes=1, conf_threshold=0.3,
+                iou_threshold=0.45, max_det=D, pre_topk=K,
+                preselect="approx"), 5),
+        }
+
+
+def multiscale_stage_times(torch, step, dev_images):
+    """Device ms of the multiscale step's stages, each alone (CUDA events),
+    and of the crop + resize preprocess that no path here runs (1024-px
+    mosaics, center crop 864, resize to the model's 640)."""
+    from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        matmul_resize_float, preprocess_batch)
+    with torch.inference_mode():
+        x = preprocess_batch(dev_images, out_size=SIZE, dtype=torch.bfloat16)
+        times, boxes, scores = {}, [], []
+        for size in (544, SIZE, 736):
+            xs = x if size == SIZE else matmul_resize_float(x, size)
+            if size != SIZE:
+                times[f"resize_{size}"] = cuda_ms(
+                    lambda: matmul_resize_float(x, size), 5)
+            times[f"forward_{size}"] = cuda_ms(
+                lambda: step.bundle.forward(xs), 5)
+            bb, ss = step.bundle.forward(xs)
+            boxes.append(bb * (SIZE / size))
+            scores.append(ss if size == SIZE else ss * 0.8)
+        boxes, scores = torch.cat(boxes, 1), torch.cat(scores, 1)
+        for label, vote in (("nms", None), ("nms_with_voting", 0.5)):
+            times[label] = cuda_ms(lambda: batched_nms(
+                boxes, scores, num_classes=1, conf_threshold=0.3,
+                iou_threshold=0.45, max_det=D, pre_topk=K,
+                preselect="approx", vote_iou=vote), 5)
+        mosaics = torch.randint(0, 256, (B, 1024, 1024, 3),
+                                dtype=torch.uint8, device="cuda")
+        times["preprocess_1024_crop_864_resize_640"] = cuda_ms(
+            lambda: preprocess_batch(mosaics, out_size=SIZE, crop_size=864,
+                                     dtype=torch.bfloat16), 5)
+    return times
+
+
 def recall(out, bounds, cars, radius_m: float = 2.0) -> float:
     """Fraction of rendered cars with a detection centre within radius_m."""
     from aerial_image_recognition_tpu_torch.post.georef import (
@@ -306,6 +544,8 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     try:
         from aerial_image_recognition_tpu_torch.kernels.build import build_all
+        from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+            apply_luts)
         from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
             nms_suppress)
         from aerial_image_recognition_tpu_torch.pipeline.inference import (
@@ -321,7 +561,8 @@ def main() -> None:
     import numpy as np
 
     record = {"torch": torch.__version__, "cuda": torch.version.cuda,
-              "python": sys.version.split()[0], "nms_cases": []}
+              "python": sys.version.split()[0], "nms_cases": [],
+              "clahe_cases": []}
 
     # 1. the card
     card = card_line()
@@ -331,9 +572,10 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    build_all(["nms_suppress"])
+    build_all(["nms_suppress", "clahe_apply"])
     record["build_s"] = time.perf_counter() - t0
-    print(f"build: nms_suppress in {record['build_s']:.2f} s", flush=True)
+    print(f"build: nms_suppress, clahe_apply in {record['build_s']:.2f} s",
+          flush=True)
 
     # 3. kernel vs plain
     kernel = check_nms_kernel(torch, record)
@@ -341,10 +583,27 @@ def main() -> None:
           f"{len(record['nms_cases'])} cases; {kernel['ms']:.4f} ms "
           f"(plain {kernel['plain_ms']:.3f} ms, bound "
           f"{kernel['bound_ms']:.6f} ms) [{card}]", flush=True)
+    clahe = check_clahe_kernel(torch, record)
+    print(f"clahe_apply: raw f32 equal to plain on "
+          f"{len(record['clahe_cases'])} cases; {clahe['ms']:.4f} ms "
+          f"(plain {clahe['plain_ms']:.3f} ms, bound "
+          f"{clahe['bound_ms']:.4f} ms by {clahe['bound_by']}) [{card}]",
+          flush=True)
+
+    print(f"clahe stages: histograms, LUTs and the gray path on the card "
+          f"equal the CPU's on {len(record['clahe_cases'])} cases "
+          f"(tolerance 0) [{card}]", flush=True)
 
     # 4. the main path at full width, and its f32 reference on this card
     rng = np.random.default_rng(1)
     images, bounds, cars = render_tiles(rng, B, SIZE)
+    record["clahe_rgb_card_vs_cpu"] = rgb = check_clahe_rgb_on_card(
+        torch, images)
+    print(f"clahe rgb path, card against CPU on {rgb['images']} tiles: "
+          f"levels differ on {rgb['levels_differing_frac']:.2e} of the "
+          f"pixels (max {rgb['levels_max_diff']}), RGB max abs "
+          f"{rgb['rgb_max_abs_err']:.5f}, mean {rgb['rgb_mean_abs_err']:.2e} "
+          f"[{card}]", flush=True)
     base = dict(params_path=FIXTURE, device_batch=B)
     torch.backends.cudnn.allow_tf32 = False      # the f32 reference is f32
     ref_step = build_detect_step(
@@ -358,23 +617,25 @@ def main() -> None:
     if (step.batch, step.input_size, step.model_size) != (B, SIZE, SIZE):
         fail(f"step shape {(step.batch, step.input_size, step.model_size)}")
 
-    nms_suppress.launches = 0                    # main path starts here
-    out = step(images, bounds)
-    torch.cuda.synchronize()
+    wrappers = {"nms_suppress": nms_suppress, "clahe_apply": apply_luts}
+    launches = {}
+
+    def open_window():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def close_window(path, needed):
+        launches[path] = {k: w.launches for k, w in wrappers.items()}
+        for k in needed:
+            if launches[path][k] == 0:
+                fail(f"the {path} path never launched {k}")
+
+    open_window()                                # default path starts here
     n_iter = 20
-    t0 = time.perf_counter()
-    for _ in range(n_iter):
-        out = step(images, bounds)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n_iter * 1e3
+    out, step_ms = timed_steps(torch, step, images, bounds, n_iter)
     dev_images = torch.from_numpy(images).cuda()
     dev_bounds = torch.from_numpy(bounds).cuda()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_iter):
-        step(dev_images, dev_bounds)
-    torch.cuda.synchronize()
-    device_ms = (time.perf_counter() - t0) / n_iter * 1e3
+    _, device_ms = timed_steps(torch, step, dev_images, dev_bounds, n_iter)
 
     # 5. the server over the same step
     srv = DetectionServer(detect_step=step, max_wait_ms=20.0).start()
@@ -385,34 +646,12 @@ def main() -> None:
             stats = json.load(r)
     finally:
         srv.stop()
-    launches = nms_suppress.launches             # main path ends here
-    kernel["launches"] = launches
-    if launches == 0:
-        fail("the main path never launched nms_suppress")
-
-    profile = profile_step(torch, step, dev_images, dev_bounds)
-    flops = step_flops(torch, step, dev_images, dev_bounds)
-    # the f32 heads are 0.4 % of these FLOPs; the bound counts all at bf16
-    profile.update(step_gflop=flops / 1e9,
-                   step_bound_ms=flops / BF16_FLOPS * 1e3)
-    record["profile"] = profile
-    if "top" in profile:
-        print(f"profile: device busy {profile['device_busy_ms_per_step']:.2f}"
-              f" of {profile['wall_ms_per_step_profiled']:.2f} ms/step "
-              f"({profile['step_gflop']:.1f} GFLOP, bound "
-              f"{profile['step_bound_ms']:.3f} ms), "
-              "top: " + "; ".join(f"{r['ms_per_step']:.3f} ms {r['name'][:60]}"
-                                  for r in profile["top"][:6]) + f" [{card}]",
-              flush=True)
+    close_window("default", ["nms_suppress"])    # default path ends here
+    default_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # what came out is right
-    det, lon, lat = out
-    if tuple(det.boxes.shape) != (B, D, 4) or tuple(lon.shape) != (B, D):
-        fail(f"output shapes {tuple(det.boxes.shape)} {tuple(lon.shape)}")
-    for label, t in (("boxes", det.boxes), ("scores", det.scores),
-                     ("lon", lon), ("lat", lat)):
-        if not bool(torch.isfinite(t).all()):
-            fail(f"non-finite {label}")
+    check_output(torch, "default step", out)
+    det = out[0]
     ok, agree = detection_sets_agree(out, ref_out)
     rec_bf16 = recall(out, bounds, cars)
     rec_f32 = recall(ref_out, bounds, cars)
@@ -437,11 +676,10 @@ def main() -> None:
                 "detections": n_det, "agree_f32": agree,
                 "recall_bf16": rec_bf16, "recall_f32": rec_f32,
                 "cars": sum(len(c) for c in cars),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+                "peak_mem_gb": default_peak_gb}
     record.update(step=step_rec, server={
         "requests": n_req, "stats": stats,
         "counts": [body["count"] for _, body in replies]})
-    record["kernels"] = [kernel]
     print(f"step: {step_ms:.2f} ms/batch of {B} (host uint8 input), "
           f"{B / step_ms * 1e3:.1f} tiles/s; {device_ms:.2f} ms with the "
           f"batch already on the card; {n_det} detections, f32 agreement "
@@ -450,10 +688,99 @@ def main() -> None:
     print(f"server: {n_req} JPEG /detect requests answered, "
           f"{stats['batches']} batches [{card}]", flush=True)
 
+    # 6.–7. the accuracy modes at the same width, batch and dtype, held
+    # against the rendered cars and the single-scale step's detections
+    def mode_path(path, extra, needed, n_timed, per_step):
+        mode_step = build_detect_step(DetectorConfig.from_dict(
+            dict(base, dtype="bfloat16", **extra)))
+        torch.cuda.reset_peak_memory_stats()
+        open_window()
+        mode_out, ms = timed_steps(torch, mode_step, images, bounds, n_timed)
+        close_window(path, needed)
+        for k, n_per in per_step.items():
+            if launches[path][k] < n_per * (n_timed + 1):
+                fail(f"{path}: {launches[path][k]} launches of {k} in "
+                     f"{n_timed + 1} steps")
+        check_output(torch, f"{path} step", mode_out)
+        ok_m, agree_m = detection_sets_agree(mode_out, out)
+        rec_m = recall(mode_out, bounds, cars)
+        if not ok_m:
+            fail(f"{path} step disagrees with the single-scale step: "
+                 f"{agree_m}")
+        if rec_m < 0.8:
+            fail(f"{path}: recall of the rendered cars {rec_m:.3f}")
+        rec = {"batch": B, "size": SIZE, "dtype": "bfloat16", "extra": extra,
+               "timed_steps": n_timed, "step_ms_host_input": ms,
+               "tiles_per_s_host_input": B / ms * 1e3,
+               "detections": int(mode_out[0].valid.sum()),
+               "agree_single_scale": agree_m, "recall": rec_m,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"{path}: {ms:.2f} ms/batch of {B} (host uint8 input), "
+              f"{B / ms * 1e3:.1f} tiles/s; {rec['detections']} detections, "
+              f"agreement with the single-scale step {agree_m}, recall "
+              f"{rec_m:.3f}, peak memory {rec['peak_mem_gb']:.2f} GB "
+              f"[{card}]", flush=True)
+        return mode_step, rec
+
+    tta_step, record["tta"] = mode_path(
+        "tta", {"tta": True}, ["nms_suppress", "clahe_apply"], 5,
+        {"nms_suppress": 1, "clahe_apply": 1})
+    record["tta"]["stage_ms"] = tta_stage_times(torch, tta_step, dev_images)
+    print("tta stages (ms, each alone): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in record["tta"]["stage_ms"].items())
+        + f" [{card}]", flush=True)
+    ms_step, record["multiscale"] = mode_path(
+        "multiscale", {"multiscale": [0.85, 1.0, 1.15]}, ["nms_suppress"], 5,
+        {"nms_suppress": 1})
+    record["multiscale"]["stage_ms"] = multiscale_stage_times(
+        torch, ms_step, dev_images)
+    print("multiscale stages (ms, each alone): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in record["multiscale"]["stage_ms"].items())
+        + f" [{card}]", flush=True)
+
+    # device time by kernel, after every timed run
+    profile = profile_step(torch, step, dev_images, dev_bounds)
+    flops = step_flops(torch, step, dev_images, dev_bounds)
+    # the f32 heads are 0.4 % of these FLOPs; the bound counts all at bf16
+    profile.update(step_gflop=flops / 1e9,
+                   step_bound_ms=flops / BF16_FLOPS * 1e3)
+    record["profile"] = profile
+    if "top" in profile:
+        print(f"profile: device busy {profile['device_busy_ms_per_step']:.2f}"
+              f" of {profile['wall_ms_per_step_profiled']:.2f} ms/step "
+              f"({profile['step_gflop']:.1f} GFLOP, bound "
+              f"{profile['step_bound_ms']:.3f} ms), "
+              "top: " + "; ".join(f"{r['ms_per_step']:.3f} ms {r['name'][:60]}"
+                                  for r in profile["top"][:6]) + f" [{card}]",
+              flush=True)
+
+    for path, mode_step in (("tta", tta_step), ("multiscale", ms_step)):
+        record[path]["profile"] = prof = profile_step(
+            torch, mode_step, dev_images, dev_bounds, n=2)
+        if "top" in prof:
+            print(f"{path} profile: device busy "
+                  f"{prof['device_busy_ms_per_step']:.2f} of "
+                  f"{prof['wall_ms_per_step_profiled']:.2f} ms/step, idle "
+                  f"share {prof['idle_share']:.3f}, top: " + "; ".join(
+                      f"{r['ms_per_step']:.3f} ms {r['name'][:60]}"
+                      for r in prof["top"][:4]) + f" [{card}]", flush=True)
+    # the same multiscale step, timed again now that the profiler has run
+    _, after_ms = timed_steps(torch, ms_step, images, bounds, 5)
+    record["multiscale"]["step_ms_host_input_after_profiler"] = after_ms
+    print(f"multiscale after the profiler ran in this process: "
+          f"{after_ms:.2f} ms/batch against "
+          f"{record['multiscale']['step_ms_host_input']:.2f} before "
+          f"[{card}]", flush=True)
+
+    for entry in (kernel, clahe):
+        entry["launches"] = sum(p[entry["name"]] for p in launches.values())
+        entry["launches_by_path"] = {path: p[entry["name"]]
+                                     for path, p in launches.items()}
+    record["kernels"] = [kernel, clahe]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": record["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

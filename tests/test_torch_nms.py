@@ -8,6 +8,11 @@ Two comparisons on the same numpy inputs:
   * the port's ``batched_nms`` against the JAX ``batched_nms`` scan path:
     valid and classes bit-identical, scores and boxes exactly equal.
 The cases are those of ``tests/test_pallas_nms.py`` plus exact score ties.
+
+Then the other forms: the fixpoint suppression gives the plain version's
+picks bit for bit; box voting agrees with the JAX ``box_voting`` within
+1e-3 px (a weighted f32 sum over up to 256 candidates, summed in another
+order) and with the numpy oracle of ``tests/test_pallas_nms.py``.
 """
 
 import os
@@ -21,8 +26,10 @@ from aerial_image_recognition_tpu.ops.nms import batched_nms as jax_nms
 from aerial_image_recognition_tpu.ops.pallas_kernels import (
     nms_suppress_pallas)
 from aerial_image_recognition_tpu_torch.ops.nms import (
-    _suppress_plain, batched_nms, iou_matrix)
+    _suppress_fixpoint, _suppress_plain, batched_nms, iou_matrix)
 from aerial_image_recognition_tpu_torch.ops.nms_kernel import nms_suppress
+
+torch.set_num_threads(2)        # xdist workers share the cores
 
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -174,7 +181,154 @@ def test_iou_matrix_and_options():
         np.asarray(jax_iou_matrix(jnp.asarray(a), jnp.asarray(b))))
     boxes = torch.zeros((1, 8, 4))
     scores = torch.zeros((1, 8, 1))
-    with pytest.raises(NotImplementedError, match="box voting"):
-        batched_nms(boxes, scores, num_classes=1, vote_iou=0.5)
     with pytest.raises(ValueError, match="preselect"):
         batched_nms(boxes, scores, num_classes=1, preselect="fast")
+    with pytest.raises(ValueError, match="unknown nms suppression"):
+        batched_nms(boxes, scores, num_classes=1, suppression="fixpont")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fixpoint_picks_match_plain_suppression(name):
+    boxes, scores, kw = _problem(name)
+    boxes_t, masked, cls = _preselected(boxes, scores, kw)
+    aware = kw["class_aware"] and kw["num_classes"] > 1
+    args = (torch.from_numpy(boxes_t), torch.from_numpy(masked),
+            torch.from_numpy(cls))
+    skw = dict(iou_threshold=0.45, max_det=kw["max_det"], class_aware=aware)
+    want = _suppress_plain(*args, **skw)
+    got = _suppress_fixpoint(*args, **skw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    valid = want[1] >= 0.3
+    if name != "empty":
+        assert valid.any()
+    assert torch.equal(got[1] >= 0.3, valid)
+    assert torch.equal(got[1], want[1])               # conf, all slots
+    for g, w in zip(got, want):                       # idx, conf, cls
+        assert torch.equal(g[valid], w[valid])
+
+
+@pytest.mark.parametrize("suppression", [None, "pallas", "scan", "fixpoint"])
+@pytest.mark.parametrize("name", ["clustered-nc3-aware", "ties-nc1",
+                                  "fewer-candidates-than-slots"])
+def test_batched_nms_suppression_names(name, suppression):
+    boxes, scores, kw = _problem(name)
+    common = dict(conf_threshold=0.3, iou_threshold=0.45, **kw)
+    want = jax_nms(jnp.asarray(boxes), jnp.asarray(scores), use_pallas=False,
+                   preselect="exact",
+                   suppression="fixpoint" if suppression == "fixpoint"
+                   else "scan", **common)
+    got = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                      suppression=suppression, **common)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.classes.numpy(),
+                                  np.asarray(want.classes))
+    np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
+    np.testing.assert_array_equal(got.boxes.numpy(), np.asarray(want.boxes))
+
+
+@pytest.mark.parametrize("suppression,calls", [(None, 1), ("pallas", 1),
+                                               ("scan", 1), ("fixpoint", 0)])
+def test_serial_suppression_names_go_through_the_kernel_wrapper(
+        monkeypatch, suppression, calls):
+    """'scan' is a name kept for config compatibility, not a way around the
+    kernel: like None and 'pallas' it calls ``nms_suppress``, which launches
+    the CUDA kernel for tensors on the card."""
+    from aerial_image_recognition_tpu_torch.ops import nms_kernel
+    seen = []
+    real = nms_kernel.nms_suppress
+
+    def spy(*args, **kw):
+        seen.append(args[0].device.type)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(nms_kernel, "nms_suppress", spy)
+    boxes, scores, kw = _problem("clustered-nc1")
+    batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                suppression=suppression, conf_threshold=0.3,
+                iou_threshold=0.45, **kw)
+    assert len(seen) == calls
+
+
+def _voting_oracle(det, cand_boxes, cand_scores, cand_cls, vote_iou, conf,
+                   class_aware):
+    """The numpy reference of tests/test_pallas_nms.py: score-weighted mean
+    (f64) of IoU>=gate same-class candidates above conf, per kept box."""
+    from aerial_image_recognition_tpu.ops.metrics import iou_xywh
+    out = np.array(det.boxes, np.float64)
+    for b in range(out.shape[0]):
+        for d in range(out.shape[1]):
+            if not det.valid[b, d]:
+                continue
+            ious = iou_xywh(np.asarray(det.boxes[b, d])[None],
+                            np.asarray(cand_boxes[b]))[0]
+            m = (ious >= vote_iou) & (np.asarray(cand_scores[b]) >= conf)
+            if class_aware:
+                m &= np.asarray(cand_cls[b]) == int(det.classes[b, d])
+            w = np.where(m, np.asarray(cand_scores[b], np.float64), 0.0)
+            if w.sum() > 0:
+                out[b, d] = (w[:, None]
+                             * np.asarray(cand_boxes[b], np.float64)
+                             ).sum(0) / w.sum()
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["clustered-nc1", "clustered-nc3-aware",
+                                  "clustered-nc3-agnostic", "ties-nc1"])
+def test_box_voting_matches_jax_and_numpy_oracle(name):
+    boxes, scores, kw = _problem(name)
+    common = dict(conf_threshold=0.3, iou_threshold=0.45, **kw)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    plain = batched_nms(tb, ts, **common)
+    voted = batched_nms(tb, ts, vote_iou=0.5, **common)
+    want = jax_nms(jnp.asarray(boxes), jnp.asarray(scores), use_pallas=False,
+                   preselect="exact", vote_iou=0.5, **common)
+    # scores, classes and validity pass through untouched
+    assert torch.equal(voted.valid, plain.valid)
+    assert torch.equal(voted.scores, plain.scores)
+    assert torch.equal(voted.classes, plain.classes)
+    np.testing.assert_array_equal(voted.valid.numpy(),
+                                  np.asarray(want.valid))
+    np.testing.assert_allclose(voted.boxes.numpy(), np.asarray(want.boxes),
+                               atol=1e-3, rtol=0)
+    bt, masked, cls = _preselected(boxes, scores, kw)
+    np_det = type("D", (), dict(boxes=plain.boxes.numpy(),
+                                valid=plain.valid.numpy(),
+                                classes=plain.classes.numpy()))
+    oracle = _voting_oracle(
+        np_det, bt.transpose(0, 2, 1), masked, cls, 0.5, 0.3,
+        class_aware=kw["class_aware"] and kw["num_classes"] > 1)
+    v = voted.valid.numpy()
+    np.testing.assert_allclose(voted.boxes.numpy()[v], oracle[v],
+                               rtol=1e-4, atol=1e-3)
+    # at least one box moved (duplicate-heavy problem); invalid stay zero
+    assert np.abs(voted.boxes.numpy()[v] - plain.boxes.numpy()[v]).max() > 1e-3
+    assert not voted.boxes.numpy()[~v].any()
+
+
+def test_box_voting_isolated_box_unmoved():
+    boxes = torch.tensor([[[100.0, 100.0, 20.0, 10.0]]
+                          + [[500.0 + 40 * k, 500.0, 8.0, 8.0]
+                             for k in range(7)]])
+    scores = torch.tensor(
+        np.concatenate([[0.9], np.full(7, 0.01)])[None, :, None],
+        dtype=torch.float32)
+    kw = dict(num_classes=1, conf_threshold=0.3, max_det=8, pre_topk=8)
+    plain = batched_nms(boxes, scores, **kw)
+    voted = batched_nms(boxes, scores, vote_iou=0.5, **kw)
+    np.testing.assert_allclose(voted.boxes.numpy(), plain.boxes.numpy(),
+                               atol=1e-5)
+
+
+def test_box_voting_merges_toward_weighted_mean():
+    boxes = torch.tensor([[[100.0, 100.0, 20.0, 20.0],
+                           [104.0, 100.0, 20.0, 20.0]]])
+    scores = torch.tensor([[[0.6], [0.4]]])
+    kw = dict(num_classes=1, conf_threshold=0.3, iou_threshold=0.45,
+              max_det=4, pre_topk=2)
+    plain = batched_nms(boxes, scores, **kw)
+    voted = batched_nms(boxes, scores, vote_iou=0.5, **kw)
+    assert int(plain.valid.sum()) == 1          # the pair was suppressed
+    want_cx = (0.6 * 100.0 + 0.4 * 104.0) / 1.0
+    np.testing.assert_allclose(voted.boxes.numpy()[0, 0],
+                               [want_cx, 100.0, 20.0, 20.0], rtol=1e-5)

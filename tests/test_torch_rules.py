@@ -75,16 +75,11 @@ def test_unported_options_raise():
         build_detect_step)
     from aerial_image_recognition_tpu_torch.runtime.config import (
         DetectorConfig)
-    for extra in ({"quantize": "int8"}, {"tta": True},
-                  {"multiscale": [0.85, 1.0]}, {"box_voting": 0.5},
-                  {"enhance_shadows": True}):
-        with pytest.raises(NotImplementedError):
+    for extra in ({"quantize": "int8"}, {"quantize": "int8", "tta": True}):
+        with pytest.raises(NotImplementedError, match="int8"):
             build_detect_step(DetectorConfig(extra=extra), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         build_detect_step(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="resize"):
-        build_detect_step(DetectorConfig(dtype="float32"), device="cpu",
-                          src_size=864)
     with pytest.raises(NotImplementedError):
         create_model("yolov8_tokyo", device="cpu")
 
