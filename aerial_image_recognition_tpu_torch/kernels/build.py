@@ -9,7 +9,9 @@ and a stale library is never loaded. Nothing is built at import time.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` — the kernels
 reproduce the reference's f32 arithmetic bit for bit, and nvcc's default
 FMA contraction would round ``a*b + c`` once instead of twice. No
-``--use_fast_math``: divisions must stay IEEE.
+``--use_fast_math``: divisions must stay IEEE. ``-Xptxas -v`` makes ptxas
+report each kernel's registers, shared memory and spills; the report is
+kept beside the library as ``lib<name>-<hash>.log`` (``build_log``).
 """
 
 import ctypes
@@ -24,7 +26,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -67,6 +70,7 @@ def _finish(name: str, target: Path, job) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({' '.join(cmd)}):\n"
                            f"{out}")
+    target.with_suffix(".log").write_text(out)
     os.replace(tmp, target)          # atomic: concurrent builds agree
 
 
@@ -84,6 +88,12 @@ def build_all(names: Iterable[str]) -> None:
                     job[0].wait()
         for name, target, _ in jobs:
             _libs[name] = ctypes.CDLL(str(target))
+
+
+def build_log(name: str) -> str:
+    """What nvcc and ptxas printed when ``csrc/<name>.cu`` was built."""
+    load(name)
+    return _target(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,7 +12,13 @@ picks:
     the CPU path, and the reference the tests and the card's smoke hold
     the kernel against;
   * ``ops/nms_kernel.nms_suppress`` — the hand-written CUDA kernel, which
-    ``batched_nms`` launches for tensors on the card;
+    ``batched_nms`` launches for tensors on the card. The preselect below
+    is a stable descending sort and the mask to −1 keeps the row
+    non-increasing, so the pick of a round is the first candidate not yet
+    knocked out: the kernel sweeps an alive bitmask in that order, a warp's
+    32 candidates per step, and stops when it is empty. A row in any other
+    order takes the kernel's general path (one explicit argmax round per
+    slot), with the same picks;
   * ``_suppress_fixpoint`` — the port of ``_nms_fixpoint``
     (``suppression="fixpoint"``): no serial pick loop.
 """

@@ -7,11 +7,24 @@ or raises; on a CPU tensor it runs the plain version,
 ``ops/nms._suppress_plain``, which gives the same picks bit for bit. There
 is no fallback from the card to the plain version.
 
+What bounds the kernel on the card is the chain of dependent picks, not
+bytes or arithmetic. ``batched_nms`` hands the candidates over in priority
+order (scores non-increasing and >= −1), and for such rows the kernel
+sweeps an alive bitmask chunk by chunk: a warp settles its own 32
+candidates with find-first-set and ballots, one barrier ends a chunk, the
+later candidates then test their boxes against that chunk's picks alone,
+and the steps stop when no candidate is alive (the remaining slots are
+filled in one pass). Each thread block votes on its own row; a row that is
+not in priority order (or holds a score below −1 or a NaN) takes the
+general path of the same kernel, one explicit argmax round per slot. Both
+give ``_suppress_plain``'s picks bit for bit.
+
 ``nms_suppress.launches`` counts kernel launches (not plain-version calls),
 so a run can show that its main path went through the kernel.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,7 +34,9 @@ from aerial_image_recognition_tpu_torch.kernels.args import (
 MAX_K = 1024                   # one thread per candidate, one block per image
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The C entry point, built and loaded at the first launch."""
     from aerial_image_recognition_tpu_torch.kernels.build import load
     fn = load("nms_suppress").nms_suppress_launch
     p, i = ctypes.c_void_p, ctypes.c_int

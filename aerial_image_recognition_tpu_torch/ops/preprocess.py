@@ -164,7 +164,10 @@ def preprocess_batch(images: torch.Tensor, *, out_size: int = 640,
         x = x[:, oy:oy + crop_size, ox:ox + crop_size, :]
         b, h, w, c = x.shape
     if (h, w) == (out_size, out_size):
-        return (x.permute(0, 3, 1, 2).to(torch.float32) / 255.0).to(dtype)
+        # a 0-dim divisor keeps this a true division on the card, where a
+        # Python number would turn it into a multiplication by 1/255
+        x = x.permute(0, 3, 1, 2).to(torch.float32)
+        return (x / torch.full((), 255.0, device=x.device)).to(dtype)
     if not matmul or method not in _KERNELS:
         raise NotImplementedError(
             f"resize with method={method!r}, matmul={matmul} is not ported: "

@@ -73,6 +73,9 @@ def lonlat(boxes_xy: torch.Tensor, bounds: torch.Tensor,
     s = bounds[:, 1:2]
     e = bounds[:, 2:3]
     n = bounds[:, 3:4]
-    x_frac = boxes_xy[..., 0] / model_size
-    y_frac = boxes_xy[..., 1] / model_size
+    # a 0-dim divisor: a true division on the card as on the CPU
+    size = torch.full((), model_size, dtype=boxes_xy.dtype,
+                      device=boxes_xy.device)
+    x_frac = boxes_xy[..., 0] / size
+    y_frac = boxes_xy[..., 1] / size
     return w + x_frac * (e - w), n - y_frac * (n - s)

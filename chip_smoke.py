@@ -10,9 +10,16 @@ Phases (any failure exits nonzero, and no result line is printed):
   2. build every CUDA kernel from ``csrc/``, all nvcc processes at once
      (timed);
   3. each kernel against its plain PyTorch version on the card, at the
-     paths' shapes, tolerance 0: NMS (B=64, K=256, D=64; class-agnostic and
-     class-aware, score ties, all below the confidence threshold) with
-     bit-identical picks; the CLAHE LUT application (B=64, 640x640, 8x8
+     paths' shapes, tolerance 0: NMS (``NMS_CASES``: B=64, K=256, D=64,
+     class-agnostic and class-aware, score ties, all below the confidence
+     threshold, tile-like rows that end early; K=40 < D, K=250, K=1024 with
+     D=128; and two rows outside the priority-order contract, which take
+     the kernel's general path) with bit-identical picks, timed on the
+     sweep, on a tile-like input and on the general path (device time of
+     the kernel alone by torch.profiler, and CUDA events through the
+     wrapper beside it); the f32
+     native-size preprocess and the device lon/lat on the card equal to the
+     CPU's (tolerance 0); the CLAHE LUT application (B=64, 640x640, 8x8
      tiles, V=3 and V=1; ragged B=2, 250x237) with raw f32 outputs equal;
      kernel, plain and bound times; and the rest of CLAHE on the card
      against the same functions on the CPU: histograms, LUTs and the gray
@@ -32,8 +39,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      voting), with the same two checks.
 Launch counts are zeroed just before each path (4–5, 6, 7) and read just
 after it; every kernel of a path must have launched in its window. The
-profiler runs after every timed run; the multiscale step is then timed once
-more, to show whether a profile earlier in the process moves later timings.
+steps are profiled after every timed step; the multiscale step is then timed
+once more, to show whether a profile earlier in the process moves later
+timings.
 
 Output: the card line, then a ``{"kernels": [...]}`` JSON line, then the
 last line ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -80,6 +88,29 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def kernel_ms(torch, fn, n: int, kernel: str):
+    """(device ms, event ms) of fn(), which launches the named kernel: the
+    mean device time of that kernel alone over n calls, from
+    torch.profiler, and the mean time per call by CUDA events over n more
+    calls (device time or the host's launch rate, whichever is longer)."""
+    from torch.profiler import ProfilerActivity, profile
+    events = cuda_ms(fn, n)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and kernel in ev.key:
+            us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+            count += ev.count
+    if count != n or us <= 0:
+        fail(f"the profiler saw {count} launches of {kernel} in {n} calls")
+    return us / 1e3 / count, events
+
+
 # ---------------------------------------------------------------- inputs
 
 def render_tiles(rng, n: int, size: int, px_per_m: float = 2.0):
@@ -121,26 +152,68 @@ def render_tiles(rng, n: int, size: int, px_per_m: float = 2.0):
     return np.stack(tiles), np.asarray(bounds, np.float32), cars
 
 
-def nms_inputs(rng, case: str):
-    """Kernel inputs at the main path's shapes: boxes_t [B,4,K] cxcywh in a
-    640-px frame (half of them jittered copies of the other half), masked
-    scores [B,K] (−1 below conf), classes [B,K]."""
+# (case, kind of input, class_aware, batch, candidates K, slots D). The first
+# five are the main path's shape; "unsorted" and "below-minus-one" break the
+# priority-order contract and take the kernel's general path.
+NMS_CASES = [
+    ("agnostic", "random", False, B, K, D),
+    ("aware", "random", True, B, K, D),
+    ("ties-agnostic", "ties", False, B, K, D),
+    ("ties-aware", "ties", True, B, K, D),
+    ("below-conf", "below-conf", True, B, K, D),
+    ("tile-like", "tile-like", False, B, K, D),
+    ("k-below-slots", "random", True, B, 40, D),
+    ("k-odd", "ties", True, B, 250, D),
+    ("unsorted", "unsorted", False, B, K, D),
+    ("below-minus-one", "below-minus-one", True, B, K, D),
+    ("k-1024", "random", False, 8, 1024, 128),
+]
+
+
+def nms_inputs(rng, kind: str, b: int = B, k: int = K):
+    """Kernel inputs: boxes_t [b,4,k] cxcywh in a 640-px frame (half of
+    them jittered copies of the other half), masked scores [b,k] in
+    preselect order (descending, −1 below conf), classes [b,k].
+
+    kind: "random"; "ties" (scores on a grid of 8, exact duplicate boxes);
+    "below-conf" (every score −1); "tile-like" (per image 10–24 objects,
+    each with 3–12 jittered near-duplicates scoring >= 0.3, every other
+    candidate −1); "unsorted" ("random" with each score row shuffled);
+    "below-minus-one" ("random" with the last quarter of each row at −2).
+    """
     import numpy as np
-    cx = rng.uniform(0, SIZE, (B, K))
-    cy = rng.uniform(0, SIZE, (B, K))
-    wh = rng.uniform(8, 60, (B, 2, K))
+    cx = rng.uniform(0, SIZE, (b, k))
+    cy = rng.uniform(0, SIZE, (b, k))
+    wh = rng.uniform(8, 60, (b, 2, k))
     boxes = np.concatenate([cx[:, None], cy[:, None], wh], 1)
-    boxes[:, :, K // 2:] = boxes[:, :, :K // 2] \
-        + rng.normal(0, 3, (B, 4, K // 2))
-    scores = rng.uniform(0, 1, (B, K))
-    if case == "ties":
-        scores = rng.integers(0, 8, (B, K)) / 8.0
-        boxes[:, :, 1::5] = boxes[:, :, 0:K - 1:5]
+    boxes[:, :, k // 2:] = boxes[:, :, :k - k // 2] \
+        + rng.normal(0, 3, (b, 4, k - k // 2))
+    scores = rng.uniform(0, 1, (b, k))
+    if kind == "ties":
+        scores = rng.integers(0, 8, (b, k)) / 8.0
+        boxes[:, :, 1::5] = boxes[:, :, 0:k - 1:5]
     scores = np.sort(scores, axis=1)[:, ::-1]           # preselect order
     masked = np.where(scores >= 0.3, scores, -1.0)
-    if case == "below-conf":
+    if kind == "below-conf":
         masked[:] = -1.0
-    classes = rng.integers(0, 3, (B, K))
+    elif kind == "tile-like":
+        masked[:] = -1.0
+        for i in range(b):
+            live = []
+            for _ in range(int(rng.integers(10, 25))):
+                obj = np.concatenate([rng.uniform(20, SIZE - 20, 2),
+                                      rng.uniform(8, 20, 2)])
+                dups = int(rng.integers(3, 13))
+                live.append(obj + rng.normal(0, 1.0, (dups, 4)))
+            live = rng.permutation(np.concatenate(live))[:k]
+            boxes[i, :, :len(live)] = live.T
+            masked[i, :len(live)] = np.sort(
+                rng.uniform(0.3, 1.0, len(live)))[::-1]
+    elif kind == "unsorted":
+        masked = rng.permuted(masked, axis=1)
+    elif kind == "below-minus-one":
+        masked[:, k - k // 4:] = -2.0
+    classes = rng.integers(0, 3, (b, k))
     return (boxes.astype(np.float32), masked.astype(np.float32),
             classes.astype(np.int32))
 
@@ -160,19 +233,18 @@ def card_line() -> str:
 def check_nms_kernel(torch, record):
     """Kernel vs plain on the card; returns the kernel's record entry."""
     import numpy as np
+    from aerial_image_recognition_tpu_torch.kernels.build import build_log
     from aerial_image_recognition_tpu_torch.ops.nms import _suppress_plain
     from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
         nms_suppress)
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    cases = [("agnostic", "random", False), ("aware", "random", True),
-             ("ties-agnostic", "ties", False), ("ties-aware", "ties", True),
-             ("below-conf", "below-conf", True)]
     max_err = 0.0
-    timing_args = None
-    for name, kind, aware in cases:
-        args = [torch.from_numpy(a).to(dev) for a in nms_inputs(rng, kind)]
-        kw = dict(iou_threshold=0.45, max_det=D, class_aware=aware)
+    timed = {}
+    for name, kind, aware, b, k, d in NMS_CASES:
+        args = [torch.from_numpy(a).to(dev)
+                for a in nms_inputs(rng, kind, b, k)]
+        kw = dict(iou_threshold=0.45, max_det=d, class_aware=aware)
         got = nms_suppress(*args, **kw)
         want = _suppress_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -182,26 +254,99 @@ def check_nms_kernel(torch, record):
                 fail(f"nms_suppress {name}: {label} differs from the plain "
                      f"version in {bad} of {g.numel()} slots")
         max_err = max(max_err, float((got[1] - want[1]).abs().max()))
-        if name == "agnostic":
-            timing_args, timing_kw = args, kw
-        record["nms_cases"].append({"case": name, "bit_identical": True,
-                                    "picks_valid": int((got[1] >= 0.3).sum())})
-    ms = cuda_ms(lambda: nms_suppress(*timing_args, **timing_kw), 200)
-    plain_ms = cuda_ms(lambda: _suppress_plain(*timing_args, **timing_kw), 5,
-                       warmup=1)
-    nbytes = sum(a.numel() * a.element_size() for a in timing_args) \
-        + 3 * B * D * 4
+        # rounds this input needs: the sweep stops after the last pick with
+        # a score above -1; the general path always runs all d rounds
+        in_order = bool(((args[1][:, :-1] >= args[1][:, 1:]).all()
+                         & (args[1] >= -1.0).all()))
+        rounds = int((got[1] > -1.0).sum()) if in_order else b * d
+        if name in ("agnostic", "tile-like", "unsorted"):
+            timed[name] = (args, kw, rounds)
+        record["nms_cases"].append({
+            "case": name, "shape": [b, k, d], "bit_identical": True,
+            "path": "sweep" if in_order else "general",
+            "rounds_needed": rounds,
+            "picks_valid": int((got[1] >= 0.3).sum())})
+    if [c["path"] for c in record["nms_cases"]
+            if c["case"] in ("unsorted", "below-minus-one")] \
+            != ["general"] * 2 or timed["agnostic"][2] != B * D:
+        fail("nms_suppress: the cases do not cover both paths as intended")
+
+    # same call, same card: general path, sweep, sweep again, general
+    # path; each figure is the mean of its two readings. The kernel is
+    # shorter than the wrapper takes the host to issue it, so its time is
+    # the device time of the kernel alone (torch.profiler); the event-timed
+    # figure over the same launches, which is then the host's launch rate,
+    # stands beside it.
+    order = ["unsorted", "agnostic", "tile-like", "tile-like", "agnostic",
+             "unsorted"]
+    runs = {name: {"device_ms": [], "events_ms": []} for name in timed}
+    for name in order:
+        args, kw, _ = timed[name]
+        dev_ms, ev_ms = kernel_ms(
+            torch, lambda: nms_suppress(*args, **kw), 200,
+            "nms_suppress_kernel")
+        runs[name]["device_ms"].append(dev_ms)
+        runs[name]["events_ms"].append(ev_ms)
+    record["nms_ms_runs"] = runs
+    ms, tile_ms, general_ms = (sum(runs[n]["device_ms"]) / 2 for n in
+                               ("agnostic", "tile-like", "unsorted"))
+    ev, tile_ev, general_ev = (sum(runs[n]["events_ms"]) / 2 for n in
+                               ("agnostic", "tile-like", "unsorted"))
+    args, kw, rounds = timed["agnostic"]
+    plain_ms = cuda_ms(lambda: _suppress_plain(*args, **kw), 5, warmup=1)
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 3 * B * D * 4
     # per candidate once: half-extents, corners, area (9 flops); per round
-    # and candidate: argmax compare + IoU with the pick and the > test (15)
-    flops = B * (9 * K + D * 15 * K)
+    # that this input needs, and candidate: pick + IoU with it + > test (15)
+    flops = B * 9 * K + rounds * 15 * K
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS * 1e3
-    return {"name": "nms_suppress", "route": "cuda",
-            "source": "aerial_image_recognition_tpu_torch/csrc/nms_suppress.cu",
-            "replaces": "aerial_image_recognition_tpu/ops/pallas_kernels.py:85",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    tile_rounds = timed["tile-like"][2]
+    record["nms_ptxas"] = [line for line in
+                           build_log("nms_suppress").splitlines()
+                           if "registers" in line or "spill" in line]
+    entry = {"name": "nms_suppress", "route": "cuda",
+             "source": "aerial_image_recognition_tpu_torch/csrc/nms_suppress.cu",
+             "replaces": "aerial_image_recognition_tpu/ops/pallas_kernels.py:85",
+             "launches": 0, "max_abs_err": max_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "rounds_needed": rounds,
+             "ms_tile_like": tile_ms, "rounds_needed_tile_like": tile_rounds,
+             "bound_ms_tile_like": max(
+                 t_bytes, (B * 9 * K + tile_rounds * 15 * K)
+                 / F32_FLOPS * 1e3),
+             "ms_general_path": general_ms, "timed_by": "torch.profiler",
+             "events_ms": ev, "events_ms_tile_like": tile_ev,
+             "events_ms_general_path": general_ev}
+    return entry
+
+
+def check_divisions_on_card(torch, images, bounds, n: int = 4):
+    """The f32 native-size preprocess and the device lon/lat divide by a
+    constant; on the card they must give the CPU's bits (tolerance 0). The
+    input is n rendered tiles and one tile that holds every uint8 value."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        preprocess_batch)
+    from aerial_image_recognition_tpu_torch.post.georef import lonlat
+    ramp = (np.arange(SIZE * SIZE * 3) % 256).astype(np.uint8)
+    x = torch.from_numpy(np.concatenate(
+        [images[:n], ramp.reshape(1, SIZE, SIZE, 3)]))
+    cpu = preprocess_batch(x, out_size=SIZE, dtype=torch.float32)
+    card = preprocess_batch(x.cuda(), out_size=SIZE,
+                            dtype=torch.float32).cpu()
+    if card.dtype != cpu.dtype or not torch.equal(card, cpu):
+        fail(f"f32 preprocess on the card differs from the CPU's in "
+             f"{int((card != cpu).sum())} of {cpu.numel()} values")
+    rng = np.random.default_rng(3)
+    xy = torch.from_numpy(rng.uniform(0, SIZE, (n, D, 2)).astype(np.float32))
+    bnd = torch.from_numpy(bounds[:n])
+    for c, g in zip(lonlat(xy, bnd, SIZE), lonlat(xy.cuda(), bnd.cuda(),
+                                                  SIZE)):
+        if not torch.equal(g.cpu(), c):
+            fail(f"lon/lat on the card differs from the CPU's in "
+                 f"{int((g.cpu() != c).sum())} of {c.numel()} values")
+    return {"preprocess_f32_images": n + 1, "preprocess_f32_equal_cpu": True,
+            "lonlat_points": n * D, "lonlat_equal_cpu": True}
 
 
 def lightness_levels(rng, b: int, h: int, w: int):
@@ -581,8 +726,15 @@ def main() -> None:
     kernel = check_nms_kernel(torch, record)
     print(f"nms_suppress: bit-identical to plain on "
           f"{len(record['nms_cases'])} cases; {kernel['ms']:.4f} ms "
-          f"(plain {kernel['plain_ms']:.3f} ms, bound "
-          f"{kernel['bound_ms']:.6f} ms) [{card}]", flush=True)
+          f"device time ({kernel['rounds_needed']} rounds; tile-like "
+          f"{kernel['ms_tile_like']:.4f} ms, "
+          f"{kernel['rounds_needed_tile_like']} rounds; general path "
+          f"{kernel['ms_general_path']:.4f} ms; through the wrapper by "
+          f"events {kernel['events_ms']:.4f} / "
+          f"{kernel['events_ms_tile_like']:.4f} / "
+          f"{kernel['events_ms_general_path']:.4f} ms; plain "
+          f"{kernel['plain_ms']:.3f} ms, bound {kernel['bound_ms']:.6f} ms); "
+          f"ptxas: {' | '.join(record['nms_ptxas'])} [{card}]", flush=True)
     clahe = check_clahe_kernel(torch, record)
     print(f"clahe_apply: raw f32 equal to plain on "
           f"{len(record['clahe_cases'])} cases; {clahe['ms']:.4f} ms "
@@ -597,6 +749,11 @@ def main() -> None:
     # 4. the main path at full width, and its f32 reference on this card
     rng = np.random.default_rng(1)
     images, bounds, cars = render_tiles(rng, B, SIZE)
+    record["divisions_card_vs_cpu"] = div = check_divisions_on_card(
+        torch, images, bounds)
+    print(f"f32 native-size preprocess on {div['preprocess_f32_images']} "
+          f"tiles and lon/lat of {div['lonlat_points']} points: the card "
+          f"equals the CPU (tolerance 0) [{card}]", flush=True)
     record["clahe_rgb_card_vs_cpu"] = rgb = check_clahe_rgb_on_card(
         torch, images)
     print(f"clahe rgb path, card against CPU on {rgb['images']} tiles: "

@@ -68,6 +68,38 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         create_model(device="cuda")
 
 
+def test_nms_wrapper_on_cpu_is_the_plain_version_and_builds_nothing(
+        monkeypatch):
+    """A CPU tensor goes to ``_suppress_plain`` and never near the kernel's
+    build (there is no nvcc on a CPU-only machine)."""
+    import numpy as np
+
+    from aerial_image_recognition_tpu_torch.kernels import build
+    from aerial_image_recognition_tpu_torch.ops.nms import _suppress_plain
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+
+    def no_build(*a, **kw):
+        raise AssertionError("the CPU path reached kernels.build")
+
+    for name in ("load", "build_all", "_start", "_nvcc"):
+        monkeypatch.setattr(build, name, no_build)
+    rng = np.random.default_rng(5)
+    boxes_t = torch.from_numpy(
+        rng.uniform(0, 64, (2, 4, 24)).astype(np.float32))
+    scores = torch.from_numpy(
+        np.sort(rng.uniform(0, 1, (2, 24)).astype(np.float32))[:, ::-1]
+        .copy())
+    classes = torch.from_numpy(rng.integers(0, 3, (2, 24)).astype(np.int32))
+    kw = dict(iou_threshold=0.45, max_det=8, class_aware=True)
+    before = nms_suppress.launches
+    got = nms_suppress(boxes_t, scores, classes, **kw)
+    want = _suppress_plain(boxes_t, scores, classes, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert nms_suppress.launches == before
+
+
 def test_unported_options_raise():
     from aerial_image_recognition_tpu_torch.models.registry import (
         create_model)
