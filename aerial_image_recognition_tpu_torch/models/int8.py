@@ -1,0 +1,679 @@
+"""Post-training int8 quantization of the YOLOv7-tiny trunk.
+
+Counterpart of ``aerial_image_recognition_tpu/models/int8.py`` for the one
+family the port has (``yolov7_itcvd``); the yolov7-base, YOLOv8 and XUnet
+transcriptions and the fully-int8 quad-stem entry arrive with their
+families and raise ``NotImplementedError`` until then.
+
+Scheme (standard PTQ, arranged so the int8 graph needs NO runtime rescales):
+  * weights: per-output-channel symmetric int8, BatchNorm folded first;
+  * activations: per-tensor symmetric int8, scales from a calibration pass
+    (absmax of every ConvBN output, captured by forward hooks);
+  * each producer's output scale is folded into every consumer's kernel
+    slice for that producer's channels — so concatenations of differently
+    scaled int8 tensors are PLAIN int8 concats, and max-pools / nearest
+    upsamples pass int8 through untouched (value-preserving ⇒ scale-
+    preserving);
+  * leaky-relu is positively homogeneous (leaky(a·x) = a·leaky(x), a>0),
+    so the requantize division folds into the conv epilogue constants:
+      y_i8 = clip(round(leaky(conv_s32 · (s_w/s_out) + b/s_out)))
+    — one elementwise chain per conv, int8 in / int8 out
+    (``ops/int8_kernel.requantize``: a CUDA kernel on the card).
+
+The stems stay in the bundle's dtype (bf16 in production) and the three
+detect heads stay f32. The trunk graph mirrors ``models/yolov7.YOLOv7.trunk``
+(elan1 → out3/4/5); a prepare/run interpreter pair shares the single
+transcription.
+
+Two halves. The **numpy half** (``_pcq``, ``_Prepare``, the transcription,
+``save_absmax``/``load_absmax``) is a copy of the reference's and works on
+the flax-format f32 tree (HWIO kernels), so the same ``absmax`` table gives
+the same ``w8``, ``m``, ``b`` and scales bit for bit. The **torch half**
+(``_Run``, ``Int8Bundle``, ``calibrate_absmax``) runs the graph on int8
+tensors kept NHWC ``[B,H,W,C]``, the reference's layout.
+
+The integer convolution must be an exact s8×s8→s32 product. On the CPU it
+is ``F.conv2d`` on int32 tensors (the plain version). On the card it is
+``torch._int_mm`` (cuBLASLt, s32 accumulation): a 1×1 convolution is that
+product on the free view ``[B·H·W, C_in]``, a 3×3 one on an int8 im2col of
+the nine shifted slices of the zero-padded input (zero padding is
+activation 0.0, exact under symmetric quantization). The reference computes
+this product outside any hand-written kernel too (``lax.conv_general_
+dilated`` with an s32 result). There is no fallback: a CUDA tensor never
+reaches the int32 ``F.conv2d`` and never widens to float, and an
+``_int_mm`` error propagates.
+"""
+
+import json
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aerial_image_recognition_tpu_torch.ops.int8_kernel import requantize
+
+# ---------------------------------------------------------------------------
+# numpy half: weight quantization and the shared trunk graph
+
+
+def _pcq(wf: np.ndarray):
+    """Per-output-channel symmetric int8 weight quantization."""
+    o = wf.shape[-1]
+    sw = np.maximum(np.abs(wf).reshape(-1, o).max(axis=0), 1e-12) / 127.0
+    return np.clip(np.round(wf / sw), -127, 127).astype(np.int8), sw
+
+
+@dataclass
+class QT:
+    """A quantized tensor flowing through the trunk graph.
+
+    run mode: v is the int8 tensor [B,H,W,C] (s/c are bookkeeping).
+    prepare mode: v is None; s is the static coding scale, c the channels.
+    """
+    v: Any
+    s: float
+    c: int
+
+
+def _elan(g, prefix: str, x):
+    """ELANTiny (models/yolov7.py): concat order [cv4,cv3,cv2,cv1]."""
+    cv1 = g.conv(f"{prefix}/cv1", x, 1)
+    cv2 = g.conv(f"{prefix}/cv2", x, 1)
+    cv3 = g.conv(f"{prefix}/cv3", cv2, 3)
+    cv4 = g.conv(f"{prefix}/cv4", cv3, 3)
+    return g.conv(f"{prefix}/out", [cv4, cv3, cv2, cv1], 1)
+
+
+def _sppcspc_tiny(g, prefix: str, x):
+    """SPPCSPCTiny (models/yolov7.py, SPPF-equivalent chain)."""
+    cv1 = g.conv(f"{prefix}/cv1", x, 1)
+    cv2 = g.conv(f"{prefix}/cv2", x, 1)
+    p5 = g.pool_same(cv2, 5)
+    p9 = g.pool_same(p5, 5)
+    p13 = g.pool_same(p9, 5)
+    y = g.conv(f"{prefix}/cv3", [p13, p9, p5, cv2], 1)
+    return g.conv(f"{prefix}/out", [y, cv1], 1)
+
+
+def _tiny_trunk(g, x):
+    """Mirror of ``YOLOv7.trunk`` from the P2 feature to the three head
+    taps. Returns (o3, o4, o5) QTs."""
+    x = _elan(g, "elan1", x)
+    x = g.pool2(x)                                   # P3/8
+    p3 = _elan(g, "elan2", x)
+    x = g.pool2(p3)                                  # P4/16
+    p4 = _elan(g, "elan3", x)
+    x = g.pool2(p4)                                  # P5/32
+    p5 = _elan(g, "elan4", x)
+
+    spp = _sppcspc_tiny(g, "sppcspc", p5)
+    x = g.conv("up4_cv", spp, 1)
+    x = g.up2(x)
+    r4 = g.conv("route4", p4, 1)
+    f4 = _elan(g, "head_elan4", [r4, x])
+    x = g.conv("up3_cv", f4, 1)
+    x = g.up2(x)
+    r3 = g.conv("route3", p3, 1)
+    f3 = _elan(g, "head_elan3", [r3, x])
+    x = g.conv("down4_cv", f3, 3, stride=2)
+    f4b = _elan(g, "pan_elan4", [x, f4])
+    x = g.conv("down5_cv", f4b, 3, stride=2)
+    f5b = _elan(g, "pan_elan5", [x, spp])
+    o3 = g.conv("out3", f3, 3)
+    o4 = g.conv("out4", f4b, 3)
+    o5 = g.conv("out5", f5b, 3)
+    return o3, o4, o5
+
+
+class _Prepare:
+    """Walks the trunk graph building qparams (numpy) from the f32 flax-
+    format variables + calibration scales. Raises on any channel-count
+    mismatch between the transcription and the checkpoint."""
+
+    def __init__(self, variables, absmax: Dict[str, float],
+                 bn_eps: float = 1e-5, act: str = "leaky"):
+        self.p = variables["params"]
+        self.stats = variables["batch_stats"]
+        self.absmax = absmax
+        self.bn_eps = bn_eps
+        self.act = act
+        self.qparams: Dict[str, Any] = {}
+        # static per-tensor coding scales, keyed like qparams — _Run needs
+        # them as python constants (residual adds, head dequant)
+        self.scales: Dict[str, float] = {}
+
+    def _node(self, tree, name):
+        for part in name.split("/"):
+            tree = tree[part]
+        return tree
+
+    def _s_out(self, name):
+        if name not in self.absmax:
+            raise KeyError(f"no calibration record for {name}")
+        return max(self.absmax[name], 1e-12) / 127.0
+
+    def conv(self, name, x, kernel, stride=1):
+        parts = x if isinstance(x, list) else [x]
+        node = self._node(self.p, name)
+        k = np.asarray(node["conv"]["kernel"], np.float32)   # HWIO
+        if "bn" in node:
+            stats = self._node(self.stats, name)["bn"]
+            gamma = np.asarray(node["bn"]["scale"], np.float32)
+            beta = np.asarray(node["bn"]["bias"], np.float32)
+            mean = np.asarray(stats["mean"], np.float32)
+            var = np.asarray(stats["var"], np.float32)
+            g = gamma / np.sqrt(var + self.bn_eps)
+            wf = k * g                                        # O is last
+            bf = beta - mean * g
+        else:
+            # BN-less ConvBN (e.g. yolov7-base RepConv deploy form): plain
+            # conv + bias, same epilogue otherwise. copy(): the scale fold
+            # below mutates wf in place
+            wf = k.copy()
+            bf = np.asarray(node["conv"].get(
+                "bias", np.zeros(k.shape[-1])), np.float32)
+        if k.shape[0] != kernel or sum(p.c for p in parts) != k.shape[2]:
+            raise ValueError(
+                f"{name}: transcription/checkpoint mismatch — kernel "
+                f"{k.shape} vs k={kernel}, in_c={sum(p.c for p in parts)}")
+        # fold each producer's coding scale into its kernel slice: the int8
+        # concat then needs no runtime rescale
+        off = 0
+        for p in parts:
+            wf[:, :, off:off + p.c, :] *= p.s
+            off += p.c
+        o = k.shape[3]
+        w8, sw = _pcq(wf)
+        s_out = self._s_out(name)
+        if self.act in ("leaky", "relu"):
+            # leaky/relu(a·t) = a·leaky/relu(t), a>0 ⇒ fold 1/s_out into m, b
+            qp = {"w8": w8,
+                  "m": (sw / s_out).astype(np.float32),
+                  "b": (bf / s_out).astype(np.float32)}
+        else:
+            # silu is not homogeneous: requant divide stays a separate
+            # multiply after the activation
+            qp = {"w8": w8,
+                  "m": sw.astype(np.float32),
+                  "b": bf.astype(np.float32),
+                  "inv": np.float32(1.0 / s_out)}
+        self.qparams[name] = qp
+        self.scales[name] = s_out
+        return QT(None, s_out, o)
+
+    def add(self, key, y, x):
+        """Residual add (v8 Bottleneck): output coded at the calibrated
+        scale of the enclosing module's output."""
+        assert y.c == x.c, (key, y.c, x.c)
+        s = self._s_out(key)
+        self.scales[key] = s
+        return QT(None, s, y.c)
+
+    def split2(self, x):
+        assert x.c % 2 == 0
+        return QT(None, x.s, x.c // 2), QT(None, x.s, x.c // 2)
+
+    def pool2(self, x):
+        return x          # value-preserving ⇒ scale/channels unchanged
+
+    def pool_same(self, x, k):
+        return x
+
+    def up2(self, x):
+        return x
+
+
+def _prune_orig(variables, keep):
+    """Drop the trunk weights from the flax-format tree a quantized bundle
+    carries — the int8 graph reads only the stems and the detect heads.
+    Without this the unused float trunk would ride along with the int8
+    kernels."""
+    return {
+        "params": {k: v for k, v in variables["params"].items()
+                   if k in keep},
+        "batch_stats": {k: v for k, v in
+                        variables.get("batch_stats", {}).items()
+                        if k in keep},
+    }
+
+
+def _family_meta(spec, module):
+    """Stem scopes / strides / activation / BN eps per family."""
+    if spec.family == "yolov8":
+        raise NotImplementedError(
+            "int8 for YOLOv8 arrives with the other-families slice")
+    if spec.family != "yolov7":
+        raise NotImplementedError(
+            f"int8 for the {spec.family} family arrives with its slice")
+    if getattr(module, "variant", "") == "base":
+        raise NotImplementedError(
+            "int8 for yolov7-base arrives with the other-families slice")
+    return {"stems": ("stem0", "stem1"), "act": "leaky", "bn_eps": 1e-5,
+            "strides": (2, 2)}
+
+
+def save_absmax(path: str, absmax: Dict[str, float]) -> None:
+    """Persist a calibration (plain JSON): calibrate once on representative
+    imagery, reuse for every later run via cfg.extra['quantize_calib']."""
+    with open(path, "w") as f:
+        json.dump(absmax, f, indent=1, sort_keys=True)
+
+
+def load_absmax(path: str) -> Dict[str, float]:
+    with open(path) as f:
+        return {k: float(v) for k, v in json.load(f).items()}
+
+
+def qparams_from_jax(q, static_scales) -> Dict[str, Any]:
+    """The reference's ``Int8Bundle.params["q"]`` and ``static_scales`` →
+    the numpy ``q`` dictionary ``Int8Bundle.from_q`` takes, so that both
+    trunks can run on identical qparams. Leaves may be numpy or anything
+    ``np.asarray`` takes; the quad-stem entry (``q["stems"]``) is dropped."""
+    convs = {}
+    for name, qp in q["convs"].items():
+        convs[name] = {"w8": np.asarray(qp["w8"], np.int8),
+                       "m": np.asarray(qp["m"], np.float32),
+                       "b": np.asarray(qp["b"], np.float32)}
+        if "inv" in qp:
+            convs[name]["inv"] = np.float32(qp["inv"])
+    return {"p2_scale": np.float32(q["p2_scale"]), "convs": convs,
+            "out_scales": [np.float32(s) for s in q["out_scales"]],
+            "scales": {k: float(v) for k, v in static_scales.items()}}
+
+
+# ---------------------------------------------------------------------------
+# torch half: the exact integer convolution
+
+# an im2col larger than this is made and consumed in batch chunks
+IM2COL_MAX_BYTES = 1 << 30
+
+
+def _conv_s32_plain(v: torch.Tensor, w: torch.Tensor, kernel: int,
+                    stride: int) -> torch.Tensor:
+    """int8 [B,H,W,C] × int32 OIHW kernel → int32 [B,Ho,Wo,O], pad k//2:
+    ``F.conv2d`` on int32 tensors (exact integer arithmetic)."""
+    r = F.conv2d(v.permute(0, 3, 1, 2).to(torch.int32), w, None, stride,
+                 kernel // 2)
+    return r.permute(0, 2, 3, 1)
+
+
+def _wide(v: torch.Tensor) -> torch.Tensor:
+    """int8 [..., C] seen as [..., C/8] int64 where the channel count and
+    the strides allow it (every trunk shape does), else as it is: a copy of
+    such a view moves 8 bytes per element instead of 1, and a strided int8
+    copy on the card is bound by its element count, not its bytes."""
+    if v.shape[-1] % 8 == 0 and v.stride(-1) == 1 \
+            and v.storage_offset() % 8 == 0 \
+            and all(st % 8 == 0 for st in v.stride()[:-1]):
+        return v.view(torch.int64)
+    return v
+
+
+def _im2col(v: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """int8 [B,H,W,C] → [B,Ho,Wo,k·k·C]: the k·k shifted, strided slices
+    of the zero-padded input side by side, in (dy, dx, c) order — the row
+    order of an HWIO kernel reshaped to [k·k·C, O]. Pure data movement, so
+    it is done on ``_wide`` views."""
+    v = _wide(v)
+    b, h, w, c = v.shape
+    pad = kernel // 2
+    ho = (h + 2 * pad - kernel) // stride + 1
+    wo = (w + 2 * pad - kernel) // stride + 1
+    vp = v.new_zeros((b, h + 2 * pad, w + 2 * pad, c))
+    vp[:, pad:pad + h, pad:pad + w] = v
+    return torch.cat(
+        [vp[:, dy:dy + stride * (ho - 1) + 1:stride,
+            dx:dx + stride * (wo - 1) + 1:stride]
+         for dy in range(kernel) for dx in range(kernel)],
+        dim=-1).view(torch.int8)
+
+
+def _conv_s32_card(v: torch.Tensor, w: torch.Tensor, kernel: int,
+                   stride: int) -> torch.Tensor:
+    """int8 [B,H,W,C] × int8 [k·k·C, O] kernel matrix → int32 [B,Ho,Wo,O]
+    by ``torch._int_mm`` (s8×s8→s32 on the tensor cores)."""
+    cols = v if kernel == 1 and stride == 1 else _im2col(v, kernel, stride)
+    b, ho, wo, k = cols.shape
+    return torch._int_mm(cols.reshape(b * ho * wo, k), w) \
+        .reshape(b, ho, wo, w.shape[1])
+
+
+def conv_s32(v: torch.Tensor, w: torch.Tensor, kernel: int,
+             stride: int = 1) -> torch.Tensor:
+    """The exact s8×s8→s32 convolution, pad ``k//2``. ``w`` is the kernel
+    as ``device_kernel`` made it for ``v``'s device. A CPU tensor takes the
+    plain version; a CUDA tensor takes ``torch._int_mm`` or raises."""
+    if v.dtype != torch.int8 or v.dim() != 4:
+        raise ValueError(f"conv_s32: int8 [B,H,W,C] expected, got "
+                         f"{v.dtype} {tuple(v.shape)}")
+    if v.device.type == "cpu":
+        return _conv_s32_plain(v, w, kernel, stride)
+    if v.device.type != "cuda":
+        raise ValueError(f"conv_s32: no integer product for {v.device}")
+    return _conv_s32_card(v, w, kernel, stride)
+
+
+def device_kernel(w8: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int8 HWIO kernel (after ``_pcq``) in the layout ``conv_s32``
+    wants on ``device``: int32 OIHW on the CPU; on the card the int8 matrix
+    [k·k·I, O] with rows in (dy, dx, c) order, stored column-major (the
+    transposed view of a contiguous [O, k·k·I]), as cuBLASLt takes it."""
+    w8 = np.asarray(w8, np.int8)
+    if device.type == "cpu":
+        return torch.from_numpy(
+            np.ascontiguousarray(w8.transpose(3, 2, 0, 1)).astype(np.int32))
+    o = w8.shape[3]
+    return torch.from_numpy(np.ascontiguousarray(
+        w8.reshape(-1, o).T)).to(device).t()
+
+
+class _Run:
+    """Executes the trunk graph on int8 NHWC tensors with prepared qparams
+    (``w`` as ``device_kernel`` made it, ``m``, ``b`` as tensors on the
+    same device, ``inv`` a python float). QT.s stays populated: scales are static per bundle."""
+
+    def __init__(self, qparams, act: str = "leaky",
+                 scales: Optional[Dict[str, float]] = None):
+        self.q = qparams
+        self.act = act
+        self.scales = scales or {}
+
+    def conv(self, name, x, kernel, stride=1):
+        parts = x if isinstance(x, list) else [x]
+        v = (parts[0].v if len(parts) == 1
+             else torch.cat([p.v for p in parts], dim=-1))
+        qp = self.q[name]
+        b, h, w, c = v.shape
+        # a large im2col (the TTA ladder's 512 images) is made and consumed
+        # in batch chunks; every image's result is its own either way
+        rows = b
+        if kernel > 1:
+            per_image = max(1, h * w * c * kernel * kernel // stride ** 2)
+            rows = max(1, min(b, IM2COL_MAX_BYTES // per_image))
+        outs = [requantize(conv_s32(v[i:i + rows], qp["w"], kernel, stride),
+                           qp["m"], qp["b"], qp.get("inv"), self.act)
+                for i in range(0, b, rows)]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        return QT(out, self.scales.get(name, 0.0), out.shape[-1])
+
+    def add(self, key, y, x):
+        s_m = self.scales[key]
+        t = y.v.to(torch.float32) * y.s + x.v.to(torch.float32) * x.s
+        # a 0-dim divisor keeps this a true division on the card
+        t = t / torch.full((), s_m, dtype=torch.float32, device=t.device)
+        out = t.round_().clamp_(-127, 127).to(torch.int8)
+        return QT(out, s_m, y.c)
+
+    def split2(self, x):
+        a, b = torch.chunk(x.v, 2, dim=-1)
+        return QT(a, x.s, a.shape[-1]), QT(b, x.s, b.shape[-1])
+
+    def pool2(self, x):
+        """2×2 stride-2 VALID max pool: the maximum of the four strided
+        slices (elementwise, so int8 stays int8 on any device)."""
+        v = x.v
+        h2, w2 = v.shape[1] // 2 * 2, v.shape[2] // 2 * 2
+        out = torch.maximum(
+            torch.maximum(v[:, 0:h2:2, 0:w2:2], v[:, 0:h2:2, 1:w2:2]),
+            torch.maximum(v[:, 1:h2:2, 0:w2:2], v[:, 1:h2:2, 1:w2:2]))
+        return replace(x, v=out)
+
+    def pool_same(self, x, k):
+        """k×k stride-1 SAME max pool, separable: running maxima of k
+        shifted slices along H, then along W. The border pads with −128,
+        below every code (codes are clipped to ±127)."""
+        v = x.v
+        _, h, w, _ = v.shape
+        p = k // 2
+        vp = F.pad(v, (0, 0, 0, 0, p, p), value=-128)
+        rows = vp[:, 0:h]
+        for d in range(1, k):
+            rows = torch.maximum(rows, vp[:, d:d + h])
+        vp = F.pad(rows, (0, 0, p, p), value=-128)
+        out = vp[:, :, 0:w]
+        for d in range(1, k):
+            out = torch.maximum(out, vp[:, :, d:d + w])
+        return replace(x, v=out)
+
+    def up2(self, x):
+        """2× nearest-neighbour upsample."""
+        b, h, w, c = x.v.shape
+        out = x.v[:, :, None, :, None, :].expand(b, h, 2, w, 2, c) \
+            .reshape(b, 2 * h, 2 * w, c)
+        return replace(x, v=out)
+
+
+# ---------------------------------------------------------------------------
+# stems (bundle dtype) + heads (f32) around the int8 trunk
+
+
+class _TinyEnds(nn.Module):
+    """What a quantized YOLOv7-tiny keeps in floating point: the two stem
+    ConvBNs (submodule names as in ``YOLOv7``, so the weight bridge loads
+    the pruned flax tree) and the three f32 detect heads."""
+
+    variant = "tiny"
+
+    def __init__(self, num_classes: int = 1):
+        super().__init__()
+        from aerial_image_recognition_tpu_torch.models.yolov7 import _conv
+        self.num_classes = num_classes
+        no = 3 * (5 + num_classes)
+        self.stem0 = _conv(3, 32, 3, 2)
+        self.stem1 = _conv(32, 64, 3, 2)
+        self.detect0 = nn.Linear(128, no)
+        self.detect1 = nn.Linear(256, no)
+        self.detect2 = nn.Linear(512, no)
+
+    @property
+    def anchors(self):
+        from aerial_image_recognition_tpu_torch.models.yolov7 import (
+            ANCHORS_TINY)
+        return ANCHORS_TINY
+
+    def heads(self) -> List[nn.Linear]:
+        return [self.detect0, self.detect1, self.detect2]
+
+    def stems(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B,3,S,S] → the P2 feature [B,64,S/4,S/4]."""
+        return self.stem1(self.stem0(x))
+
+
+def _module_dtype(module: nn.Module) -> torch.dtype:
+    return module.stem0.conv.weight.dtype
+
+
+@dataclass
+class Int8Bundle:
+    """Drop-in for ``models.registry.ModelBundle`` (same ``forward``
+    contract) with the YOLOv7-tiny trunk quantized.
+
+    ``module`` holds the stems and the detect heads only (no float trunk
+    on the device); ``q`` the int8 kernels and epilogue constants as
+    tensors on ``device``; ``params`` the host-side numpy mirror
+    ``{"orig": pruned flax-format tree, "q": …}`` the device tensors were
+    made from; ``static_scales`` the per-tensor coding scales (python
+    floats, keyed like the convs, plus ``__p2__``); ``absmax`` the
+    calibration table it was quantized with, where known (``save_absmax``
+    persists it: a self-calibrated step can be rebuilt from the file)."""
+    spec: Any
+    module: nn.Module
+    device: torch.device
+    q: Dict[str, Any]
+    params: Dict[str, Any]
+    static_scales: Dict[str, float]
+    absmax: Optional[Dict[str, float]] = None
+
+    @classmethod
+    def from_q(cls, spec, variables, q, *, dtype: torch.dtype,
+               device: torch.device,
+               absmax: Optional[Dict[str, float]] = None) -> "Int8Bundle":
+        """Build from flax-format f32 ``variables`` (only the stems and the
+        heads are read) and a numpy ``q`` dictionary (``_Prepare``'s
+        ``convs``, ``p2_scale``, ``out_scales``, ``scales``)."""
+        from aerial_image_recognition_tpu_torch.models.layers import (
+            fold_batchnorm)
+        from aerial_image_recognition_tpu_torch.models.weights import (
+            load_flax_into)
+        device = torch.device(device)
+        keep = {"stem0", "stem1", "detect0", "detect1", "detect2"}
+        orig = _prune_orig(variables, keep)
+        module = _TinyEnds(spec.num_classes)
+        load_flax_into(module, orig)
+        module.eval()
+        fold_batchnorm(module)
+        module.requires_grad_(False)
+        module.stem0.to(dtype)
+        module.stem1.to(dtype)
+        module.to(device=device, memory_format=torch.channels_last)
+
+        def dev(a):
+            return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+        convs = {}
+        for name, qp in q["convs"].items():
+            convs[name] = {"w": device_kernel(qp["w8"], device),
+                           "m": dev(qp["m"]), "b": dev(qp["b"])}
+            if "inv" in qp:
+                # a host number: the epilogue takes it as an argument
+                convs[name]["inv"] = float(np.float32(qp["inv"]))
+        dq = {"convs": convs, "p2_scale": dev(q["p2_scale"]),
+              "out_scales": [float(np.float32(s)) for s in q["out_scales"]]}
+        scales = dict(q["scales"])
+        host_q = {k: v for k, v in q.items() if k != "scales"}
+        return cls(spec=spec, module=module, device=device, q=dq,
+                   params={"orig": orig, "q": host_q}, static_scales=scales,
+                   absmax=None if absmax is None else dict(absmax))
+
+    def supports_s2d2(self) -> bool:
+        return False
+
+    def _p2_quantize(self, p2: torch.Tensor) -> torch.Tensor:
+        """P2 [B,C,H,W] float → int8 codes [B,H,W,C]; a true division by
+        the 0-dim scale tensor (never a reciprocal multiplication)."""
+        t = p2.permute(0, 2, 3, 1).to(torch.float32) / self.q["p2_scale"]
+        return t.round_().clamp_(-127, 127).to(torch.int8).contiguous()
+
+    def trunk_codes(self, p2_i8: torch.Tensor):
+        """int8 P2 codes → the three int8 head taps (QTs)."""
+        g = _Run(self.q["convs"], act="leaky", scales=self.static_scales)
+        return _tiny_trunk(g, QT(p2_i8, self.static_scales["__p2__"],
+                                 p2_i8.shape[-1]))
+
+    def _raw_from_p2_i8(self, p2_i8: torch.Tensor) -> List[torch.Tensor]:
+        """int8 trunk + f32 detect heads → the three raw NHWC maps."""
+        if p2_i8.is_cuda and torch.get_float32_matmul_precision() != "highest":
+            raise RuntimeError(
+                "the f32 detect heads need full-precision f32 matmuls; "
+                "torch.get_float32_matmul_precision() is "
+                f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
+                "back to 'highest'")
+        taps = self.trunk_codes(p2_i8)
+        return [head(o.v.to(torch.float32) * sc)
+                for o, sc, head in zip(taps, self.q["out_scales"],
+                                       self.module.heads())]
+
+    def forward(self, images: torch.Tensor):
+        """images [B,3,S,S] (/255, any float dtype) → (boxes [B,A,4] cxcywh
+        pixels f32, scores [B,A,nc] f32)."""
+        from aerial_image_recognition_tpu_torch.ops.decode import (
+            decode_yolov7)
+        p2 = self.module.stems(images.to(_module_dtype(self.module)))
+        return decode_yolov7(self._raw_from_p2_i8(self._p2_quantize(p2)),
+                             self.module.anchors, self.spec.num_classes)
+
+    def forward_s2d2(self, xq, in_scale=1.0 / 255.0):
+        raise NotImplementedError(
+            "the quad-stem entry (and its fully-int8 stems) arrives with "
+            "the quad stem, which the port has parked")
+
+
+# ---------------------------------------------------------------------------
+# calibration and the public entry
+
+
+def calibrate_absmax(bundle, batches: Sequence[Any],
+                     model_size: Optional[int] = None) -> Dict[str, float]:
+    """Run the bundle's standard forward over calibration batches, recording
+    the absmax of every ConvBN output (keyed 'elan1/cv1'). batches: uint8
+    [B,S,S,3] arrays (preprocessed here) or float [B,S,S,3] arrays already
+    in [0,1] (resized to the model size: activation absmax depends on the
+    resolution). Only a running maximum per layer is kept."""
+    from aerial_image_recognition_tpu_torch.models.layers import ConvBN
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        matmul_resize_float, preprocess_batch)
+    size = model_size or bundle.spec.input_size
+    module = bundle.module
+    running: Dict[str, torch.Tensor] = {}
+
+    def record(key):
+        def hook(_m, _inp, out):
+            m = out.detach().abs().amax().to(torch.float32)
+            running[key] = torch.maximum(running[key], m) \
+                if key in running else m
+        return hook
+
+    hooks = [m.register_forward_hook(record(name.replace(".", "/")))
+             for name, m in module.named_modules() if isinstance(m, ConvBN)]
+    try:
+        with torch.inference_mode():
+            for imgs in batches:
+                x = imgs if isinstance(imgs, torch.Tensor) \
+                    else torch.from_numpy(np.ascontiguousarray(imgs))
+                x = x.to(bundle.device)
+                if x.dtype == torch.uint8:
+                    x = preprocess_batch(x, out_size=size,
+                                         dtype=torch.float32)
+                else:
+                    x = x.to(torch.float32).permute(0, 3, 1, 2)
+                    if x.shape[2] != size or x.shape[3] != size:
+                        x = matmul_resize_float(x, size, "bilinear")
+                module(x.to(_module_dtype(module)))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: float(v) for k, v in running.items()}
+
+
+def quantize_bundle(bundle, calib_batches: Sequence[Any],
+                    model_size: Optional[int] = None,
+                    absmax: Optional[Dict[str, float]] = None) -> Int8Bundle:
+    """Calibrate + quantize a YOLOv7-tiny ``ModelBundle`` → ``Int8Bundle``
+    on the same device, stems in the bundle's dtype.
+
+    calib_batches: a few representative uint8 [B,S,S,3] batches (or floats
+    in [0,1]). Pass absmax= to reuse a saved calibration instead. The
+    weights are read from ``bundle.variables`` (the f32 flax-format tree
+    the bundle was built from), not from its fused module.
+    """
+    module = bundle.module
+    variant = getattr(module, "variant", "")
+    if bundle.spec.family == "yolov7" and variant == "tiny" \
+            and getattr(module, "s2d_stem", False):
+        raise NotImplementedError(
+            "int8 PTQ covers yolov7 tiny/base with the standard stems, "
+            "yolov8 n–x, and xunet; the s2d_stem experiment keeps bf16")
+    meta = _family_meta(bundle.spec, module)     # raises for other families
+    if bundle.variables is None:
+        raise ValueError("quantize_bundle needs the f32 variables the "
+                         "bundle was built from (bundle.variables)")
+    if absmax is None:
+        absmax = calibrate_absmax(bundle, calib_batches, model_size)
+    prep = _Prepare(bundle.variables, absmax, bn_eps=meta["bn_eps"],
+                    act=meta["act"])
+    p2_key = meta["stems"][-1]        # the last stem conv emits P2
+    p2_c = np.asarray(
+        bundle.variables["params"][p2_key]["conv"]["kernel"]).shape[-1]
+    p2 = QT(None, max(absmax[p2_key], 1e-12) / 127.0, p2_c)
+    o3, o4, o5 = _tiny_trunk(prep, p2)
+    scales = dict(prep.scales)
+    scales["__p2__"] = p2.s
+    q = {"p2_scale": np.float32(p2.s), "convs": prep.qparams,
+         "out_scales": [np.float32(o.s) for o in (o3, o4, o5)],
+         "scales": scales}
+    return Int8Bundle.from_q(bundle.spec, bundle.variables, q,
+                             dtype=_module_dtype(module),
+                             device=bundle.device, absmax=absmax)

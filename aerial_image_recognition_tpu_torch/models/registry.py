@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from aerial_image_recognition_tpu_torch.models.weights import (
-    load_flax_into, load_params)
+    load_flax_into, load_params, params_to_flax)
 from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
 from aerial_image_recognition_tpu_torch.runtime.device import resolve_device
 
@@ -56,10 +56,16 @@ def resolve_model_name(model_path: str) -> str:
 
 @dataclass
 class ModelBundle:
-    """A constructed model on its device; the weights live in ``module``."""
+    """A constructed model on its device; the weights live in ``module``.
+
+    ``variables`` is the f32 flax-format tree (numpy, on the host) the
+    module was built from, before any BN fold or cast: int8 quantization
+    (``models/int8.quantize_bundle``) reads the weights there, since the
+    fused, cast module no longer has them."""
     spec: ModelSpec
     module: nn.Module
     device: torch.device
+    variables: Optional[Dict] = None
 
     def forward(self, images: torch.Tensor):
         """images [B,3,S,S] (/255, trunk dtype) → (boxes [B,A,4] cxcywh
@@ -104,9 +110,11 @@ def create_model(name: str = "yolov7_itcvd", *,
             raise FileNotFoundError(
                 f"model checkpoint {params_path!r} does not exist — refusing "
                 "to fall back to random weights")
-        load_flax_into(module, load_params(params_path))
+        variables = load_params(params_path)
+        load_flax_into(module, variables)
     else:
         _prior_init_detect_bias(module)
+        variables = params_to_flax(module)
     module.eval()
     if fold_bn:
         from aerial_image_recognition_tpu_torch.models.layers import (
@@ -115,4 +123,5 @@ def create_model(name: str = "yolov7_itcvd", *,
     module.requires_grad_(False)
     module.set_dtype(dtype)
     module.to(device=device, memory_format=torch.channels_last)
-    return ModelBundle(spec=spec, module=module, device=device)
+    return ModelBundle(spec=spec, module=module, device=device,
+                       variables=variables)

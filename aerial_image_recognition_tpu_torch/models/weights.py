@@ -93,6 +93,34 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def params_to_flax(module: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse bridge: an unfused module's parameters and BN statistics
+    → flax-format variables (f32 numpy copies, HWIO kernels). For models
+    built from random weights, whose only copy is the module."""
+    inverse = {suffix: (collection, path) for (collection, path),
+               (suffix, _) in LEAF_MAP.items()}
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for name, t in module.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        parts = name.split(".")
+        n = 2 if ".".join(parts[-2:]) in inverse else 1
+        suffix = ".".join(parts[-n:])
+        if suffix not in inverse or len(parts) <= n:
+            raise KeyError(f"no flax counterpart for {name}")
+        collection, path = inverse[suffix]
+        arr = t.detach().to("cpu", torch.float32).numpy().copy()
+        if path == ("conv", "kernel"):
+            arr = arr.transpose(2, 3, 1, 0)                   # OIHW → HWIO
+        elif path == ("kernel",):
+            arr = arr.T[None, None]                           # [O,I] → 1×1 HWIO
+        node = tree[collection]
+        for p in tuple(parts[:-n]) + path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
 def load_flax_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
     """Load a flax tree into ``module``; every parameter and BN statistic
     must be covered (BN's ``num_batches_tracked`` counter excepted)."""

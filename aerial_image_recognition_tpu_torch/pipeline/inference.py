@@ -16,6 +16,11 @@ function over device tensors. ``DetectStep`` keeps the surface that
 ``input_size``, ``model_size``, ``input_layout``, ``input_shardings``,
 ``pack_images``, ``bundle.spec.class_names``), so either package's callers
 can drive it.
+
+``extra.quantize = "int8"`` runs the trunk quantized (``models/int8.py``):
+with a saved calibration (``quantize_calib``) from the first call, without
+one through ``SelfQuantizingStep``, which calibrates on the scan's own
+first batches and swaps to int8 behind a parity gate.
 """
 
 from dataclasses import dataclass
@@ -120,7 +125,8 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
     joined before NMS; ``multiscale_weights``, default 0.8 for every
     non-native scale so that the native box wins ties against a misfit
     off-scale one); ``box_voting`` (see ``_resolve_vote_iou``);
-    ``nms_suppression``.
+    ``nms_suppression``. ``bundle`` may be an ``Int8Bundle``: every mode
+    only calls ``bundle.forward``.
     """
     spec = bundle.spec
     model_size = model_size or spec.input_size
@@ -215,8 +221,7 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
                       crop_size: Optional[int] = None,
                       model_size: Optional[int] = None,
                       mesh=None,
-                      device: Optional[Union[str, torch.device]] = None
-                      ) -> DetectStep:
+                      device: Optional[Union[str, torch.device]] = None):
     """Build the detect step on ``device`` (default ``cuda``; raises without
     CUDA unless a device is given).
 
@@ -225,17 +230,21 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     trunk in ``cfg.dtype`` and its heads in f32. Tiles of ``src_size`` px
     (center-cropped to ``crop_size`` first, if given) are resized to the
     model size on the device. The accuracy modes of ``make_detect_fn`` come
-    from ``cfg.extra``. ``mesh`` data parallelism and turnkey int8 raise
-    NotImplementedError naming the slice that brings them.
+    from ``cfg.extra``.
+
+    ``extra.quantize == "int8"`` quantizes the trunk (``models/int8.py``):
+    with ``extra.quantize_calib`` (a file written by ``save_absmax``) up
+    front, returning a ``DetectStep`` over an ``Int8Bundle``; without one it
+    returns a ``SelfQuantizingStep``, which self-calibrates on the scan's
+    own first batches behind a parity gate with automatic fallback to the
+    float step. A pre-built ``Int8Bundle`` may be passed as ``bundle``.
+    ``mesh`` data parallelism raises NotImplementedError naming its slice.
     """
     device = resolve_device(device)
     cfg = cfg or DetectorConfig()
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel steps arrive with the multi-GPU slice")
-    if cfg.extra.get("quantize") == "int8":
-        raise NotImplementedError("int8 steps arrive with the turnkey-int8 "
-                                  "slice")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
     if bundle is None:
@@ -245,6 +254,30 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     elif bundle.device != device:
         raise ValueError(f"bundle lives on {bundle.device}, step asked for "
                          f"{device}")
+    kwargs = dict(batch=batch, src_size=src_size, crop_size=crop_size,
+                  model_size=model_size)
+    if cfg.extra.get("quantize") == "int8":
+        from aerial_image_recognition_tpu_torch.models.int8 import (
+            Int8Bundle, load_absmax, quantize_bundle)
+        calib = cfg.extra.get("quantize_calib")
+        if isinstance(bundle, Int8Bundle):
+            pass                                 # quantized by the caller
+        elif calib:
+            bundle = quantize_bundle(bundle, [], absmax=load_absmax(calib))
+        else:
+            return SelfQuantizingStep(
+                _compile_detect_step(bundle, cfg, **kwargs), cfg, kwargs)
+    return _compile_detect_step(bundle, cfg, **kwargs)
+
+
+def _compile_detect_step(bundle, cfg: DetectorConfig, *,
+                         batch: Optional[int] = None,
+                         src_size: Optional[int] = None,
+                         crop_size: Optional[int] = None,
+                         model_size: Optional[int] = None) -> DetectStep:
+    """A DetectStep for an already-resolved bundle (the shared tail of
+    ``build_detect_step`` and the int8 self-calibration rebuild). Nothing
+    is compiled: PyTorch runs eagerly."""
     model_size = model_size or bundle.spec.input_size
     return DetectStep(bundle=bundle,
                       fn=make_detect_fn(bundle, cfg, src_size=src_size,
@@ -303,3 +336,189 @@ def detection_sets_agree(out_a, out_b, *, min_match_frac: float = 0.9,
         and mean_delta <= max_mean_score_delta
     return ok, {"total_a": total_a, "total_b": total_b,
                 "matched": matched, "mean_score_delta": round(mean_delta, 4)}
+
+
+class SelfQuantizingStep:
+    """Turnkey int8: a DetectStep shim that calibrates itself on the scan's
+    own first batches, then hot-swaps to the int8-quantized step behind a
+    NON-VACUOUS parity gate. ``extra.quantize = "int8"`` with no
+    calibration file is all a caller sets.
+
+    Semantics:
+
+    * The first ``quantize_calib_batches`` (default 2) batches run in the
+      float step (their results are final — nothing is reprocessed) and
+      their images calibrate the activation absmax table.
+    * The swap additionally requires a *detection-bearing* reference
+      batch: calibration keeps waiting (float step, no further image
+      collection) until some batch's output holds at least
+      ``quantize_parity_min_detections`` (default 1) detections; that
+      batch's images join the calibration set and its output anchors the
+      parity gate (``detection_sets_agree``), so the gate can never pass on
+      an empty-vs-empty comparison.
+    * Bounded wait, settling on the float step: after
+      ``quantize_calib_wait_batches`` (default 16) batches with no
+      detection anywhere, the step STAYS float (state 'bf16-fallback',
+      reason recorded) — correctness-neutral by definition on the
+      detections seen so far, and it ends the per-batch host readback the
+      wait costs. Swapping unvalidated would be unsound: an int8 trunk
+      calibrated on degenerate content can silently DROP detections, and a
+      gate keyed on the int8 output's own detections can never see them.
+      Scans known to start sparse (ocean approach, cloud deck) should raise
+      ``quantize_calib_wait_batches``.
+    * A checkpoint that cannot be quantized (``quantize_bundle`` raises
+      ``KeyError``/``ValueError``) or a parity miss ⇒ the scan continues in
+      the float step (state 'bf16-fallback', reason recorded and printed).
+      Nothing else is caught: an error of the int8 step itself (a kernel
+      that does not build or launch, a refused integer product) propagates
+      to the caller.
+
+    States: 'calibrating' → 'int8' | 'bf16-fallback' (the name holds for an
+    f32 base step too); observable via ``.quantize_state``/``.parity``/
+    ``.fallback_reason``.
+
+    A collected batch is copied to the host once, from whatever arrived
+    (numpy or a device tensor), before the step runs; other batches cost no
+    copy. The reference batch is kept as the device tensors the float step
+    ran on and replayed through the int8 step from there.
+    """
+
+    def __init__(self, base: DetectStep, cfg: DetectorConfig, kwargs: dict):
+        self._base = base
+        self._active = base
+        self._cfg = cfg
+        self._kwargs = kwargs
+        self._target = max(1, int(cfg.extra.get("quantize_calib_batches",
+                                                2)))
+        self._min_det = max(1, int(cfg.extra.get(
+            "quantize_parity_min_detections", 1)))
+        self._max_wait = max(self._target, int(cfg.extra.get(
+            "quantize_calib_wait_batches", 16)))
+        self._collected = []      # host uint8 [B,S,S,3] copies
+        self._ref = None          # (device images, device bounds, out)
+        self._seen = 0            # batches observed while calibrating
+        self.quantize_state = "calibrating"
+        self.parity = None
+        self.fallback_reason = None
+
+    @property
+    def active_step(self) -> DetectStep:
+        """The DetectStep currently serving calls (float until the swap)."""
+        return self._active
+
+    @property
+    def base_step(self) -> DetectStep:
+        """The float step (kept after the swap, for A/Bs against it)."""
+        return self._base
+
+    # -- DetectStep surface (CarDetector/run_pipeline/serve read these) --
+    @property
+    def bundle(self):
+        return self._active.bundle
+
+    @property
+    def device(self) -> torch.device:
+        return self._active.device
+
+    @property
+    def batch(self):
+        return self._active.batch
+
+    @property
+    def input_size(self):
+        return self._active.input_size
+
+    @property
+    def model_size(self):
+        return self._active.model_size
+
+    @property
+    def input_shardings(self):
+        return self._active.input_shardings
+
+    @property
+    def input_layout(self):
+        return self._active.input_layout
+
+    def pack_images(self, images_u8):
+        return self._active.pack_images(images_u8)
+
+    @staticmethod
+    def _host_copy(images) -> np.ndarray:
+        if isinstance(images, torch.Tensor):
+            return images.detach().to("cpu", torch.uint8).numpy().copy()
+        return np.array(images, dtype=np.uint8)
+
+    def __call__(self, images, bounds):
+        if self.quantize_state != "calibrating":
+            return self._active(images, bounds)
+        collect = len(self._collected) < self._target
+        host = self._host_copy(images) if collect else None
+        dev_images = _upload(self._base.pack_images(images), self.device,
+                             torch.uint8)
+        dev_bounds = _upload(bounds, self.device, torch.float32)
+        out = self._base(dev_images, dev_bounds)
+        self._seen += 1
+        # non-vacuous gate: a parity reference must carry detections
+        ndet = int(out[0].valid.sum())
+        if ndet >= self._min_det and self._ref is None:
+            self._ref = (dev_images, dev_bounds, out)
+            if not collect:
+                # the reference batch joins the calibration set so absmax
+                # sees detection-bearing content even when the first
+                # `target` batches were empty scenery
+                collect, host = True, self._host_copy(images)
+        if collect:
+            self._collected.append(host)
+        if len(self._collected) >= self._target and self._ref is not None:
+            self._quantize()
+        elif self._seen >= self._max_wait:
+            # settle on the float step: no detection-bearing batch to
+            # validate against within the wait budget
+            self.quantize_state = "bf16-fallback"
+            self.fallback_reason = (
+                f"no detections in the first {self._seen} batches to "
+                "validate int8 parity — staying bf16 (raise "
+                "quantize_calib_wait_batches for scans that start sparse)")
+            print(f"int8 self-calibration: {self.fallback_reason}")
+            self._collected = []
+            self._ref = None
+        return out
+
+    def _quantize(self):
+        from aerial_image_recognition_tpu_torch.models.int8 import (
+            quantize_bundle)
+        images, bounds, base_out = self._ref
+        # 8-row calibration chunks: absmax is a running max, so chunking
+        # is exact, and a chunk's activations stay small
+        calib = [c[i:i + 8] for c in self._collected
+                 for i in range(0, len(c), 8)]
+        self._collected = []
+        self._ref = None
+        try:
+            qb = quantize_bundle(self._base.bundle, calib,
+                                 model_size=self._base.model_size)
+        except (KeyError, ValueError) as e:
+            # the checkpoint cannot be quantized (a calibration record or
+            # the f32 variables are missing, the transcription does not fit)
+            self._fall_back(repr(e))
+            return
+        # outside the try: a kernel that does not build or launch, or an
+        # integer product the card refuses, is a fault and propagates
+        qstep = _compile_detect_step(qb, self._cfg, **self._kwargs)
+        qout = qstep(images, bounds)
+        ok, stats = detection_sets_agree(base_out, qout)
+        self.parity = stats
+        if not ok:
+            self._fall_back(
+                f"first-batch bf16-vs-int8 parity check failed: {stats}")
+            return
+        self._active = qstep
+        self.quantize_state = "int8"
+        print(f"int8 self-calibration: switched to int8 after "
+              f"{self._seen} batches (parity {stats})")
+
+    def _fall_back(self, reason: str):
+        self.quantize_state = "bf16-fallback"
+        self.fallback_reason = reason
+        print(f"int8 self-calibration failed — continuing in bf16: {reason}")

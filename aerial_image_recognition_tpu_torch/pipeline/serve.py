@@ -15,7 +15,10 @@ API:
       the step's input size first.
   GET  /healthz → {"ok": true, "model": ..., "batch": ..., "input_size": ...}
   GET  /stats   → request/batch counters and timings (``planes.detect``
-                  holds the plane's own batches / batch_fill_sum / compute_s)
+                  holds the plane's own batches / batch_fill_sum / compute_s);
+                  over a turnkey-int8 step also ``quantize_state``,
+                  ``quantize_parity`` and, after a fallback,
+                  ``quantize_fallback_reason``
 """
 
 import json
@@ -232,6 +235,16 @@ class DetectionServer:
                         out = dict(server.stats)
                         out["planes"] = {n: dict(pl.counters)
                                          for n, pl in server._planes.items()}
+                    # turnkey int8 (a SelfQuantizingStep): state and parity
+                    # are the operator's only window into whether the
+                    # hot-swap happened and what validated it
+                    qs = getattr(server.step, "quantize_state", None)
+                    if qs is not None:
+                        out["quantize_state"] = qs
+                        out["quantize_parity"] = server.step.parity
+                        if server.step.fallback_reason:
+                            out["quantize_fallback_reason"] = \
+                                server.step.fallback_reason
                     self._reply(200, out)
                 else:
                     self._reply(404, {"error": "unknown path"})

@@ -36,9 +36,24 @@ Phases (any failure exits nonzero, and no result line is printed):
      detections held against the rendered cars (recall ≥ 0.8) and against
      the single-scale bf16 step of phase 4 (matched ≥ 0.9);
   7. the multiscale step ([0.85, 1.0, 1.15], default weights and box
-     voting), with the same two checks.
-Launch counts are zeroed just before each path (4–5, 6, 7) and read just
-after it; every kernel of a path must have launched in its window. The
+     voting), with the same two checks;
+  8. the int8 path at full width: (a) the s8×s8→s32 convolution on the
+     card (``torch._int_mm`` over an int8 im2col) equal to the CPU's int32
+     ``F.conv2d`` at the trunk's own shapes (``INT8_CASES``, tolerance 0),
+     the requantizing epilogue kernel equal to its plain version on the
+     card and to the CPU's codes, each timed beside the bf16 cuDNN conv of
+     the same shape; (b) the int8 trunk on the card against itself on the
+     CPU on 4 tiles and the same qparams (codes at the three taps, boxes,
+     scores); (c) turnkey: ``build_detect_step`` with ``quantize="int8"``
+     and no calibration file calibrates on its first two batches and must
+     reach state ``int8``; step time, tiles/s and peak memory beside the
+     bf16 step's; matched ≥ 0.9 against the bf16 step, recall ≥ 0.8; a step
+     built from the saved calibration gives the same detections (tolerance
+     0); (d) a DetectionServer over a fresh turnkey step answers JPEG
+     requests through the swap and reports ``quantize_state`` in /stats;
+     (e) the int8 bundle under the TTA ladder against the bf16 TTA step.
+Launch counts are zeroed just before each path (4–5, 6, 7, 8c–d) and read
+just after it; every kernel of a path must have launched in its window. The
 steps are profiled after every timed step; the multiscale step is then timed
 once more, to show whether a profile earlier in the process moves later
 timings.
@@ -66,6 +81,18 @@ GRID, CLIPS = (8, 8), (2.0, 3.0, 4.0)       # the TTA ladder's CLAHE
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12                         # tensor cores, dense
+INT8_OPS = 1979e12                          # tensor cores, dense
+TRUNK_CONVS = 53                            # int8 convs of YOLOv7-tiny
+# the int8 trunk's convolutions: (case, batch, input edge, channels of the
+# concatenated parts, output channels, kernel, stride)
+INT8_CASES = [
+    ("1x1 64->32 @160", B, 160, (64,), 32, 1, 1),
+    ("3x3 32->32 @160", B, 160, (32,), 32, 3, 1),
+    ("3x3/2 64->128 @160", B, 160, (64,), 128, 3, 2),
+    ("1x1 1024->256 @20", B, 20, (1024,), 256, 1, 1),
+    ("3x3 256->512 @20", B, 20, (256,), 512, 3, 1),
+    ("1x1 concat 4x32->64 @160", B, 160, (32, 32, 32, 32), 64, 1, 1),
+]
 
 
 def fail(msg: str) -> None:
@@ -573,6 +600,230 @@ def multiscale_stage_times(torch, step, dev_images):
     return times
 
 
+def int8_case_inputs(rng, batch, size, parts, out_c, kernel):
+    """Seeded int8 activations (one array per concatenated part), an int8
+    HWIO kernel and epilogue constants that spread the codes over ±127."""
+    import numpy as np
+    xs = [rng.integers(-127, 128, (batch, size, size, c), dtype=np.int8)
+          for c in parts]
+    c_in = sum(parts)
+    w8 = rng.integers(-127, 128, (kernel, kernel, c_in, out_c),
+                      dtype=np.int8)
+    k = kernel * kernel * c_in
+    m = (rng.uniform(0.5, 1.5, out_c) * 60.0
+         / (math.sqrt(k) * 5400.0)).astype(np.float32)
+    b = rng.uniform(-20.0, 20.0, out_c).astype(np.float32)
+    return xs, w8, m, b
+
+
+def codes_diff(torch, got, want):
+    """(share of differing codes, max |difference|) of two int8 tensors."""
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    return float((d > 0).float().mean()), int(d.max())
+
+
+def check_int8_product(torch, record, card):
+    """Phase 8a. Returns the epilogue kernel's record entry."""
+    import numpy as np
+    import torch.nn.functional as F
+    from aerial_image_recognition_tpu_torch.kernels.build import build_log
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        _im2col, conv_s32, device_kernel)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        _requantize_plain, requantize)
+    rng = np.random.default_rng(8)
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    record["int8_cases"] = []
+    max_err = 0
+    for name, batch, size, parts, out_c, kernel, stride in INT8_CASES:
+        xs, w8, m, b = int8_case_inputs(rng, batch, size, parts, out_c,
+                                        kernel)
+        v_cpu = torch.cat([torch.from_numpy(x) for x in xs], dim=-1)
+        parts_dev = [torch.from_numpy(x).to(dev) for x in xs]
+        w_dev, w_cpu = device_kernel(w8, dev), device_kernel(w8, cpu)
+        m_dev, b_dev = torch.from_numpy(m).to(dev), torch.from_numpy(b).to(dev)
+        v_dev = torch.cat(parts_dev, dim=-1)
+        r_dev = conv_s32(v_dev, w_dev, kernel, stride)
+        r_cpu = conv_s32(v_cpu, w_cpu, kernel, stride)
+        torch.cuda.synchronize()
+        if r_dev.dtype != torch.int32 or not torch.equal(r_dev.cpu(), r_cpu):
+            bad = int((r_dev.cpu() != r_cpu).sum())
+            fail(f"int8 product {name}: the card's s32 sums differ from the "
+                 f"CPU's int32 conv2d in {bad} of {r_cpu.numel()} values")
+        # the epilogue: kernel against plain on the card (tolerance 0), and
+        # the card's codes against the CPU's
+        row = {"case": name, "s32_equal_cpu": True,
+               "shape": [batch, size, size, sum(parts), out_c, kernel,
+                         stride]}
+        for act in ("leaky", "relu", "silu"):
+            inv = 0.75 if act == "silu" else None
+            got = requantize(r_dev, m_dev, b_dev, inv, act)
+            plain = _requantize_plain(r_dev, m_dev, b_dev, inv, act)
+            on_cpu = _requantize_plain(
+                r_cpu, torch.from_numpy(m), torch.from_numpy(b),
+                inv, act)
+            torch.cuda.synchronize()
+            share_p, max_p = codes_diff(torch, got, plain)
+            share_c, max_c = codes_diff(torch, got.cpu(), on_cpu)
+            limit = 1e-4 if act == "silu" else 0.0    # expf may differ by ULPs
+            if max(max_p, max_c) > 1 or max(share_p, share_c) > limit:
+                fail(f"int8 epilogue {name} {act}: kernel against plain on "
+                     f"the card differs in {share_p:.2e} of the codes (max "
+                     f"{max_p}), against the CPU in {share_c:.2e} (max "
+                     f"{max_c})")
+            max_err = max(max_err, max_p)
+            if float(got.float().std()) < 10.0:
+                fail(f"int8 epilogue {name} {act}: degenerate codes")
+            row[f"codes_{act}"] = {"differ_plain": share_p,
+                                   "differ_cpu": share_c,
+                                   "max_abs": max(max_p, max_c)}
+        # times: the int8 conv as the trunk runs it (concat, im2col,
+        # product, epilogue kernel) and its pieces, beside the bf16 cuDNN
+        # conv of the same shape (conv alone, channels_last)
+        def int8_conv():
+            v = parts_dev[0] if len(parts_dev) == 1 \
+                else torch.cat(parts_dev, dim=-1)
+            return requantize(conv_s32(v, w_dev, kernel, stride), m_dev,
+                              b_dev, None, "leaky")
+        cols = v_dev if kernel == 1 else _im2col(v_dev, kernel, stride)
+        a2 = cols.reshape(-1, cols.shape[-1])
+        w_row = w_dev.contiguous()      # the layout device_kernel avoids
+        x_bf = torch.randn(batch, sum(parts), size, size, device=dev,
+                           dtype=torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        w_bf = torch.randn(out_c, sum(parts), kernel, kernel, device=dev,
+                           dtype=torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        row["ms"] = {
+            "int8_conv": cuda_ms(int8_conv, 10),
+            "im2col": 0.0 if kernel == 1 else cuda_ms(
+                lambda: _im2col(v_dev, kernel, stride), 10),
+            "int_mm": cuda_ms(lambda: torch._int_mm(a2, w_dev), 10),
+            "int_mm_row_major_kernel": cuda_ms(
+                lambda: torch._int_mm(a2, w_row), 10),
+            "epilogue_kernel": cuda_ms(lambda: requantize(
+                r_dev, m_dev, b_dev, None, "leaky"), 10),
+            "epilogue_plain": cuda_ms(lambda: _requantize_plain(
+                r_dev, m_dev, b_dev, None, "leaky"), 5, warmup=1),
+            "bf16_cudnn_conv": cuda_ms(lambda: F.conv2d(
+                x_bf, w_bf, None, stride, kernel // 2), 10)}
+        record["int8_cases"].append(row)
+        print(f"int8 {name}: s32 equal to the CPU's; codes equal (leaky, "
+              f"relu; silu differs on {row['codes_silu']['differ_cpu']:.1e});"
+              " ms " + ", ".join(f"{k} {v:.4f}" for k, v in row["ms"].items())
+              + f" [{card}]", flush=True)
+        if name.startswith("1x1 concat"):
+            n = r_dev.numel()
+            ms = cuda_ms(lambda: requantize(r_dev, m_dev, b_dev, None,
+                                            "leaky"), 200)
+            plain_ms = cuda_ms(lambda: _requantize_plain(
+                r_dev, m_dev, b_dev, None, "leaky"), 5, warmup=1)
+            # s32 in, int8 out, m and b once; convert, multiply, add,
+            # compare, multiply, round, two clamps per element
+            nbytes = n * 5 + 2 * out_c * 4
+            t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, n * 8 / F32_FLOPS * 1e3
+            entry = {
+                "name": "int8_epilogue", "route": "cuda",
+                "source": "aerial_image_recognition_tpu_torch/csrc/"
+                          "int8_epilogue.cu",
+                "replaces": "aerial_image_recognition_tpu/models/int8.py:364"
+                            " (jnp chain fused by XLA; no TPU kernel)",
+                "launches": 0, "max_abs_err": 0, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "shape": [r_dev.numel() // out_c, out_c]}
+    entry["max_abs_err"] = max_err
+    record["int8_epilogue_ptxas"] = [
+        line for line in build_log("int8_epilogue").splitlines()
+        if "registers" in line or "spill" in line]
+    return entry
+
+
+def check_int8_trunk(torch, record, images, card, n: int = 4):
+    """Phase 8b: the int8 trunk on the card against itself on the CPU, on n
+    rendered tiles and the same qparams (calibrated once, on the CPU, in
+    f32). Same P2 codes in: the three taps' codes, boxes and scores. Then
+    from the images, stems on each device: the P2 codes that flip, and what
+    that does to the taps."""
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        calibrate_absmax, quantize_bundle)
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.ops.decode import decode_yolov7
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        preprocess_batch)
+    kw = dict(params_path=FIXTURE, dtype=torch.float32, fold_bn=True)
+    cpu_bundle = create_model(device="cpu", **kw)
+    absmax = calibrate_absmax(cpu_bundle, [images[:n]])
+    q_cpu = quantize_bundle(cpu_bundle, [], absmax=absmax)
+    q_dev = quantize_bundle(create_model(device="cuda", **kw), [],
+                            absmax=absmax)
+    tiles = torch.from_numpy(images[:n])
+    rec = {"tiles": n}
+    with torch.inference_mode():
+        x = preprocess_batch(tiles, out_size=SIZE, dtype=torch.float32)
+        p2_cpu = q_cpu._p2_quantize(q_cpu.module.stems(x))
+        taps_cpu = q_cpu.trunk_codes(p2_cpu)
+        taps_dev = q_dev.trunk_codes(p2_cpu.cuda())
+        for level, (c, d) in enumerate(zip(taps_cpu, taps_dev)):
+            share, worst = codes_diff(torch, d.v.cpu(), c.v)
+            rec[f"tap{level}_codes_differ"] = share
+            rec[f"tap{level}_max_abs"] = worst
+            if share > 1e-4 or worst > 1:
+                fail(f"int8 trunk: tap {level} codes on the card differ from "
+                     f"the CPU's on {share:.2e} of the codes (max {worst})")
+        anchors, nc = q_cpu.module.anchors, q_cpu.spec.num_classes
+        b_cpu, s_cpu = decode_yolov7(q_cpu._raw_from_p2_i8(p2_cpu), anchors,
+                                     nc)
+        b_dev, s_dev = decode_yolov7(q_dev._raw_from_p2_i8(p2_cpu.cuda()),
+                                     anchors, nc)
+        # the codes are equal, so what is left is the f32 heads' summation
+        # order: boxes within 1e-2 px + 1e-4 of their size (a box side
+        # reaches 4 x 373 px at the coarsest anchor), scores within 1e-3
+        b_err = (b_dev.cpu() - b_cpu).abs()
+        rec["boxes_max_abs"] = float(b_err.max())
+        rec["boxes_max_rel"] = float((b_err / b_cpu.abs().clamp_min(1.0))
+                                     .max())
+        rec["scores_max_abs"] = float((s_dev.cpu() - s_cpu).abs().max())
+        if bool((b_err > 1e-2 + 1e-4 * b_cpu.abs()).any()) \
+                or rec["scores_max_abs"] > 1e-3:
+            fail(f"int8 trunk: boxes differ by {rec['boxes_max_abs']} px "
+                 f"(relative {rec['boxes_max_rel']}), scores by "
+                 f"{rec['scores_max_abs']} between card and CPU")
+        # from the images: f32 stems on the card (cuDNN, TF32 off) may flip
+        # a P2 code at a rounding boundary
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        p2_dev = q_dev._p2_quantize(q_dev.module.stems(x.cuda()))
+        torch.backends.cudnn.allow_tf32 = tf32
+        rec["p2_codes_differ"], rec["p2_max_abs"] = codes_diff(
+            torch, p2_dev.cpu(), p2_cpu)
+        if rec["p2_codes_differ"] > 1e-3 or rec["p2_max_abs"] > 1:
+            fail(f"int8 trunk: P2 codes from the card's f32 stems differ "
+                 f"from the CPU's on {rec['p2_codes_differ']:.2e} (max "
+                 f"{rec['p2_max_abs']})")
+    record["int8_trunk_card_vs_cpu"] = rec
+    print(f"int8 trunk, card against CPU on {n} tiles, same qparams and P2 "
+          f"codes: tap codes differ on "
+          f"{[rec[f'tap{i}_codes_differ'] for i in range(3)]} (max "
+          f"{[rec[f'tap{i}_max_abs'] for i in range(3)]}), boxes max abs "
+          f"{rec['boxes_max_abs']:.2e} px (relative "
+          f"{rec['boxes_max_rel']:.1e}), scores {rec['scores_max_abs']:.2e};"
+          f" P2 codes from each device's own f32 stems differ on "
+          f"{rec['p2_codes_differ']:.2e} (max {rec['p2_max_abs']}) [{card}]",
+          flush=True)
+
+
+def same_detections(torch, out_a, out_b) -> bool:
+    """Two step outputs equal at tolerance 0 (every field of Detections,
+    lon, lat)."""
+    det_a, det_b = out_a[0], out_b[0]
+    pairs = [(det_a.boxes, det_b.boxes), (det_a.scores, det_b.scores),
+             (det_a.classes, det_b.classes), (det_a.valid, det_b.valid),
+             (out_a[1], out_b[1]), (out_a[2], out_b[2])]
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
 def recall(out, bounds, cars, radius_m: float = 2.0) -> float:
     """Fraction of rendered cars with a detection centre within radius_m."""
     from aerial_image_recognition_tpu_torch.post.georef import (
@@ -689,12 +940,16 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     try:
         from aerial_image_recognition_tpu_torch.kernels.build import build_all
+        from aerial_image_recognition_tpu_torch.models.int8 import (
+            save_absmax)
         from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
             apply_luts)
+        from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+            requantize)
         from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
             nms_suppress)
         from aerial_image_recognition_tpu_torch.pipeline.inference import (
-            build_detect_step, detection_sets_agree)
+            SelfQuantizingStep, build_detect_step, detection_sets_agree)
         from aerial_image_recognition_tpu_torch.pipeline.serve import (
             DetectionServer)
         from aerial_image_recognition_tpu_torch.runtime.config import (
@@ -717,10 +972,10 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    build_all(["nms_suppress", "clahe_apply"])
+    build_all(["nms_suppress", "clahe_apply", "int8_epilogue"])
     record["build_s"] = time.perf_counter() - t0
-    print(f"build: nms_suppress, clahe_apply in {record['build_s']:.2f} s",
-          flush=True)
+    print(f"build: nms_suppress, clahe_apply, int8_epilogue in "
+          f"{record['build_s']:.2f} s", flush=True)
 
     # 3. kernel vs plain
     kernel = check_nms_kernel(torch, record)
@@ -774,7 +1029,8 @@ def main() -> None:
     if (step.batch, step.input_size, step.model_size) != (B, SIZE, SIZE):
         fail(f"step shape {(step.batch, step.input_size, step.model_size)}")
 
-    wrappers = {"nms_suppress": nms_suppress, "clahe_apply": apply_luts}
+    wrappers = {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+                "int8_epilogue": requantize}
     launches = {}
 
     def open_window():
@@ -895,6 +1151,159 @@ def main() -> None:
         f"{k} {v:.3f}" for k, v in record["multiscale"]["stage_ms"].items())
         + f" [{card}]", flush=True)
 
+    # 8. the int8 path at full width
+    epilogue = check_int8_product(torch, record, card)
+    print(f"int8_epilogue: equal to plain on the card on "
+          f"{len(record['int8_cases'])} shapes (leaky, relu; silu within 1 "
+          f"LSB on <= 1e-4); {epilogue['ms']:.4f} ms at "
+          f"{epilogue['shape']} (plain {epilogue['plain_ms']:.3f} ms, bound "
+          f"{epilogue['bound_ms']:.4f} ms by {epilogue['bound_by']}); ptxas: "
+          f"{' | '.join(record['int8_epilogue_ptxas'])} [{card}]", flush=True)
+    check_int8_trunk(torch, record, images, card)
+
+    # 8c. turnkey: no calibration file; two calibration batches in bf16,
+    # then the swap behind the parity gate
+    int8_cfg = dict(base, dtype="bfloat16", quantize="int8")
+    torch.cuda.reset_peak_memory_stats()
+    open_window()                                # int8 path starts here
+    qstep = build_detect_step(DetectorConfig.from_dict(int8_cfg))
+    if not isinstance(qstep, SelfQuantizingStep):
+        fail(f"turnkey int8 built a {type(qstep).__name__}")
+    states = []
+    for _ in range(2):
+        states.append(qstep.quantize_state)
+        calib_out = qstep(images, bounds)
+    torch.cuda.synchronize()
+    states.append(qstep.quantize_state)
+    if states != ["calibrating", "calibrating", "int8"]:
+        fail(f"turnkey int8 went through {states}; fallback reason: "
+             f"{qstep.fallback_reason}")
+    if type(qstep.bundle).__name__ != "Int8Bundle" \
+            or not qstep.parity or qstep.parity["matched"] < 1:
+        fail(f"turnkey int8: bundle {type(qstep.bundle).__name__}, parity "
+             f"{qstep.parity}")
+    swap_launches = (nms_suppress.launches, requantize.launches)
+    # 2 calibration steps + 1 parity replay; one int8 forward so far
+    if swap_launches != (3, TRUNK_CONVS):
+        fail(f"turnkey int8: {swap_launches} launches of (nms_suppress, "
+             f"int8_epilogue) up to the swap, expected (3, {TRUNK_CONVS})")
+    n_int8 = 10
+    q_out, q_ms = timed_steps(torch, qstep, images, bounds, n_int8)
+    _, q_dev_ms = timed_steps(torch, qstep, dev_images, dev_bounds, n_int8)
+    int8_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the bf16 step again, in turns with the int8 step, device input
+    _, bf16_again_ms = timed_steps(torch, step, dev_images, dev_bounds,
+                                   n_int8)
+    _, q_dev_ms2 = timed_steps(torch, qstep, dev_images, dev_bounds, n_int8)
+    steps_run = 3 + 3 * (n_int8 + 1)
+    if (nms_suppress.launches, requantize.launches) != (
+            steps_run + n_int8 + 1, TRUNK_CONVS * (steps_run - 2)):
+        fail(f"int8 path: {nms_suppress.launches} launches of nms_suppress "
+             f"and {requantize.launches} of int8_epilogue after "
+             f"{steps_run} steps")
+    check_output(torch, "int8 step", q_out)
+    ok_q, agree_q = detection_sets_agree(out, q_out)
+    rec_q = recall(q_out, bounds, cars)
+    if not ok_q:
+        fail(f"int8 step disagrees with the bf16 step: {agree_q}")
+    if rec_q < 0.8:
+        fail(f"int8 step: recall of the rendered cars {rec_q:.3f}")
+    # the saved calibration gives the same step
+    calib_path = os.path.join(ROOT, "chiprun_out", "int8_absmax.json")
+    os.makedirs(os.path.dirname(calib_path), exist_ok=True)
+    save_absmax(calib_path, qstep.bundle.absmax)
+    file_step = build_detect_step(DetectorConfig.from_dict(
+        dict(int8_cfg, quantize_calib=calib_path)))
+    if type(file_step.bundle).__name__ != "Int8Bundle":
+        fail(f"quantize_calib built a {type(file_step.bundle).__name__}")
+    file_out = file_step(images, bounds)
+    torch.cuda.synchronize()
+    if not same_detections(torch, file_out, q_out):
+        fail("the step built from the saved calibration differs from the "
+             "turnkey step")
+    del file_step
+    record["int8"] = {
+        "batch": B, "size": SIZE, "stems": "bfloat16", "states": states,
+        "parity": qstep.parity, "timed_steps": n_int8,
+        "step_ms_host_input": q_ms, "tiles_per_s_host_input": B / q_ms * 1e3,
+        "step_ms_device_input": q_dev_ms,
+        "tiles_per_s_device_input": B / q_dev_ms * 1e3,
+        "step_ms_device_input_second": q_dev_ms2,
+        "bf16_step_ms_device_input_between": bf16_again_ms,
+        "bf16_step_ms_host_input": step_ms,
+        "bf16_step_ms_device_input": device_ms,
+        "detections": int(q_out[0].valid.sum()), "agree_bf16": agree_q,
+        "recall": rec_q, "peak_mem_gb": int8_peak_gb,
+        "calibration_batch_detections": int(calib_out[0].valid.sum()),
+        "saved_calibration_same_detections": True}
+    print(f"int8 turnkey: states {states}, parity {qstep.parity}; "
+          f"{q_ms:.2f} ms/batch of {B} (host uint8 input), "
+          f"{B / q_ms * 1e3:.1f} tiles/s; {q_dev_ms:.2f} / {q_dev_ms2:.2f} "
+          f"ms with the batch on the card, bf16 step between them "
+          f"{bf16_again_ms:.2f} ms (phase 4: {step_ms:.2f} host, "
+          f"{device_ms:.2f} device); {record['int8']['detections']} "
+          f"detections, agreement with the bf16 step {agree_q}, recall "
+          f"{rec_q:.3f}, peak memory {int8_peak_gb:.2f} GB; a step from the "
+          f"saved calibration gives the same detections [{card}]",
+          flush=True)
+
+    # 8e. int8 under the TTA ladder (512 images a forward: the 3x3 convs
+    # run their im2col in batch chunks), against the bf16 TTA step
+    tta_out = tta_step(images, bounds)
+    torch.cuda.reset_peak_memory_stats()
+    q_tta_step = build_detect_step(
+        DetectorConfig.from_dict(dict(base, dtype="bfloat16", tta=True)),
+        bundle=qstep.bundle)
+    q_tta_out, q_tta_ms = timed_steps(torch, q_tta_step, images, bounds, 2)
+    check_output(torch, "int8 tta step", q_tta_out)
+    ok_t, agree_t = detection_sets_agree(tta_out, q_tta_out)
+    rec_t = recall(q_tta_out, bounds, cars)
+    if not ok_t or rec_t < 0.8:
+        fail(f"int8 tta step: agreement with the bf16 tta step {agree_t}, "
+             f"recall {rec_t:.3f}")
+    record["int8"]["tta"] = {
+        "step_ms_host_input": q_tta_ms, "agree_bf16_tta": agree_t,
+        "recall": rec_t, "bf16_tta_step_ms_host_input":
+            record["tta"]["step_ms_host_input"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"int8 tta: {q_tta_ms:.2f} ms/batch of {B} (host uint8 input) "
+          f"against {record['tta']['step_ms_host_input']:.2f} for the bf16 "
+          f"tta step; agreement {agree_t}, recall {rec_t:.3f}, peak memory "
+          f"{record['int8']['tta']['peak_mem_gb']:.2f} GB [{card}]",
+          flush=True)
+    del q_tta_step, tta_out, q_tta_out
+
+    # 8d. the server over a fresh turnkey step, through the swap
+    srv_step = build_detect_step(DetectorConfig.from_dict(
+        dict(int8_cfg, device_batch=8)))
+    srv = DetectionServer(detect_step=srv_step, max_wait_ms=20.0).start()
+    try:
+        q_replies = []
+        for first in (0, 8, 16):
+            q_replies += post_jpegs(srv.url, images[first:first + 8],
+                                    bounds[first:first + 8], 8)
+        with urllib.request.urlopen(srv.url + "/stats", timeout=60) as r:
+            q_stats = json.load(r)
+    finally:
+        srv.stop()
+    close_window("int8", ["nms_suppress", "int8_epilogue"])
+    for k, (status, body) in enumerate(q_replies):
+        if status != 200 or body["count"] != len(body["detections"]):
+            fail(f"int8 server request {k}: status {status}, {body}")
+        if cars[k] and not body["detections"]:
+            fail(f"int8 server request {k}: no detections on a tile with "
+                 f"{len(cars[k])} cars")
+    if q_stats.get("quantize_state") != "int8" \
+            or not q_stats.get("quantize_parity"):
+        fail(f"int8 server: /stats says {q_stats}")
+    record["int8"]["server"] = {
+        "requests": len(q_replies), "stats": q_stats,
+        "counts": [body["count"] for _, body in q_replies]}
+    print(f"int8 server: {len(q_replies)} JPEG /detect requests answered "
+          f"through the swap, {q_stats['batches']} batches, /stats "
+          f"quantize_state {q_stats['quantize_state']!r}, parity "
+          f"{q_stats['quantize_parity']} [{card}]", flush=True)
+
     # device time by kernel, after every timed run
     profile = profile_step(torch, step, dev_images, dev_bounds)
     flops = step_flops(torch, step, dev_images, dev_bounds)
@@ -911,7 +1320,8 @@ def main() -> None:
                                   for r in profile["top"][:6]) + f" [{card}]",
               flush=True)
 
-    for path, mode_step in (("tta", tta_step), ("multiscale", ms_step)):
+    for path, mode_step in (("tta", tta_step), ("multiscale", ms_step),
+                            ("int8", qstep.active_step)):
         record[path]["profile"] = prof = profile_step(
             torch, mode_step, dev_images, dev_bounds, n=2)
         if "top" in prof:
@@ -920,7 +1330,8 @@ def main() -> None:
                   f"{prof['wall_ms_per_step_profiled']:.2f} ms/step, idle "
                   f"share {prof['idle_share']:.3f}, top: " + "; ".join(
                       f"{r['ms_per_step']:.3f} ms {r['name'][:60]}"
-                      for r in prof["top"][:4]) + f" [{card}]", flush=True)
+                      for r in prof["top"][:8 if path == "int8" else 4])
+                  + f" [{card}]", flush=True)
     # the same multiscale step, timed again now that the profiler has run
     _, after_ms = timed_steps(torch, ms_step, images, bounds, 5)
     record["multiscale"]["step_ms_host_input_after_profiler"] = after_ms
@@ -929,11 +1340,11 @@ def main() -> None:
           f"{record['multiscale']['step_ms_host_input']:.2f} before "
           f"[{card}]", flush=True)
 
-    for entry in (kernel, clahe):
+    for entry in (kernel, clahe, epilogue):
         entry["launches"] = sum(p[entry["name"]] for p in launches.values())
         entry["launches_by_path"] = {path: p[entry["name"]]
                                      for path, p in launches.items()}
-    record["kernels"] = [kernel, clahe]
+    record["kernels"] = [kernel, clahe, epilogue]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -107,13 +107,115 @@ def test_unported_options_raise():
         build_detect_step)
     from aerial_image_recognition_tpu_torch.runtime.config import (
         DetectorConfig)
-    for extra in ({"quantize": "int8"}, {"quantize": "int8", "tta": True}):
-        with pytest.raises(NotImplementedError, match="int8"):
-            build_detect_step(DetectorConfig(extra=extra), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         build_detect_step(device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        build_detect_step(DetectorConfig(extra={"quantize": "int8"}),
+                          device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         create_model("yolov8_tokyo", device="cpu")
+    # the int8 branches that wait for their slice
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        quantize_bundle)
+    bundle = create_model(device="cpu", dtype=torch.float32)
+    qb = quantize_bundle(bundle, [torch.zeros(1, 64, 64, 3,
+                                              dtype=torch.uint8)],
+                         model_size=64)
+    assert not qb.supports_s2d2()
+    with pytest.raises(NotImplementedError, match="quad"):
+        qb.forward_s2d2(torch.zeros(1, 16, 16, 48, dtype=torch.uint8))
+    for family in ("yolov8", "xunet"):
+        other = dataclasses.replace(
+            bundle, spec=dataclasses.replace(bundle.spec, family=family))
+        with pytest.raises(NotImplementedError, match="slice"):
+            quantize_bundle(other, [])
+
+
+class _FakeCudaTensor:
+    """Just enough of a tensor on the card for a wrapper's dispatch."""
+    device = torch.device("cuda", 0)
+    shape = (2, 3, 3, 8)
+    is_cuda = True
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def dim(self):
+        return 4
+
+    def numel(self):
+        return 144
+
+    def is_contiguous(self):
+        return True
+
+
+def test_int8_wrappers_never_reach_the_plain_version_on_the_card(
+        monkeypatch):
+    """A CUDA tensor goes to the integer product / the epilogue kernel or
+    raises; a tensor of any other device raises; neither reaches the plain
+    version, and nothing widens to float."""
+    from aerial_image_recognition_tpu_torch.models import int8
+    from aerial_image_recognition_tpu_torch.ops import int8_kernel
+    reached = []
+    monkeypatch.setattr(int8, "_conv_s32_plain",
+                        lambda *a: reached.append("conv plain"))
+    monkeypatch.setattr(int8, "_conv_s32_card",
+                        lambda *a: reached.append("conv card"))
+    monkeypatch.setattr(int8_kernel, "_requantize_plain",
+                        lambda *a: reached.append("epilogue plain"))
+    int8.conv_s32(_FakeCudaTensor(torch.int8), None, 3, 1)
+    assert reached == ["conv card"]
+    with pytest.raises(Exception):      # no CUDA here: the launch path raises
+        int8_kernel.requantize(_FakeCudaTensor(torch.int32), None, None)
+    assert reached == ["conv card"]
+    ragged = _FakeCudaTensor(torch.int32)
+    ragged.shape = (2, 3, 3, 6)         # the kernel takes multiples of 4
+    with pytest.raises(ValueError, match="multiples of 4"):
+        int8_kernel.requantize(ragged, None, None)
+    assert reached == ["conv card"]
+    launches = int8_kernel.requantize.launches
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no integer product"):
+        int8.conv_s32(torch.zeros(1, 2, 2, 8, dtype=torch.int8, device=meta),
+                      None, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        int8_kernel.requantize(
+            torch.zeros(4, 8, dtype=torch.int32, device=meta),
+            torch.zeros(8, device=meta), torch.zeros(8, device=meta))
+    with pytest.raises(ValueError, match="int8"):
+        int8.conv_s32(torch.zeros(1, 2, 2, 8), None, 1)     # float in
+    assert reached == ["conv card"]
+    assert int8_kernel.requantize.launches == launches
+
+
+def test_int8_wrappers_on_cpu_are_the_plain_versions_and_build_nothing(
+        monkeypatch):
+    import numpy as np
+
+    from aerial_image_recognition_tpu_torch.kernels import build
+    from aerial_image_recognition_tpu_torch.models import int8
+    from aerial_image_recognition_tpu_torch.ops import int8_kernel
+
+    def no_build(*a, **kw):
+        raise AssertionError("the CPU path reached kernels.build")
+
+    for name in ("load", "build_all", "_start", "_nvcc"):
+        monkeypatch.setattr(build, name, no_build)
+    monkeypatch.setattr(int8, "_conv_s32_card", no_build)
+    rng = np.random.default_rng(6)
+    v = torch.from_numpy(rng.integers(-127, 128, (2, 5, 5, 8), dtype=np.int8))
+    w8 = rng.integers(-127, 128, (3, 3, 8, 16), dtype=np.int8)
+    w = int8.device_kernel(w8, torch.device("cpu"))
+    r = int8.conv_s32(v, w, 3, 2)
+    assert r.dtype == torch.int32 and tuple(r.shape) == (2, 3, 3, 16)
+    assert torch.equal(r, int8._conv_s32_plain(v, w, 3, 2))
+    m, b = torch.full((16,), 1e-3), torch.zeros(16)
+    launches = int8_kernel.requantize.launches
+    codes = int8_kernel.requantize(r, m, b)
+    assert torch.equal(codes, int8_kernel._requantize_plain(r, m, b, None,
+                                                            "leaky"))
+    assert int8_kernel.requantize.launches == launches
 
 
 def test_config_is_a_faithful_copy():
