@@ -7,11 +7,14 @@ the reference's so each counterpart is easy to find. Plain tensor code is
 PyTorch; every kernel the reference wrote in Pallas is a hand-written CUDA
 kernel here (``csrc/``), built with nvcc at first use (``kernels/build.py``).
 
-Slice 1 (this package today) covers the fused detect step and the detection
-server:
+The package covers the fused detect step (with its accuracy modes and
+turnkey int8) and the detection server, for every detector family the
+reference registers (YOLOv7-tiny and -base, the YOLOv8 n–x ladder):
   runtime   config (a copy of the reference's keys and defaults), device choice
-  models    npz weight reader + flax→torch bridge, YOLOv7-tiny, registry
-  ops       preprocess, decode, batched NMS (+ the CUDA suppression kernel)
+  models    npz weight reader + flax→torch bridge, upstream .pt/.onnx
+            importers, YOLOv7 tiny/base, YOLOv8 n–x, registry, int8 trunks
+  ops       preprocess, CLAHE/TTA, decode, batched NMS (+ the CUDA
+            suppression, CLAHE and int8 epilogue kernels)
   kernels   nvcc build of ``csrc/*.cu`` into ctypes libraries
   post      georeferencing (device lon/lat, host f64 records)
   pipeline  build_detect_step / DetectStep, DetectionServer

@@ -1,31 +1,37 @@
-"""Post-training int8 quantization of the YOLOv7-tiny trunk.
+"""Post-training int8 quantization of the detector trunks.
 
-Counterpart of ``aerial_image_recognition_tpu/models/int8.py`` for the one
-family the port has (``yolov7_itcvd``); the yolov7-base, YOLOv8 and XUnet
-transcriptions and the fully-int8 quad-stem entry arrive with their
-families and raise ``NotImplementedError`` until then.
+Counterpart of ``aerial_image_recognition_tpu/models/int8.py`` for the
+detector families: yolov7-tiny (``yolov7_itcvd``, leaky), yolov7-base and
+YOLOv8 n–x (silu). The XUnet transcription arrives with the segmentation
+slice, and the fully-int8 quad-stem entry with the quad stem; both raise
+``NotImplementedError`` until then.
 
 Scheme (standard PTQ, arranged so the int8 graph needs NO runtime rescales):
   * weights: per-output-channel symmetric int8, BatchNorm folded first;
   * activations: per-tensor symmetric int8, scales from a calibration pass
-    (absmax of every ConvBN output, captured by forward hooks);
+    (absmax of every ConvBN output and every yolov8 Bottleneck output,
+    captured by forward hooks);
   * each producer's output scale is folded into every consumer's kernel
     slice for that producer's channels — so concatenations of differently
     scaled int8 tensors are PLAIN int8 concats, and max-pools / nearest
-    upsamples pass int8 through untouched (value-preserving ⇒ scale-
-    preserving);
+    upsamples / channel splits pass int8 through untouched (value-
+    preserving ⇒ scale-preserving);
   * leaky-relu is positively homogeneous (leaky(a·x) = a·leaky(x), a>0),
     so the requantize division folds into the conv epilogue constants:
       y_i8 = clip(round(leaky(conv_s32 · (s_w/s_out) + b/s_out)))
-    — one elementwise chain per conv, int8 in / int8 out
-    (``ops/int8_kernel.requantize``: a CUDA kernel on the card).
+    silu is not, so its epilogue multiplies by ``inv`` = 1/s_out after the
+    activation — one elementwise chain per conv either way, int8 in / int8
+    out (``ops/int8_kernel.requantize``: a CUDA kernel on the card);
+  * the yolov8 Bottleneck's residual add dequantizes both operands, adds
+    in f32 and requantizes at the Bottleneck's calibrated scale.
 
-The stems stay in the bundle's dtype (bf16 in production) and the three
-detect heads stay f32. The trunk graph mirrors ``models/yolov7.YOLOv7.trunk``
-(elan1 → out3/4/5); a prepare/run interpreter pair shares the single
-transcription.
+The stems stay in the bundle's dtype (bf16 in production); the yolov7
+detect heads and the yolov8 output convs stay f32 (the yolov8 box and class
+towers are int8 trunk convs). Each trunk graph mirrors its module's
+``trunk`` from the P2 feature on; a prepare/run interpreter pair shares the
+single transcription.
 
-Two halves. The **numpy half** (``_pcq``, ``_Prepare``, the transcription,
+Two halves. The **numpy half** (``_pcq``, ``_Prepare``, the transcriptions,
 ``save_absmax``/``load_absmax``) is a copy of the reference's and works on
 the flax-format f32 tree (HWIO kernels), so the same ``absmax`` table gives
 the same ``w8``, ``m``, ``b`` and scales bit for bit. The **torch half**
@@ -41,7 +47,8 @@ activation 0.0, exact under symmetric quantization). The reference computes
 this product outside any hand-written kernel too (``lax.conv_general_
 dilated`` with an s32 result). There is no fallback: a CUDA tensor never
 reaches the int32 ``F.conv2d`` and never widens to float, and an
-``_int_mm`` error propagates.
+``_int_mm`` error (it takes M > 16 rows and K, N multiples of 8)
+propagates.
 """
 
 import json
@@ -126,6 +133,131 @@ def _tiny_trunk(g, x):
     o4 = g.conv("out4", f4b, 3)
     o5 = g.conv("out5", f5b, 3)
     return o3, o4, o5
+
+
+def _elan_base(g, prefix: str, x, head: bool = False):
+    """yolov7-base ELAN (models/yolov7.py): 4 chained 3×3 off cv2;
+    backbone taps [m4,m2,cv2,cv1], head ('ELAN-H') taps all six."""
+    cv1 = g.conv(f"{prefix}/cv1", x, 1)
+    cv2 = g.conv(f"{prefix}/cv2", x, 1)
+    m = cv2
+    ms = []
+    for i in range(4):
+        m = g.conv(f"{prefix}/m{i + 1}", m, 3)
+        ms.append(m)
+    taps = ([ms[3], ms[2], ms[1], ms[0], cv2, cv1] if head
+            else [ms[3], ms[1], cv2, cv1])
+    return g.conv(f"{prefix}/out", taps, 1)
+
+
+def _mpconv(g, prefix: str, x):
+    """yolov7-base MP downsample: maxpool and strided-conv branches,
+    deferred concat [conv, pool]."""
+    a = g.conv(f"{prefix}/pool_cv", g.pool2(x), 1)
+    b = g.conv(f"{prefix}/pre_cv", x, 1)
+    b = g.conv(f"{prefix}/down_cv", b, 3, stride=2)
+    return [b, a]
+
+
+def _sppcspc_base(g, prefix: str, x):
+    """yolov7-base SPPCSPC: parallel 5/9/13 pools."""
+    cv1 = g.conv(f"{prefix}/cv1", x, 1)
+    cv3 = g.conv(f"{prefix}/cv3", cv1, 3)
+    cv4 = g.conv(f"{prefix}/cv4", cv3, 1)
+    pools = [cv4, g.pool_same(cv4, 5), g.pool_same(cv4, 9),
+             g.pool_same(cv4, 13)]
+    y1 = g.conv(f"{prefix}/cv5", pools, 1)
+    y1 = g.conv(f"{prefix}/cv6", y1, 3)
+    y2 = g.conv(f"{prefix}/cv2", x, 1)
+    return g.conv(f"{prefix}/cv7", [y1, y2], 1)
+
+
+def _v7base_trunk(g, x):
+    """Mirror of ``YOLOv7._base_trunk`` from the P2 feature (stem3 output)
+    through the RepConv deploy convs. Returns (o3, o4, o5) QTs."""
+    x = _elan_base(g, "elan1", x)
+    x = _mpconv(g, "mp3", x)                         # P3/8
+    p3 = _elan_base(g, "elan2", x)
+    x = _mpconv(g, "mp4", p3)                        # P4/16
+    p4 = _elan_base(g, "elan3", x)
+    x = _mpconv(g, "mp5", p4)                        # P5/32
+    p5 = _elan_base(g, "elan4", x)
+
+    spp = _sppcspc_base(g, "sppcspc", p5)
+    x = g.conv("up4_cv", spp, 1)
+    x = g.up2(x)
+    r4 = g.conv("route4", p4, 1)
+    f4 = _elan_base(g, "head_elan4", [r4, x], head=True)
+    x = g.conv("up3_cv", f4, 1)
+    x = g.up2(x)
+    r3 = g.conv("route3", p3, 1)
+    f3 = _elan_base(g, "head_elan3", [r3, x], head=True)
+    a = g.conv("pan4_pool_cv", g.pool2(f3), 1)
+    b = g.conv("pan4_pre_cv", f3, 1)
+    b = g.conv("pan4_down_cv", b, 3, stride=2)
+    f4b = _elan_base(g, "pan_elan4", [b, a, f4], head=True)
+    a = g.conv("pan5_pool_cv", g.pool2(f4b), 1)
+    b = g.conv("pan5_pre_cv", f4b, 1)
+    b = g.conv("pan5_down_cv", b, 3, stride=2)
+    f5b = _elan_base(g, "pan_elan5", [b, a, spp], head=True)
+    o3 = g.conv("rep3", f3, 3)       # RepConv deploy: conv+bias, no BN
+    o4 = g.conv("rep4", f4b, 3)
+    o5 = g.conv("rep5", f5b, 3)
+    return o3, o4, o5
+
+
+def _c2f(g, prefix: str, x, n: int, shortcut: bool):
+    """C2f (models/yolov8.py): split cv1 in two, n chained e=1.0
+    bottlenecks tapping the running tail, concat all, cv2."""
+    y = g.conv(f"{prefix}/cv1", x, 1)
+    y1, y2 = g.split2(y)
+    ys = [y1, y2]
+    for i in range(n):
+        m = g.conv(f"{prefix}/m{i}/cv1", ys[-1], 3)
+        m = g.conv(f"{prefix}/m{i}/cv2", m, 3)
+        if shortcut:                      # e=1.0 ⇒ channels always match
+            m = g.add(f"{prefix}/m{i}", m, ys[-1])
+        ys.append(m)
+    return g.conv(f"{prefix}/cv2", ys, 1)
+
+
+def _sppf(g, prefix: str, x):
+    y = g.conv(f"{prefix}/cv1", x, 1)
+    p1 = g.pool_same(y, 5)
+    p2 = g.pool_same(p1, 5)
+    p3 = g.pool_same(p2, 5)
+    return g.conv(f"{prefix}/cv2", [y, p1, p2, p3], 1)
+
+
+def _v8_trunk(g, x, depth: float):
+    """Mirror of ``YOLOv8.trunk`` from the P2 feature, through the head's
+    ConvBN towers. Returns per level (box_feat, cls_feat) QTs, ready for
+    the f32 output convs."""
+    from aerial_image_recognition_tpu_torch.models.yolov8 import _n
+    x = _c2f(g, "c2f1", x, _n(3, depth), True)
+    x = g.conv("down3", x, 3, stride=2)                       # P3/8
+    p3 = _c2f(g, "c2f2", x, _n(6, depth), True)
+    x = g.conv("down4", p3, 3, stride=2)                      # P4/16
+    p4 = _c2f(g, "c2f3", x, _n(6, depth), True)
+    x = g.conv("down5", p4, 3, stride=2)                      # P5/32
+    x = _c2f(g, "c2f4", x, _n(3, depth), True)
+    p5 = _sppf(g, "sppf", x)
+
+    f4 = _c2f(g, "fpn4", [g.up2(p5), p4], _n(3, depth), False)
+    f3 = _c2f(g, "fpn3", [g.up2(f4), p3], _n(3, depth), False)
+    x = g.conv("pan_down4", f3, 3, stride=2)
+    f4b = _c2f(g, "pan4", [x, f4], _n(3, depth), False)
+    x = g.conv("pan_down5", f4b, 3, stride=2)
+    f5b = _c2f(g, "pan5", [x, p5], _n(3, depth), False)
+
+    outs = []
+    for i, f in enumerate((f3, f4b, f5b)):
+        b = g.conv(f"detect/box{i}_cv1", f, 3)
+        b = g.conv(f"detect/box{i}_cv2", b, 3)
+        c = g.conv(f"detect/cls{i}_cv1", f, 3)
+        c = g.conv(f"detect/cls{i}_cv2", c, 3)
+        outs.append((b, c))
+    return outs
 
 
 class _Prepare:
@@ -228,31 +360,47 @@ class _Prepare:
 
 def _prune_orig(variables, keep):
     """Drop the trunk weights from the flax-format tree a quantized bundle
-    carries — the int8 graph reads only the stems and the detect heads.
-    Without this the unused float trunk would ride along with the int8
-    kernels."""
+    carries — the int8 graph reads only the stems and the f32 heads:
+    yolov7's ``detect0``–``detect2``, and of yolov8's ``detect`` subtree
+    the six ``*_out`` convs (its towers run int8). Without this the unused
+    float trunk would ride along with the int8 kernels."""
+    params = {k: v for k, v in variables["params"].items() if k in keep}
+    if "detect" in params:
+        params["detect"] = {k: v for k, v in params["detect"].items()
+                            if k.endswith("_out")}
     return {
-        "params": {k: v for k, v in variables["params"].items()
-                   if k in keep},
+        "params": params,
         "batch_stats": {k: v for k, v in
                         variables.get("batch_stats", {}).items()
-                        if k in keep},
+                        if k in keep and k != "detect"},
     }
 
 
-def _family_meta(spec, module):
-    """Stem scopes / strides / activation / BN eps per family."""
+def _family_meta(spec, arch: str):
+    """Stem scopes / strides / activation / BN eps per family; ``arch`` is
+    the yolov7 variant ('tiny', 'base') or the yolov8 scale."""
     if spec.family == "yolov8":
-        raise NotImplementedError(
-            "int8 for YOLOv8 arrives with the other-families slice")
+        return {"stems": ("stem", "down2"), "act": "silu", "bn_eps": 1e-3,
+                "strides": (2, 2)}
     if spec.family != "yolov7":
         raise NotImplementedError(
             f"int8 for the {spec.family} family arrives with its slice")
-    if getattr(module, "variant", "") == "base":
-        raise NotImplementedError(
-            "int8 for yolov7-base arrives with the other-families slice")
+    if arch == "base":
+        return {"stems": ("stem0", "stem1", "stem2", "stem3"),
+                "act": "silu", "bn_eps": 1e-5, "strides": (1, 2, 1, 2)}
     return {"stems": ("stem0", "stem1"), "act": "leaky", "bn_eps": 1e-5,
             "strides": (2, 2)}
+
+
+def _arch_of(spec, params) -> str:
+    """The yolov7 variant or the yolov8 scale of a flax-format tree: base
+    has four stems; each yolov8 scale has its own stem width."""
+    if spec.family == "yolov8":
+        from aerial_image_recognition_tpu_torch.models.yolov8 import (
+            SCALES, widths)
+        c1 = np.shape(params["stem"]["conv"]["kernel"])[-1]
+        return next(sc for sc in SCALES if widths(sc)[0] == c1)
+    return "base" if "stem3" in params else "tiny"
 
 
 def save_absmax(path: str, absmax: Dict[str, float]) -> None:
@@ -280,7 +428,7 @@ def qparams_from_jax(q, static_scales) -> Dict[str, Any]:
         if "inv" in qp:
             convs[name]["inv"] = np.float32(qp["inv"])
     return {"p2_scale": np.float32(q["p2_scale"]), "convs": convs,
-            "out_scales": [np.float32(s) for s in q["out_scales"]],
+            "out_scales": [np.float32(s) for s in q.get("out_scales", [])],
             "scales": {k: float(v) for k, v in static_scales.items()}}
 
 
@@ -450,49 +598,78 @@ class _Run:
 # stems (bundle dtype) + heads (f32) around the int8 trunk
 
 
-class _TinyEnds(nn.Module):
-    """What a quantized YOLOv7-tiny keeps in floating point: the two stem
-    ConvBNs (submodule names as in ``YOLOv7``, so the weight bridge loads
-    the pruned flax tree) and the three f32 detect heads."""
+class _Ends(nn.Module):
+    """What a quantized detector keeps in floating point: its stem ConvBNs
+    (tiny: stem0–1; base: stem0–3, strides 1, 2, 1, 2; yolov8: stem and
+    down2) and its f32 heads (yolov7: detect0–2; yolov8:
+    ``detect.{box,cls}{i}_out``). Built from the shapes of the pruned flax
+    tree, with the submodule names of the full model, so the weight bridge
+    loads that tree."""
 
-    variant = "tiny"
-
-    def __init__(self, num_classes: int = 1):
+    def __init__(self, family: str, arch: str, tree, meta):
         super().__init__()
-        from aerial_image_recognition_tpu_torch.models.yolov7 import _conv
-        self.num_classes = num_classes
-        no = 3 * (5 + num_classes)
-        self.stem0 = _conv(3, 32, 3, 2)
-        self.stem1 = _conv(32, 64, 3, 2)
-        self.detect0 = nn.Linear(128, no)
-        self.detect1 = nn.Linear(256, no)
-        self.detect2 = nn.Linear(512, no)
+        from aerial_image_recognition_tpu_torch.models.layers import ConvBN
+        self.family = family
+        self.stem_names = meta["stems"]
+        if family == "yolov8":
+            self.scale = arch
+        else:
+            self.variant = arch
+        p = tree["params"]
+        for name, stride in zip(meta["stems"], meta["strides"]):
+            kh, _, c_in, c_out = np.shape(p[name]["conv"]["kernel"])
+            setattr(self, name, ConvBN(c_in, c_out, kh, stride,
+                                       act=meta["act"],
+                                       bn_eps=meta["bn_eps"]))
+
+        def linear(node):
+            _, _, c_in, c_out = np.shape(node["kernel"])
+            return nn.Linear(c_in, c_out)
+
+        if family == "yolov8":
+            self.detect = nn.Module()
+            self._heads = [f"{kind}{i}_out" for i in range(3)
+                           for kind in ("box", "cls")]
+            for name in self._heads:
+                setattr(self.detect, name, linear(p["detect"][name]))
+        else:
+            for i in range(3):
+                setattr(self, f"detect{i}", linear(p[f"detect{i}"]))
 
     @property
     def anchors(self):
         from aerial_image_recognition_tpu_torch.models.yolov7 import (
-            ANCHORS_TINY)
-        return ANCHORS_TINY
+            ANCHORS_BASE, ANCHORS_TINY)
+        return ANCHORS_BASE if self.variant == "base" else ANCHORS_TINY
 
     def heads(self) -> List[nn.Linear]:
+        """yolov7: the three detect heads; yolov8: the six output convs,
+        (box, cls) per level."""
+        if self.family == "yolov8":
+            return [getattr(self.detect, n) for n in self._heads]
         return [self.detect0, self.detect1, self.detect2]
 
     def stems(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B,3,S,S] → the P2 feature [B,64,S/4,S/4]."""
-        return self.stem1(self.stem0(x))
+        """x [B,3,S,S] → the P2 feature [B,C,S/4,S/4]."""
+        for name in self.stem_names:
+            x = getattr(self, name)(x)
+        return x
 
 
 def _module_dtype(module: nn.Module) -> torch.dtype:
-    return module.stem0.conv.weight.dtype
+    """The dtype of a module's first convolution (its stem)."""
+    return next(m.weight.dtype for m in module.modules()
+                if isinstance(m, nn.Conv2d))
 
 
 @dataclass
 class Int8Bundle:
     """Drop-in for ``models.registry.ModelBundle`` (same ``forward``
-    contract) with the YOLOv7-tiny trunk quantized.
+    contract) with the detector trunk quantized (yolov7-tiny, yolov7-base
+    or yolov8 n–x).
 
-    ``module`` holds the stems and the detect heads only (no float trunk
-    on the device); ``q`` the int8 kernels and epilogue constants as
+    ``module`` holds the stems and the f32 heads only (no float trunk on
+    the device); ``q`` the int8 kernels and epilogue constants as
     tensors on ``device``; ``params`` the host-side numpy mirror
     ``{"orig": pruned flax-format tree, "q": …}`` the device tensors were
     made from; ``static_scales`` the per-tensor coding scales (python
@@ -512,22 +689,26 @@ class Int8Bundle:
                device: torch.device,
                absmax: Optional[Dict[str, float]] = None) -> "Int8Bundle":
         """Build from flax-format f32 ``variables`` (only the stems and the
-        heads are read) and a numpy ``q`` dictionary (``_Prepare``'s
-        ``convs``, ``p2_scale``, ``out_scales``, ``scales``)."""
+        heads are read; the variant or scale is read off their shapes) and
+        a numpy ``q`` dictionary (``_Prepare``'s ``convs``, ``p2_scale``,
+        ``out_scales`` for yolov7, ``scales``)."""
         from aerial_image_recognition_tpu_torch.models.layers import (
             fold_batchnorm)
         from aerial_image_recognition_tpu_torch.models.weights import (
             load_flax_into)
         device = torch.device(device)
-        keep = {"stem0", "stem1", "detect0", "detect1", "detect2"}
+        arch = _arch_of(spec, variables["params"])
+        meta = _family_meta(spec, arch)
+        keep = set(meta["stems"]) | {"detect", "detect0", "detect1",
+                                     "detect2"}
         orig = _prune_orig(variables, keep)
-        module = _TinyEnds(spec.num_classes)
+        module = _Ends(spec.family, arch, orig, meta)
         load_flax_into(module, orig)
         module.eval()
         fold_batchnorm(module)
         module.requires_grad_(False)
-        module.stem0.to(dtype)
-        module.stem1.to(dtype)
+        for name in meta["stems"]:
+            getattr(module, name).to(dtype)
         module.to(device=device, memory_format=torch.channels_last)
 
         def dev(a):
@@ -541,7 +722,8 @@ class Int8Bundle:
                 # a host number: the epilogue takes it as an argument
                 convs[name]["inv"] = float(np.float32(qp["inv"]))
         dq = {"convs": convs, "p2_scale": dev(q["p2_scale"]),
-              "out_scales": [float(np.float32(s)) for s in q["out_scales"]]}
+              "out_scales": [float(np.float32(s))
+                             for s in q.get("out_scales", [])]}
         scales = dict(q["scales"])
         host_q = {k: v for k, v in q.items() if k != "scales"}
         return cls(spec=spec, module=module, device=device, q=dq,
@@ -557,14 +739,28 @@ class Int8Bundle:
         t = p2.permute(0, 2, 3, 1).to(torch.float32) / self.q["p2_scale"]
         return t.round_().clamp_(-127, 127).to(torch.int8).contiguous()
 
-    def trunk_codes(self, p2_i8: torch.Tensor):
-        """int8 P2 codes → the three int8 head taps (QTs)."""
-        g = _Run(self.q["convs"], act="leaky", scales=self.static_scales)
-        return _tiny_trunk(g, QT(p2_i8, self.static_scales["__p2__"],
-                                 p2_i8.shape[-1]))
+    def trunk_codes(self, p2_i8: torch.Tensor, g: Optional[_Run] = None):
+        """int8 P2 codes → the int8 head taps (QTs): yolov7's three
+        (o3, o4, o5); yolov8's six tower outputs, box then cls per level.
+        ``g`` runs the graph (default: a ``_Run`` over this bundle's
+        qparams, with the family's activation)."""
+        x = QT(p2_i8, self.static_scales["__p2__"], p2_i8.shape[-1])
+        act = "leaky" if getattr(self.module, "variant", "") == "tiny" \
+            else "silu"
+        g = g or _Run(self.q["convs"], act=act, scales=self.static_scales)
+        if self.spec.family == "yolov8":
+            from aerial_image_recognition_tpu_torch.models.yolov8 import (
+                SCALES)
+            pairs = _v8_trunk(g, x, SCALES[self.module.scale][0])
+            return tuple(t for pair in pairs for t in pair)
+        if self.module.variant == "base":
+            return _v7base_trunk(g, x)
+        return _tiny_trunk(g, x)
 
     def _raw_from_p2_i8(self, p2_i8: torch.Tensor) -> List[torch.Tensor]:
-        """int8 trunk + f32 detect heads → the three raw NHWC maps."""
+        """int8 trunk + f32 heads → the three raw NHWC maps. A tap's codes
+        are dequantized by its static scale: yolov7's by ``out_scales``,
+        yolov8's by the coding scale of the tower's last conv."""
         if p2_i8.is_cuda and torch.get_float32_matmul_precision() != "highest":
             raise RuntimeError(
                 "the f32 detect heads need full-precision f32 matmuls; "
@@ -572,18 +768,30 @@ class Int8Bundle:
                 f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
                 "back to 'highest'")
         taps = self.trunk_codes(p2_i8)
+        heads = self.module.heads()
+        if self.spec.family == "yolov8":
+            return [torch.cat([heads[i](taps[i].v.to(torch.float32)
+                                        * taps[i].s),
+                               heads[i + 1](taps[i + 1].v.to(torch.float32)
+                                            * taps[i + 1].s)], dim=-1)
+                    for i in range(0, 6, 2)]
         return [head(o.v.to(torch.float32) * sc)
-                for o, sc, head in zip(taps, self.q["out_scales"],
-                                       self.module.heads())]
+                for o, sc, head in zip(taps, self.q["out_scales"], heads)]
+
+    def decode(self, outs: List[torch.Tensor]):
+        """The three raw maps → (boxes, scores), by family."""
+        from aerial_image_recognition_tpu_torch.ops.decode import (
+            decode_yolov7, decode_yolov8)
+        if self.spec.family == "yolov8":
+            return decode_yolov8(outs, self.spec.num_classes)
+        return decode_yolov7(outs, self.module.anchors,
+                             self.spec.num_classes)
 
     def forward(self, images: torch.Tensor):
         """images [B,3,S,S] (/255, any float dtype) → (boxes [B,A,4] cxcywh
         pixels f32, scores [B,A,nc] f32)."""
-        from aerial_image_recognition_tpu_torch.ops.decode import (
-            decode_yolov7)
         p2 = self.module.stems(images.to(_module_dtype(self.module)))
-        return decode_yolov7(self._raw_from_p2_i8(self._p2_quantize(p2)),
-                             self.module.anchors, self.spec.num_classes)
+        return self.decode(self._raw_from_p2_i8(self._p2_quantize(p2)))
 
     def forward_s2d2(self, xq, in_scale=1.0 / 255.0):
         raise NotImplementedError(
@@ -598,11 +806,14 @@ class Int8Bundle:
 def calibrate_absmax(bundle, batches: Sequence[Any],
                      model_size: Optional[int] = None) -> Dict[str, float]:
     """Run the bundle's standard forward over calibration batches, recording
-    the absmax of every ConvBN output (keyed 'elan1/cv1'). batches: uint8
+    the absmax of every ConvBN output and every yolov8 Bottleneck output
+    (the residual add's scale), keyed by scope ('elan1/cv1', 'c2f1/m0',
+    'detect/box0_cv1'). batches: uint8
     [B,S,S,3] arrays (preprocessed here) or float [B,S,S,3] arrays already
     in [0,1] (resized to the model size: activation absmax depends on the
     resolution). Only a running maximum per layer is kept."""
     from aerial_image_recognition_tpu_torch.models.layers import ConvBN
+    from aerial_image_recognition_tpu_torch.models.yolov8 import Bottleneck
     from aerial_image_recognition_tpu_torch.ops.preprocess import (
         matmul_resize_float, preprocess_batch)
     size = model_size or bundle.spec.input_size
@@ -617,7 +828,8 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
         return hook
 
     hooks = [m.register_forward_hook(record(name.replace(".", "/")))
-             for name, m in module.named_modules() if isinstance(m, ConvBN)]
+             for name, m in module.named_modules()
+             if isinstance(m, (ConvBN, Bottleneck))]
     try:
         with torch.inference_mode():
             for imgs in batches:
@@ -641,8 +853,9 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
 def quantize_bundle(bundle, calib_batches: Sequence[Any],
                     model_size: Optional[int] = None,
                     absmax: Optional[Dict[str, float]] = None) -> Int8Bundle:
-    """Calibrate + quantize a YOLOv7-tiny ``ModelBundle`` → ``Int8Bundle``
-    on the same device, stems in the bundle's dtype.
+    """Calibrate + quantize a detector ``ModelBundle`` (yolov7-tiny with
+    the standard stems, yolov7-base, any yolov8 scale) → ``Int8Bundle`` on
+    the same device, stems in the bundle's dtype.
 
     calib_batches: a few representative uint8 [B,S,S,3] batches (or floats
     in [0,1]). Pass absmax= to reuse a saved calibration instead. The
@@ -654,9 +867,11 @@ def quantize_bundle(bundle, calib_batches: Sequence[Any],
     if bundle.spec.family == "yolov7" and variant == "tiny" \
             and getattr(module, "s2d_stem", False):
         raise NotImplementedError(
-            "int8 PTQ covers yolov7 tiny/base with the standard stems, "
-            "yolov8 n–x, and xunet; the s2d_stem experiment keeps bf16")
-    meta = _family_meta(bundle.spec, module)     # raises for other families
+            "int8 PTQ covers yolov7 tiny/base with the standard stems and "
+            "yolov8 n–x; the s2d_stem experiment keeps bf16")
+    is_v8 = bundle.spec.family == "yolov8"
+    arch = module.scale if is_v8 else variant
+    meta = _family_meta(bundle.spec, arch)       # raises for other families
     if bundle.variables is None:
         raise ValueError("quantize_bundle needs the f32 variables the "
                          "bundle was built from (bundle.variables)")
@@ -668,12 +883,16 @@ def quantize_bundle(bundle, calib_batches: Sequence[Any],
     p2_c = np.asarray(
         bundle.variables["params"][p2_key]["conv"]["kernel"]).shape[-1]
     p2 = QT(None, max(absmax[p2_key], 1e-12) / 127.0, p2_c)
-    o3, o4, o5 = _tiny_trunk(prep, p2)
+    q = {"p2_scale": np.float32(p2.s), "convs": prep.qparams}
+    if is_v8:
+        from aerial_image_recognition_tpu_torch.models.yolov8 import SCALES
+        _v8_trunk(prep, p2, SCALES[arch][0])
+    else:
+        trunk = _v7base_trunk if arch == "base" else _tiny_trunk
+        q["out_scales"] = [np.float32(o.s) for o in trunk(prep, p2)]
     scales = dict(prep.scales)
     scales["__p2__"] = p2.s
-    q = {"p2_scale": np.float32(p2.s), "convs": prep.qparams,
-         "out_scales": [np.float32(o.s) for o in (o3, o4, o5)],
-         "scales": scales}
+    q["scales"] = scales
     return Int8Bundle.from_q(bundle.spec, bundle.variables, q,
                              dtype=_module_dtype(module),
                              device=bundle.device, absmax=absmax)

@@ -1,8 +1,9 @@
 """Shared building blocks (PyTorch, NCHW tensors, channels_last on the card).
 
 Counterpart of ``aerial_image_recognition_tpu/models/layers.py``: the same
-ConvBN block, pools and upsample, with parameter names that the weight
-bridge (``models/weights.py``) maps one to one from the flax tree.
+ConvBN block (SiLU, LeakyReLU(0.1), ReLU or none; with or without BN; the
+family's BN epsilon), pools and upsample, with parameter names that the
+weight bridge (``models/weights.py``) maps one to one from the flax tree.
 """
 
 from typing import Sequence, Union
@@ -13,6 +14,13 @@ from torch import nn
 
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
+ACTIVATIONS = {
+    "silu": F.silu,
+    "leaky": lambda x: F.leaky_relu(x, 0.1),
+    "relu": F.relu,
+    "none": lambda x: x,
+}
+
 
 def concat(xs: Tensors) -> torch.Tensor:
     """Channel concat of a deferred list (a lone tensor passes through)."""
@@ -22,8 +30,11 @@ def concat(xs: Tensors) -> torch.Tensor:
 
 
 class ConvBN(nn.Module):
-    """Conv2d + BatchNorm + LeakyReLU(0.1) — the yolov7-tiny 'Conv' block
-    (the SiLU families arrive with their slice).
+    """Conv2d + BatchNorm + activation — the YOLO 'Conv' block. The
+    defaults are ultralytics v8's (SiLU, BN epsilon 1e-3); the yolov7
+    family passes its own (LeakyReLU for tiny, SiLU for base, epsilon
+    1e-5). ``use_bn=False`` is a conv with bias and no BN (yolov7-base's
+    RepConv deploy convs).
 
     Padding is an explicit ``k // 2`` on every side (torch's "autopad"). For
     stride 1 that equals SAME; for stride 2 on an even input it does not
@@ -39,18 +50,24 @@ class ConvBN(nn.Module):
     """
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1,
-                 stride: int = 1, bn_eps: float = 1e-3):
+                 stride: int = 1, act: str = "silu", use_bn: bool = True,
+                 bn_eps: float = 1e-3):
         super().__init__()
+        if act not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = act
         self.conv = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2,
-                              bias=False)
-        self.bn = nn.BatchNorm2d(c_out, eps=bn_eps)
+                              bias=not use_bn)
+        self.bn = nn.BatchNorm2d(c_out, eps=bn_eps) if use_bn \
+            else nn.Identity()
 
     def forward(self, x: Tensors) -> torch.Tensor:
-        return F.leaky_relu(self.bn(self.conv(concat(x))), 0.1)
+        return ACTIVATIONS[self.act](self.bn(self.conv(concat(x))))
 
     @torch.no_grad()
     def fuse(self) -> None:
-        """Fold BN into the conv in f32 (inference-only deploy form)."""
+        """Fold BN into the conv in f32 (inference-only deploy form); a
+        BN-less conv stays as it is."""
         if isinstance(self.bn, nn.Identity):
             return
         bn = self.bn

@@ -6,9 +6,11 @@ alone: keys are ``/``-joined tree paths, and bf16 leaves are stored bit-exact
 as uint16 under a ``:bf16`` suffix.
 
 ``params_from_flax`` turns such a tree (``{"params": …, "batch_stats": …}``)
-into a ``state_dict`` for ``models/yolov7.YOLOv7``, whose submodule names
-equal the flax scope names. Only the leaf names and layouts differ; the
-table ``LEAF_MAP`` below is the whole mapping.
+into a ``state_dict`` for the port's modules (``models/yolov7.YOLOv7``,
+``models/yolov8.YOLOv8``), whose submodule names equal the flax scope
+names at any depth (``c2f1.m0.cv1``, ``detect.box0_out``). Only the leaf
+names and layouts differ; the table ``LEAF_MAP`` below is the whole
+mapping.
 """
 
 from collections.abc import Mapping
@@ -50,11 +52,14 @@ def _hwio_1x1_to_linear(a: np.ndarray) -> np.ndarray:
 LEAF_MAP: Dict[Tuple[str, Tuple[str, ...]],
                Tuple[str, Optional[Callable[[np.ndarray], np.ndarray]]]] = {
     ("params", ("conv", "kernel")): ("conv.weight", _hwio_to_oihw),
+    # a BN-less ConvBN (yolov7-base's RepConv deploy convs) has a conv bias
+    ("params", ("conv", "bias")): ("conv.bias", None),
     ("params", ("bn", "scale")): ("bn.weight", None),
     ("params", ("bn", "bias")): ("bn.bias", None),
     ("batch_stats", ("bn", "mean")): ("bn.running_mean", None),
     ("batch_stats", ("bn", "var")): ("bn.running_var", None),
-    # detect heads: a bare 1×1 conv with bias, computed as a matmul
+    # detect heads and the yolov8 output convs: a bare 1×1 conv with bias,
+    # computed as a matmul
     ("params", ("kernel",)): ("weight", _hwio_1x1_to_linear),
     ("params", ("bias",)): ("bias", None),
 }

@@ -1,12 +1,15 @@
-"""YOLOv7-tiny — the ITCVD car detector — as a torch ``nn.Module``.
+"""The YOLOv7 family — tiny (the ITCVD car detector) and base — as a torch
+``nn.Module``.
 
 Counterpart of ``aerial_image_recognition_tpu/models/yolov7.py`` (``YOLOv7``,
-``_tiny``, ``ELANTiny``, ``SPPCSPCTiny``). Submodule names equal the flax
-scope names (``elan1.cv1``, ``sppcspc.out``, ``detect0`` …), so the weight
+``_tiny``, ``_base``, ``ELANTiny``, ``SPPCSPCTiny``, ``ELAN``, ``MPConv``,
+``SPPCSPC``). Submodule names equal the flax scope names (``elan1.cv1``,
+``sppcspc.out``, ``mp3.down_cv``, ``rep3``, ``detect0`` …), so the weight
 bridge maps the flax tree leaf for leaf.
 
 Every concat keeps the reference's order channel for channel
-(``[cv4, cv3, cv2, cv1]``, ``[p13, p9, p5, cv2]``, ``[r4, x]`` …): the 1×1
+(``[cv4, cv3, cv2, cv1]``, ``[p13, p9, p5, cv2]``, ``[r4, x]``, MPConv's
+``[conv branch, pool branch]``, the PAN's ``[b, a, f4]`` …): the 1×1
 kernels that follow are sliced in that order.
 
 The detect heads run in f32 whatever the trunk's dtype, and return NHWC maps
@@ -32,13 +35,22 @@ ANCHORS_TINY = (
     ((30, 61), (62, 45), (59, 119)),     # P4/16
     ((116, 90), (156, 198), (373, 326)), # P5/32
 )
+ANCHORS_BASE = (
+    ((12, 16), (19, 36), (40, 28)),
+    ((36, 75), (76, 55), (72, 146)),
+    ((142, 110), (192, 243), (459, 401)),
+)
 STRIDES = (8, 16, 32)
 # upstream yolov7 uses nn.BatchNorm2d's default eps (1e-5)
 BN_EPS = 1e-5
 
 
-def _conv(c_in, c_out, k=1, s=1):
-    return ConvBN(c_in, c_out, k, s, bn_eps=BN_EPS)
+def _conv(c_in, c_out, k=1, s=1, act="leaky", use_bn=True):
+    return ConvBN(c_in, c_out, k, s, act=act, use_bn=use_bn, bn_eps=BN_EPS)
+
+
+def _silu(c_in, c_out, k=1, s=1, use_bn=True):
+    return _conv(c_in, c_out, k, s, act="silu", use_bn=use_bn)
 
 
 class ELANTiny(nn.Module):
@@ -82,18 +94,88 @@ class SPPCSPCTiny(nn.Module):
         return self.out([y, cv1])
 
 
+class ELAN(nn.Module):
+    """yolov7 (base) ELAN: two 1×1 stems, four chained 3×3 off cv2.
+    Backbone taps [m4, m2, cv2, cv1]; the head form ('ELAN-H', half-width
+    inner convs) taps all six, [m4, m3, m2, m1, cv2, cv1]."""
+
+    def __init__(self, c_in: int, c_mid: int, c_out: int,
+                 head: bool = False):
+        super().__init__()
+        self.head = head
+        c_inner = c_mid // 2 if head else c_mid
+        self.cv1 = _silu(c_in, c_mid)
+        self.cv2 = _silu(c_in, c_mid)
+        self.m1 = _silu(c_mid, c_inner, 3)
+        self.m2 = _silu(c_inner, c_inner, 3)
+        self.m3 = _silu(c_inner, c_inner, 3)
+        self.m4 = _silu(c_inner, c_inner, 3)
+        taps = 4 * c_inner + 2 * c_mid if head else 2 * c_inner + 2 * c_mid
+        self.out = _silu(taps, c_out)
+
+    def forward(self, x):
+        x = concat(x)
+        cv1 = self.cv1(x)
+        cv2 = self.cv2(x)
+        m1 = self.m1(cv2)
+        m2 = self.m2(m1)
+        m3 = self.m3(m2)
+        m4 = self.m4(m3)
+        if self.head:
+            return self.out([m4, m3, m2, m1, cv2, cv1])
+        return self.out([m4, m2, cv2, cv1])
+
+
+class MPConv(nn.Module):
+    """yolov7 downsample transition: a max-pool branch and a strided-conv
+    branch, returned as the deferred concat [conv branch, pool branch]."""
+
+    def __init__(self, c_in: int, c: int):
+        super().__init__()
+        self.pool_cv = _silu(c_in, c)
+        self.pre_cv = _silu(c_in, c)
+        self.down_cv = _silu(c, c, 3, 2)
+
+    def forward(self, x):
+        a = self.pool_cv(maxpool2(x))
+        b = self.down_cv(self.pre_cv(x))
+        return [b, a]
+
+
+class SPPCSPC(nn.Module):
+    """yolov7 base SPP-CSP block: 5/9/13 pools in parallel on cv4."""
+
+    def __init__(self, c_in: int, c: int):
+        super().__init__()
+        self.cv1 = _silu(c_in, c)
+        self.cv3 = _silu(c, c, 3)
+        self.cv4 = _silu(c, c)
+        self.cv5 = _silu(4 * c, c)
+        self.cv6 = _silu(c, c, 3)
+        self.cv2 = _silu(c_in, c)
+        self.cv7 = _silu(2 * c, c)
+
+    def forward(self, x):
+        cv4 = self.cv4(self.cv3(self.cv1(x)))
+        pools = [cv4] + [max_pool_same(cv4, k) for k in (5, 9, 13)]
+        y1 = self.cv6(self.cv5(pools))
+        return self.cv7([y1, self.cv2(x)])
+
+
 class YOLOv7(nn.Module):
-    """Full detector; ``forward`` returns the three raw head maps, NHWC f32."""
+    """Full detector, variant 'tiny' or 'base'; ``forward`` returns the
+    three raw head maps, NHWC f32."""
 
     def __init__(self, num_classes: int = 1, variant: str = "tiny"):
         super().__init__()
-        if variant != "tiny":
-            raise NotImplementedError(
-                f"yolov7 variant {variant!r} arrives with the other-families "
-                "slice; this port has YOLOv7-tiny only")
+        if variant not in ("tiny", "base"):
+            raise ValueError(f"unknown yolov7 variant {variant!r}")
         self.num_classes = num_classes
         self.variant = variant
         no = 3 * (5 + num_classes)
+        if variant == "base":
+            self._build_base(no)
+            return
         self.stem0 = _conv(3, 32, 3, 2)                       # P1/2
         self.stem1 = _conv(32, 64, 3, 2)                      # P2/4
         self.elan1 = ELANTiny(64, 32, 64)
@@ -118,9 +200,44 @@ class YOLOv7(nn.Module):
         self.detect1 = nn.Linear(256, no)
         self.detect2 = nn.Linear(512, no)
 
+    def _build_base(self, no: int) -> None:
+        self.stem0 = _silu(3, 32, 3)
+        self.stem1 = _silu(32, 64, 3, 2)                      # P1/2
+        self.stem2 = _silu(64, 64, 3)
+        self.stem3 = _silu(64, 128, 3, 2)                     # P2/4
+        self.elan1 = ELAN(128, 64, 256)
+        self.mp3 = MPConv(256, 128)                           # P3/8
+        self.elan2 = ELAN(256, 128, 512)
+        self.mp4 = MPConv(512, 256)                           # P4/16
+        self.elan3 = ELAN(512, 256, 1024)
+        self.mp5 = MPConv(1024, 512)                          # P5/32
+        self.elan4 = ELAN(1024, 256, 1024)
+        self.sppcspc = SPPCSPC(1024, 512)
+        self.up4_cv = _silu(512, 256)
+        self.route4 = _silu(1024, 256)
+        self.head_elan4 = ELAN(512, 256, 256, head=True)
+        self.up3_cv = _silu(256, 128)
+        self.route3 = _silu(512, 128)
+        self.head_elan3 = ELAN(256, 128, 128, head=True)
+        self.pan4_pool_cv = _silu(128, 128)
+        self.pan4_pre_cv = _silu(128, 128)
+        self.pan4_down_cv = _silu(128, 128, 3, 2)
+        self.pan_elan4 = ELAN(512, 256, 256, head=True)
+        self.pan5_pool_cv = _silu(256, 256)
+        self.pan5_pre_cv = _silu(256, 256)
+        self.pan5_down_cv = _silu(256, 256, 3, 2)
+        self.pan_elan5 = ELAN(1024, 512, 512, head=True)
+        # RepConv deploy form: one fused 3×3 conv with bias, no BN
+        self.rep3 = _silu(128, 256, 3, use_bn=False)
+        self.rep4 = _silu(256, 512, 3, use_bn=False)
+        self.rep5 = _silu(512, 1024, 3, use_bn=False)
+        self.detect0 = nn.Linear(256, no)
+        self.detect1 = nn.Linear(512, no)
+        self.detect2 = nn.Linear(1024, no)
+
     @property
     def anchors(self):
-        return ANCHORS_TINY
+        return ANCHORS_TINY if self.variant == "tiny" else ANCHORS_BASE
 
     def heads(self) -> List[nn.Linear]:
         return [self.detect0, self.detect1, self.detect2]
@@ -133,6 +250,8 @@ class YOLOv7(nn.Module):
         return self
 
     def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.variant == "base":
+            return self._base_trunk(x)
         x = self.stem1(self.stem0(x))
         x = self.elan1(x)
         p3 = self.elan2(maxpool2(x))
@@ -146,6 +265,26 @@ class YOLOv7(nn.Module):
         f4b = self.pan_elan4([self.down4_cv(f3), f4])
         f5b = self.pan_elan5([self.down5_cv(f4b), spp])
         return [self.out3(f3), self.out4(f4b), self.out5(f5b)]
+
+    def _base_trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.stem3(self.stem2(self.stem1(self.stem0(x))))
+        x = self.elan1(x)
+        p3 = self.elan2(self.mp3(x))
+        p4 = self.elan3(self.mp4(p3))
+        p5 = self.elan4(self.mp5(p4))
+        spp = self.sppcspc(p5)
+        x = upsample2(self.up4_cv(spp))
+        f4 = self.head_elan4([self.route4(p4), x])
+        x = upsample2(self.up3_cv(f4))
+        f3 = self.head_elan3([self.route3(p3), x])
+        # PAN transitions concat [conv branch, pool branch, skip]
+        a = self.pan4_pool_cv(maxpool2(f3))
+        b = self.pan4_down_cv(self.pan4_pre_cv(f3))
+        f4b = self.pan_elan4([b, a, f4])
+        a = self.pan5_pool_cv(maxpool2(f4b))
+        b = self.pan5_down_cv(self.pan5_pre_cv(f4b))
+        f5b = self.pan_elan5([b, a, spp])
+        return [self.rep3(f3), self.rep4(f4b), self.rep5(f5b)]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x [B,3,S,S] (already /255, trunk dtype) → three NHWC f32 maps."""

@@ -3,7 +3,8 @@
 Counterpart of ``aerial_image_recognition_tpu/pipeline/inference.py``
 (``DetectStep``, ``make_detect_fn``, ``build_detect_step``,
 ``detection_sets_agree``). One call runs preprocess (crop, resize, /255) →
-YOLOv7-tiny trunk → f32 heads → decode → NMS (CUDA kernel on the card) →
+trunk (any registry detector) → f32 heads → decode → NMS (CUDA kernel on
+the card; class-aware for the two-class yolov8 models) →
 lon/lat on the device, so only ~max_det·6 numbers per tile come back to the
 host. The accuracy modes — the TTA ladder (whose CLAHE variations run the
 CUDA LUT-apply kernel on the card), multiscale, box voting, shadow

@@ -185,8 +185,9 @@ def test_transcription_guard(both):
 
 def test_rejects_unsupported_families(both):
     """The counterpart of test_int8_rejects_unsupported_family: the
-    s2d_stem experiment keeps its message; the families of later slices
-    say which slice brings them."""
+    s2d_stem experiment keeps its message; the segmentation family says
+    which slice brings it. yolov7-base and yolov8 quantize
+    (tests/test_torch_families_int8.py)."""
     import dataclasses
     pb = both["pb"]
 
@@ -195,16 +196,12 @@ def test_rejects_unsupported_families(both):
 
     with pytest.raises(NotImplementedError, match="s2d_stem experiment"):
         P.quantize_bundle(dataclasses.replace(pb, module=S2D()), [])
-    for family, match in (("yolov8", "other-families"), ("xunet", "slice")):
-        spec = dataclasses.replace(pb.spec, family=family)
-        with pytest.raises(NotImplementedError, match=match):
-            P.quantize_bundle(dataclasses.replace(pb, spec=spec), [])
-
-    class Base(torch.nn.Module):
-        variant = "base"
-
-    with pytest.raises(NotImplementedError, match="yolov7-base"):
-        P.quantize_bundle(dataclasses.replace(pb, module=Base()), [])
+    spec = dataclasses.replace(pb.spec, family="xunet")
+    with pytest.raises(NotImplementedError, match="slice"):
+        P.quantize_bundle(dataclasses.replace(pb, spec=spec), [])
+    for family, arch in (("yolov7", "base"), ("yolov8", "l")):
+        assert P._family_meta(dataclasses.replace(pb.spec, family=family),
+                              arch)["act"] == "silu"
 
 
 def test_absmax_file_round_trip(tmp_path, both):

@@ -161,5 +161,5 @@ def test_create_model_bundle_forward(images):
     assert float(a.detect0.bias[4]) == -5.0
     with pytest.raises(FileNotFoundError):
         create_model(params_path="/nonexistent.npz", device="cpu")
-    with pytest.raises(NotImplementedError):
-        YOLOv7(variant="base")
+    with pytest.raises(ValueError, match="variant"):
+        YOLOv7(variant="huge")

@@ -41,6 +41,15 @@ def test_port_never_imports_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_import_check_covers_the_numpy_copies():
+    """The upstream importers the port keeps its own copies of are checked
+    like every other module: they import nothing of the JAX package."""
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"models/import_torch.py", "models/torch_pt.py",
+            "models/onnx_lite.py", "models/yolov8.py"} <= names
+
+
 def test_import_check_sees_the_prefix_package(tmp_path):
     """The check compares whole names: the port's own package passes, the
     JAX package of the same prefix, and imports inside functions, do not."""
@@ -112,23 +121,28 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         build_detect_step(DetectorConfig(extra={"quantize": "int8"}),
                           device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        create_model("yolov8_tokyo", device="cpu")
-    # the int8 branches that wait for their slice
+    # the segmentation model is the only registry name still refused
+    for name in ("xunet_256", "ramp_XUnet_256.onnx"):
+        with pytest.raises(NotImplementedError, match="segmentation slice"):
+            create_model(name, device="cpu")
+    # the int8 branches that wait for their slice: the quad-stem entry (and
+    # with it the fully-int8 stems) of every detector family, and xunet
     from aerial_image_recognition_tpu_torch.models.int8 import (
         quantize_bundle)
-    bundle = create_model(device="cpu", dtype=torch.float32)
-    qb = quantize_bundle(bundle, [torch.zeros(1, 64, 64, 3,
-                                              dtype=torch.uint8)],
-                         model_size=64)
-    assert not qb.supports_s2d2()
-    with pytest.raises(NotImplementedError, match="quad"):
-        qb.forward_s2d2(torch.zeros(1, 16, 16, 48, dtype=torch.uint8))
-    for family in ("yolov8", "xunet"):
-        other = dataclasses.replace(
-            bundle, spec=dataclasses.replace(bundle.spec, family=family))
-        with pytest.raises(NotImplementedError, match="slice"):
-            quantize_bundle(other, [])
+    for name in ("yolov7_itcvd", "yolov8n"):
+        bundle = create_model(name, device="cpu", dtype=torch.float32)
+        assert not bundle.supports_s2d2()
+        qb = quantize_bundle(bundle, [torch.zeros(1, 64, 64, 3,
+                                                  dtype=torch.uint8)],
+                             model_size=64)
+        assert not qb.supports_s2d2()
+        assert not hasattr(qb, "stems_int8") and "stems" not in qb.q
+        with pytest.raises(NotImplementedError, match="quad"):
+            qb.forward_s2d2(torch.zeros(1, 16, 16, 48, dtype=torch.uint8))
+    other = dataclasses.replace(
+        bundle, spec=dataclasses.replace(bundle.spec, family="xunet"))
+    with pytest.raises(NotImplementedError, match="slice"):
+        quantize_bundle(other, [])
 
 
 class _FakeCudaTensor:
