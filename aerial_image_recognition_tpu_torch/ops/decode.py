@@ -25,6 +25,20 @@ def _grid(h: int, w: int, device):
     return gx, gy
 
 
+_anchors_on_device = {}
+
+
+def _device_anchors(anc, device) -> torch.Tensor:
+    """One level's anchors [1,1,1,3,2] f32 on ``device``, uploaded once: a
+    tensor built from a Python list on the card is a synchronous copy, which
+    would stall the host in every step and serialize the ingest pipeline."""
+    key = (tuple(tuple(float(v) for v in a) for a in anc), device)
+    if key not in _anchors_on_device:
+        _anchors_on_device[key] = torch.tensor(
+            key[0], dtype=torch.float32, device=device)[None, None, None]
+    return _anchors_on_device[key]
+
+
 def decode_yolov7(outs: List[torch.Tensor],
                   anchors: Sequence[Sequence[Tuple[float, float]]],
                   num_classes: int,
@@ -41,8 +55,7 @@ def decode_yolov7(outs: List[torch.Tensor],
         y = torch.sigmoid(out.reshape(b, h, w, 3, 5 + num_classes))
         gx, gy = _grid(h, w, out.device)
         grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
-        anc_a = torch.tensor(anc, dtype=torch.float32,
-                             device=out.device)[None, None, None]
+        anc_a = _device_anchors(anc, out.device)
         xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * float(s)
         wh = (y[..., 2:4] * 2.0) ** 2 * anc_a
         if num_classes == 1:

@@ -125,7 +125,9 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
     rounded to multiples of 32, boxes rescaled to the base frame and
     joined before NMS; ``multiscale_weights``, default 0.8 for every
     non-native scale so that the native box wins ties against a misfit
-    off-scale one); ``box_voting`` (see ``_resolve_vote_iou``);
+    off-scale one; with ``resize_matmul`` false it raises
+    NotImplementedError, as the non-matrix resize is not ported);
+    ``box_voting`` (see ``_resolve_vote_iou``);
     ``nms_suppression``. ``bundle`` may be an ``Int8Bundle``: every mode
     only calls ``bundle.forward``.
     """
@@ -141,6 +143,12 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
             f"multiscale_weights has {len(extra['multiscale_weights'])} "
             f"entries for {len(extra['multiscale'])} scales")
     vote_iou = _resolve_vote_iou(cfg)
+    if extra.get("multiscale") and not extra.get("resize_matmul", True):
+        # the reference resizes the off-native scales with jax.image.resize
+        # there; the port has only the matrix-product resize
+        raise NotImplementedError(
+            "multiscale with resize_matmul=False is not ported: the port "
+            "resizes by matrix products, bilinear or lanczos3")
     if extra.get("tta_clahe_backend", "auto") not in _CLAHE_BACKENDS:
         raise ValueError(
             f"unknown tta_clahe_backend {extra['tta_clahe_backend']!r} "
@@ -380,8 +388,10 @@ class SelfQuantizingStep:
 
     A collected batch is copied to the host once, from whatever arrived
     (numpy or a device tensor), before the step runs; other batches cost no
-    copy. The reference batch is kept as the device tensors the float step
-    ran on and replayed through the int8 step from there.
+    copy. The reference batch is kept as a device copy of the tensors the
+    float step ran on (the caller may reuse its buffers, as
+    ``run_pipeline``'s upload ring does) and replayed through the int8 step
+    from there.
     """
 
     def __init__(self, base: DetectStep, cfg: DetectorConfig, kwargs: dict):
@@ -463,7 +473,9 @@ class SelfQuantizingStep:
         # non-vacuous gate: a parity reference must carry detections
         ndet = int(out[0].valid.sum())
         if ndet >= self._min_det and self._ref is None:
-            self._ref = (dev_images, dev_bounds, out)
+            # copies: a caller may reuse its device buffers for later
+            # batches (run_pipeline's upload ring does) before the replay
+            self._ref = (dev_images.clone(), dev_bounds.clone(), out)
             if not collect:
                 # the reference batch joins the calibration set so absmax
                 # sees detection-bearing content even when the first

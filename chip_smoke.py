@@ -13,7 +13,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      paths' shapes, tolerance 0: NMS (``NMS_CASES``: B=64, K=256, D=64,
      class-agnostic and class-aware, score ties, all below the confidence
      threshold, tile-like rows that end early; K=40 < D, K=250, K=1024 with
-     D=128; and two rows outside the priority-order contract, which take
+     D=128, and the city scan's B=64, K=1024, D=256; and two rows outside
+     the priority-order contract, which take
      the kernel's general path) with bit-identical picks, timed on the
      sweep, on a tile-like input and on the general path (device time of
      the kernel alone by torch.profiler, and CUDA events through the
@@ -31,6 +32,23 @@ Phases (any failure exits nonzero, and no result line is printed):
      IoU 0.5, detection_sets_agree) and against the rendered cars;
   5. the port's DetectionServer over that step answers JPEG POST /detect
      requests;
+ 10. the city scan on the card, run right after phase 5: (a)
+     ``run_pipeline`` alone over 8 pre-assembled 640-px batches in host
+     memory (each pass runs them twice) through the pinned upload ring,
+     its staging thread and copy stream, in turns with the step's own
+     per-call upload: every batch's detections equal (tolerance 0) the same
+     step called per batch on device-resident copies, and the step makes no
+     host sync (``torch.cuda.set_sync_debug_mode``); tiles/s beside phase
+     4's two step times, the time split (h2d, compute, readback wait) and
+     the idle share from one profiler window; (b) a ``CarDetector`` scan of the
+     port's FakeWorld (10 000 cars over 0.05°) served by the port's
+     FakeTileServer over WMS JPEG, 640 px a 320 m tile, the central 0.04°
+     square (about 230 tiles, 4 batches, the last padded), with the step
+     ``detect()`` builds on ``cuda``: recall ≥ 0.8 within 3 m, no two
+     records within the 2 m dedup radius, GeoJSON, coverage and shapefile
+     written, the checkpoint cleared, one NMS launch a batch at B=64,
+     K=1024, D=256; tiles/s (host-bound), phase timings, fetch stats, which
+     native helpers ran, peak memory;
   6. the TTA step (8 variations, 512 images per forward) at the same width,
      batch and dtype: step time, tiles/s, stage times, peak memory; its
      detections held against the rendered cars (recall ≥ 0.8) and against
@@ -69,8 +87,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      the CPU (4 tiles at 320 px, one calibration); turnkey on the trained
      nano must reach ``int8``; int8 YOLOv8l and yolov7-base steps timed in
      turns with their bf16 steps.
-Launch counts are zeroed just before each path (4–5, 6, 7, 8c–d, 9a, 9b,
-9c, 9d) and read just after it; every kernel of a path must have launched
+Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
+9a, 9b, 9c, 9d) and read just after it; every kernel of a path must have launched
 in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
 whether a profile earlier in the process moves later timings.
@@ -78,6 +96,10 @@ whether a profile earlier in the process moves later timings.
 Output: the card line, then a ``{"kernels": [...]}`` JSON line, then the
 last line ``{"ok": true, "device": {...}}``. The full record also goes to
 ``chiprun_out/chip_smoke.json``. Imports nothing of JAX.
+
+``python3 chip_smoke.py --scan-only`` runs phases 1–2, the NMS kernel
+against its plain version, the default step's two timings and phase 10
+alone (record in ``chiprun_out/chip_smoke_scan.json``).
 """
 
 import io
@@ -151,25 +173,36 @@ def kernel_ms(torch, fn, n: int, kernel: str):
     mean device time of that kernel alone over n calls, from
     torch.profiler, and the mean time per call by CUDA events over n more
     calls (device time or the host's launch rate, whichever is longer).
-    Late in a long process the profiler may miss a few of the n launches
-    (seen on the card: 194–195 of 200); the mean is over those it saw,
-    and it must see at least 90 %."""
+    Late in a long process the profiler drops launches near the ends of
+    its window (seen on the card: 194–195 of 200, and once 152). A likely
+    cause: it keeps only device activity whose time, mapped onto the
+    host's clock, lies inside the window, and the clocks drift apart
+    over a long process. So the window is
+    padded with idle time at both ends, and taken again (at most three
+    windows) until it sees at least 90 % of the n launches; the mean is
+    over those it saw."""
     from torch.profiler import ProfilerActivity, profile
     events = cuda_ms(fn, n)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = count = 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and kernel in ev.key:
-            us += getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0))
-            count += ev.count
-    if not 0.9 * n <= count <= n or us <= 0:
-        fail(f"the profiler saw {count} launches of {kernel} in {n} calls")
-    return us / 1e3 / count, events
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+        us = count = 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and kernel in ev.key:
+                us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0))
+                count += ev.count
+        if 0.9 * n <= count <= n and us > 0:
+            return us / 1e3 / count, events
+        seen.append(count)
+    fail(f"the profiler saw {seen} launches of {kernel} in {n} calls "
+         "in each of three windows")
 
 
 # ---------------------------------------------------------------- inputs
@@ -228,6 +261,8 @@ NMS_CASES = [
     ("unsorted", "unsorted", False, B, K, D),
     ("below-minus-one", "below-minus-one", True, B, K, D),
     ("k-1024", "random", False, 8, 1024, 128),
+    # the city scan's shape (phase 10): 320 m tiles scale the slots
+    ("wide-k1024-d256", "random", False, B, 1024, 256),
 ]
 
 
@@ -964,6 +999,358 @@ def post_jpegs(url, images, bounds, n):
     return replies
 
 
+# ------------------------------------------------ 10. the city scan
+
+SCAN_WORLD = dict(center_lon=21.0, center_lat=52.2, extent_deg=0.05,
+                  n_cars=10000, seed=4)        # the training world's density
+SCAN_AOI = (20.98, 52.18, 21.02, 52.22)       # the central 0.04° square
+SCAN_TILE_M, SCAN_OVERLAP = 320.0, 0.25       # 640 px a tile: 0.5 m/px
+SCAN_SLOTS = (1024, 256)                      # _step_config at 320 m tiles
+M2LON = 1.0 / (111319.9 * math.cos(math.radians(52.2)))
+M2LAT = 1.0 / 111319.9
+
+
+def readback(out):
+    """What a scan's host reads of one batch: every output, to numpy."""
+    from aerial_image_recognition_tpu_torch.post.georef import to_numpy
+    det, lon, lat = out
+    return [to_numpy(t) for t in (det.valid, det.boxes, det.scores,
+                                  det.classes, lon, lat)]
+
+
+def host_syncs_in_one_step(torch, step, dev_images, dev_bounds):
+    """The messages ``torch.cuda.set_sync_debug_mode("warn")`` gives for one
+    step call on device inputs (none: the step never waits for the card,
+    so the ingest pipeline can run ahead of it)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(dev_images, dev_bounds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # the mode also warns once that it is a prototype; the ops it catches
+    # say "called a synchronizing CUDA operation"
+    return [str(w.message)[:160] for w in caught
+            if "synchronizing cuda operation" in str(w.message).lower()]
+
+
+def ingest_ring(torch, record, card, step, images, bounds, step_ms,
+                device_ms, open_window, close_window, n_batches: int = 8):
+    """10a: ``run_pipeline`` alone over ``n_batches`` pre-assembled 640-px
+    batches in host memory (phase 4's tiles rolled along the batch, every
+    other batch mirrored, so that no two batches are alike), each pass
+    running them twice, through the pinned upload ring (its staging thread
+    and copy stream) and, in turns with it, through the step's own per-call
+    upload. Every batch's detections must equal (tolerance 0) the same step
+    called per batch on device-resident copies: the ring's race check.
+    Times: tiles/s, the time split (``h2d_s``, ``compute_s``, the wait on
+    readback) and the device's idle share from one torch.profiler
+    window."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from aerial_image_recognition_tpu_torch.ingest.pipeline import (
+        TileBatch, run_pipeline)
+    batches = []
+    for k in range(n_batches):
+        order = np.roll(np.arange(B), k)
+        imgs = images[order][:, :, ::-1] if k % 2 else images[order]
+        batches.append(TileBatch(np.arange(k * B, (k + 1) * B),
+                                 np.ascontiguousarray(imgs),
+                                 bounds[order].copy(), B))
+    devs = [(torch.from_numpy(b.images).cuda(),
+             torch.from_numpy(b.bounds).cuda()) for b in batches]
+    ref = [step(*d) for d in devs]
+    torch.cuda.synchronize()
+
+    def run(bs, ring=True):
+        outs, wait = [], [0.0]
+
+        def on_result(b, out):
+            t0 = time.perf_counter()
+            readback(out)
+            wait[0] += time.perf_counter() - t0
+            outs.append(out)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run_pipeline(iter(bs), step, on_result, prefetch_device=ring)
+        torch.cuda.synchronize()
+        return outs, stats, time.perf_counter() - t0, wait[0]
+
+    run(batches[:2])                      # the ring's first allocation
+    seq = batches * 2                     # each pass: 2 x n_batches
+    open_window()
+    outs, stats, wall, wait = run(seq)
+    # the same batches through the step's own per-call upload (a pinned
+    # copy and an H2D on the compute stream each call), in turns with the
+    # ring: ring, per-call, per-call, ring
+    per_call = [run(seq, ring=False) for _ in range(2)]
+    again = run(seq)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs_p, _, wall_p, _ = run(seq)
+    close_window("ingest", ["nms_suppress"])
+    for label, got in (("timed", outs), ("profiled", outs_p),
+                       ("per-call upload", per_call[0][0]),
+                       ("ring again", again[0])):
+        if len(got) != len(seq):
+            fail(f"run_pipeline ({label}) returned {len(got)} batches")
+        for k, g in enumerate(got):
+            if not same_detections(torch, g, ref[k % n_batches]):
+                fail(f"run_pipeline ({label}): batch {k}'s detections differ "
+                     "from the per-batch step on device copies")
+    kernel_us = copy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if "memcpy" in ev.key.lower():
+            copy_us += us
+        else:
+            kernel_us += us
+    syncs = host_syncs_in_one_step(torch, step, *devs[0])
+    del devs
+    if syncs:
+        fail(f"the step waits for the card {len(syncs)} times on device "
+             f"inputs, which serializes the ingest pipeline: {syncs[:3]}")
+    n_run = len(seq)
+    rec = {"batches": n_batches, "batches_a_pass": n_run, "batch": B,
+           "size": SIZE,
+           "ring_slots": 2,          # run_pipeline's default depth 1, + 1
+           "wall_s": wall,
+           "tiles_per_s": n_run * B / wall,
+           "ms_per_batch": wall / n_run * 1e3,
+           "h2d_s": stats["h2d_s"], "compute_s": stats["compute_s"],
+           "readback_wait_s": wait, "stats": stats,
+           "identical_to_per_batch_step": True,
+           "profiled_wall_ms_per_batch": wall_p / n_run * 1e3,
+           "kernel_busy_ms_per_batch": kernel_us / 1e3 / n_run,
+           "h2d_copy_ms_per_batch": copy_us / 1e3 / n_run,
+           "idle_share": max(0.0, 1.0 - kernel_us / 1e3 / (wall_p * 1e3)),
+           "ms_per_batch_ring_again": again[2] / n_run * 1e3,
+           "ms_per_batch_per_call_upload": [r[2] / n_run * 1e3
+                                            for r in per_call],
+           "step_ms_host_input_phase4": step_ms,
+           "step_ms_device_input_phase4": device_ms,
+           "host_syncs_in_one_step": len(syncs)}
+    record["ingest"] = rec
+    print(f"ingest ring: run_pipeline over {n_batches} batches of {B} "
+          f"({SIZE} px, host memory), each pass {n_run} batches: "
+          f"{rec['ms_per_batch']:.2f} ms/batch, "
+          f"{rec['tiles_per_s']:.1f} tiles/s (again after the per-call "
+          f"runs: {rec['ms_per_batch_ring_again']:.2f}); per-call upload "
+          f"instead of the ring, in turns: "
+          f"{rec['ms_per_batch_per_call_upload'][0]:.2f} / "
+          f"{rec['ms_per_batch_per_call_upload'][1]:.2f} ms/batch; phase "
+          f"4's step {step_ms:.2f} ms host input / {device_ms:.2f} ms device "
+          f"input; "
+          f"h2d_s {stats['h2d_s']:.4f}, compute_s {stats['compute_s']:.4f}, "
+          f"readback wait {wait:.4f} s; profiled: kernels "
+          f"{rec['kernel_busy_ms_per_batch']:.2f} and H2D copies "
+          f"{rec['h2d_copy_ms_per_batch']:.2f} of "
+          f"{rec['profiled_wall_ms_per_batch']:.2f} ms/batch, idle share "
+          f"{rec['idle_share']:.3f}; every batch identical to the per-batch "
+          f"step on device copies; no host sync in the step [{card}]",
+          flush=True)
+    return rec
+
+
+def _near_pairs(xy, radius: float):
+    """Pairs (i < j) of points [N,2] in metres closer than ``radius``, by a
+    hash grid of cell ``radius`` (3×3 neighbourhood)."""
+    import numpy as np
+    cells = {}
+    keys = np.floor(xy / radius).astype(np.int64)
+    for i, (cx, cy) in enumerate(keys.tolist()):
+        cells.setdefault((cx, cy), []).append(i)
+    pairs = []
+    for i, (cx, cy) in enumerate(keys.tolist()):
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for j in cells.get((cx + dx, cy + dy), ()):
+                    if j > i and np.hypot(*(xy[i] - xy[j])) < radius:
+                        pairs.append((i, j))
+    return pairs
+
+
+def _nearest_within(points, found, radius: float):
+    """For each of ``points`` [N,2] (metres), whether a ``found`` point lies
+    within ``radius``."""
+    import numpy as np
+    cells = {}
+    for j, key in enumerate(np.floor(found / radius).astype(np.int64)
+                            .tolist()):
+        cells.setdefault(tuple(key), []).append(j)
+    hit = np.zeros(len(points), bool)
+    for i, (cx, cy) in enumerate(np.floor(points / radius).astype(np.int64)
+                                 .tolist()):
+        near = [j for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                for j in cells.get((cx + dx, cy + dy), ())]
+        if near:
+            hit[i] = np.hypot(*(found[near] - points[i]).T).min() < radius
+    return hit
+
+
+def city_scan(torch, record, card, open_window, close_window):
+    """10b: a ``CarDetector`` city scan on the card: the port's FakeWorld
+    (``SCAN_WORLD``, the training world's density) served by the port's
+    FakeTileServer over WMS JPEG at the fixture's training scale (640 px a
+    320 m tile, 0.5 m/px), the central 0.04° square, overlap 0.25; the
+    step is the one ``detect()`` builds on ``cuda`` (YOLOv7-tiny, trained
+    fixture, batch 64, bf16; 320 m tiles scale its slots to K=1024, D=256).
+    Gates: recall ≥ 0.8 within 3 m of the world's cars inside the AOI (5 m
+    margin), no two kept records within the 2 m dedup radius, the GeoJSON,
+    coverage and shapefile written and the checkpoint cleared after
+    periodic checkpoints, and one NMS kernel launch a batch at B=64,
+    K=1024, D=256. The figure is host-bound: the fake server renders and
+    JPEG-encodes every tile in Python."""
+    import shutil
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.fetch.fake import (
+        FakeTileServer, FakeWorld)
+    from aerial_image_recognition_tpu_torch.gio.geojson import (
+        read_geojson, write_geojson)
+    from aerial_image_recognition_tpu_torch.gio.shapefile import (
+        read_shapefile)
+    from aerial_image_recognition_tpu_torch.ops import nms_kernel
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+    from aerial_image_recognition_tpu_torch.utils.native import native_paths
+    base = os.path.join(ROOT, "chiprun_out", "scan")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    w, s, e, n = SCAN_AOI
+    frame = os.path.join(base, "aoi.geojson")
+    write_geojson({"type": "FeatureCollection", "features": [{
+        "type": "Feature", "properties": {}, "geometry": {
+            "type": "Polygon", "coordinates": [[[w, s], [e, s], [e, n],
+                                                [w, n], [w, s]]]}}]}, frame)
+    world = FakeWorld(**SCAN_WORLD)
+    srv = FakeTileServer(world)
+    srv.start()
+    kernel = nms_kernel.nms_suppress
+    shapes = []
+
+    def spy(boxes_t, scores, classes, **kw):
+        shapes.append((tuple(boxes_t.shape), kw["max_det"]))
+        return kernel(boxes_t, scores, classes, **kw)
+
+    det = CarDetector(base, {
+        "frame_path": frame, "use_xyz": False,
+        "wms_url": srv.base_url + "/wms", "wms_layer": "fake",
+        "wms_size": (SIZE, SIZE), "tile_size_meters": SCAN_TILE_M,
+        "tile_overlap": SCAN_OVERLAP, "confidence_threshold": 0.4,
+        "duplicate_distance": 2.0, "checkpoint_interval": 100,
+        "params_path": FIXTURE, "dtype": "bfloat16", "device_batch": B,
+        "batch_size": B, "num_workers": 16, "submit_spacing": 0.0,
+        "event_log": os.path.join(base, "events.jsonl")})
+    torch.cuda.reset_peak_memory_stats()
+    # the wrapper counts its launches on the module's nms_suppress, the spy
+    # while it stands there; they go back on the wrapper's count after
+    spy.launches = 0
+    open_window()
+    nms_kernel.nms_suppress = spy
+    try:
+        t0 = time.perf_counter()
+        out = det.detect(force_restart=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        nms_kernel.nms_suppress = kernel
+        kernel.launches += spy.launches
+        srv.stop()
+    close_window("scan", ["nms_suppress"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out_dir = os.path.join(base, "output")
+    doc = read_geojson(os.path.join(out_dir, "detections_results.geojson"))
+    meta = doc["metadata"]
+    ingest = meta["ingest_stats"]
+    step = det.last_step
+    if (step.device.type, step.batch, step.input_size, step.model_size) \
+            != ("cuda", B, SIZE, SIZE):
+        fail(f"scan step {step.device} {step.batch} {step.input_size} "
+             f"{step.model_size}")
+    if set(shapes) != {((B, 4, SCAN_SLOTS[0]), SCAN_SLOTS[1])} \
+            or len(shapes) != ingest["batches"] \
+            or kernel.launches != ingest["batches"]:
+        fail(f"scan: suppression calls {sorted(set(shapes))} x{len(shapes)},"
+             f" {kernel.launches} kernel launches, {ingest['batches']} "
+             "batches")
+    for name in ("detections_results.geojson", "detections_coverage.geojson",
+                 "detections_results.shp", "detections_results.dbf"):
+        if not os.path.exists(os.path.join(out_dir, name)):
+            fail(f"scan: {name} not written")
+    n_shp = len(read_shapefile(os.path.join(out_dir,
+                                            "detections_results.shp")))
+    cov = read_geojson(os.path.join(out_dir, "detections_coverage.geojson"))
+    kinds = [json.loads(line)["kind"]
+             for line in open(os.path.join(base, "events.jsonl"))]
+    state = os.path.join(out_dir, "checkpoints",
+                         "detections_processing_state.json")
+    if os.path.exists(state) or kinds.count("checkpoint") < 1:
+        fail(f"scan: checkpoint left behind or never written "
+             f"({kinds.count('checkpoint')} checkpoints)")
+    found = np.array([f["geometry"]["coordinates"] for f in doc["features"]],
+                     np.float64)
+    if len(found) == 0 or n_shp != len(found) \
+            or len(cov["features"]) != out["tiles"]:
+        fail(f"scan: {len(found)} records, {n_shp} shapefile records, "
+             f"{len(cov['features'])} coverage tiles of {out['tiles']}")
+    cars = world.cars[:, :2]
+    margin = np.array([5 * M2LON, 5 * M2LAT])
+    inside = ((cars > np.array([w, s]) + margin)
+              & (cars < np.array([e, n]) - margin)).all(1)
+    lon0, lat0 = (w + e) / 2, (s + n) / 2
+
+    def to_m(ll):
+        return np.stack([(ll[:, 0] - lon0) / M2LON,
+                         (ll[:, 1] - lat0) / M2LAT], axis=1)
+
+    truth, kept = to_m(cars[inside]), to_m(found)
+    rec_3m = float(_nearest_within(truth, kept, 3.0).mean())
+    prec_3m = float(_nearest_within(kept, truth, 3.0).mean())
+    dups = _near_pairs(kept, 2.0)
+    if rec_3m < 0.8 or dups:
+        fail(f"scan: recall@3m {rec_3m:.3f} of {len(truth)} cars, "
+             f"{len(dups)} kept pairs within 2 m")
+    from aerial_image_recognition_tpu_torch.utils import native
+    rec = {"world": SCAN_WORLD, "aoi": SCAN_AOI, "tile_m": SCAN_TILE_M,
+           "overlap": SCAN_OVERLAP, "px": SIZE, "tiles": out["tiles"],
+           "wall_s": wall, "tiles_per_s": out["tiles"] / wall,
+           "detections": len(found), "cars_inside": int(inside.sum()),
+           "recall_3m": rec_3m, "precision_3m": prec_3m,
+           "pairs_within_2m": 0, "phase_timings": det.timers.report(),
+           "fetch_stats": meta["fetch_stats"], "ingest_stats": ingest,
+           "nms_calls": {"count": len(shapes), "boxes_t": [B, 4, SCAN_SLOTS[0]],
+                         "max_det": SCAN_SLOTS[1]},
+           "checkpoints": kinds.count("checkpoint"),
+           "native": native_paths(),
+           "native_build_dir": str(native.BUILD_DIR),
+           "peak_mem_gb": peak_gb, "bound": "host (fake server renders and "
+           "JPEG-encodes each tile in Python)"}
+    record["scan"] = rec
+    fs = meta["fetch_stats"]
+    print(f"scan: CarDetector over {out['tiles']} WMS JPEG tiles of {SIZE} px "
+          f"({SCAN_TILE_M:.0f} m, overlap {SCAN_OVERLAP}) in {wall:.2f} s, "
+          f"{rec['tiles_per_s']:.1f} tiles/s (host-bound: the fake server "
+          f"renders and JPEG-encodes every tile in Python); "
+          f"{len(found)} records, recall@3m {rec_3m:.3f} of "
+          f"{len(truth)} cars, precision@3m {prec_3m:.3f}, no pair within "
+          f"2 m; {ingest['batches']} batches, nms_suppress at B={B}, "
+          f"K={SCAN_SLOTS[0]}, D={SCAN_SLOTS[1]} once a batch; "
+          f"{rec['checkpoints']} checkpoints, cleared; fetch "
+          f"{fs['successes']}/{fs['requests']} requests ok, "
+          f"{fs['mb_fetched']} MB; native {rec['native']}; peak memory "
+          f"{peak_gb:.2f} GB; phases {rec['phase_timings']} [{card}]",
+          flush=True)
+    return rec
+
+
 # ------------------------------------------------ 9. the other families
 
 def render_centred_tiles(rng, n_car: int, n_empty: int,
@@ -1475,7 +1862,53 @@ def other_families(torch, record, card, images, bounds, open_window,
     return aware_ms
 
 
+def scan_only(torch, record, card) -> None:
+    """``--scan-only``: the NMS kernel against its plain version
+    (``NMS_CASES``, the scan's shape among them), the default step timed as
+    in phase 4, then phase 10 — the quick card check of the city scan."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    record["kernels"] = [check_nms_kernel(torch, record)]
+    print(f"nms_suppress: bit-identical to plain on "
+          f"{len(record['nms_cases'])} cases [{card}]", flush=True)
+    images, bounds, _ = render_tiles(np.random.default_rng(1), B, SIZE)
+    step = build_detect_step(DetectorConfig.from_dict(dict(
+        params_path=FIXTURE, device_batch=B, dtype="bfloat16")))
+    _, step_ms = timed_steps(torch, step, images, bounds, 20)
+    _, device_ms = timed_steps(torch, step, torch.from_numpy(images).cuda(),
+                               torch.from_numpy(bounds).cuda(), 20)
+    print(f"step: {step_ms:.2f} ms/batch of {B} (host uint8 input); "
+          f"{device_ms:.2f} ms with the batch on the card [{card}]",
+          flush=True)
+    launches = {}
+
+    def open_window():
+        nms_suppress.launches = 0
+
+    def close_window(path, needed):
+        launches[path] = {"nms_suppress": nms_suppress.launches}
+        if "nms_suppress" in needed and not nms_suppress.launches:
+            fail(f"the {path} path never launched nms_suppress")
+
+    ingest_ring(torch, record, card, step, images, bounds, step_ms,
+                device_ms, open_window, close_window)
+    city_scan(torch, record, card, open_window, close_window)
+    record["kernels"][0]["launches"] = sum(
+        p["nms_suppress"] for p in launches.values())
+    record["kernels"][0]["launches_by_path"] = {
+        path: p["nms_suppress"] for path, p in launches.items()}
+
+
 def main() -> None:
+    only_scan = sys.argv[1:] == ["--scan-only"]
+    if sys.argv[1:] and not only_scan:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
+             "--scan-only for the city scan's phases alone")
     try:
         import torch
     except ImportError as e:
@@ -1522,6 +1955,10 @@ def main() -> None:
     record["build_s"] = time.perf_counter() - t0
     print(f"build: nms_suppress, clahe_apply, int8_epilogue in "
           f"{record['build_s']:.2f} s", flush=True)
+    if only_scan:
+        scan_only(torch, record, card)
+        finish(torch, record, name, "chip_smoke_scan.json")
+        return
 
     # 3. kernel vs plain
     kernel = check_nms_kernel(torch, record)
@@ -1646,6 +2083,12 @@ def main() -> None:
           flush=True)
     print(f"server: {n_req} JPEG /detect requests answered, "
           f"{stats['batches']} batches [{card}]", flush=True)
+
+    # 10. the city scan on the card: the ingest ring alone, then a
+    # CarDetector scan of a FakeWorld
+    ingest_ring(torch, record, card, step, images, bounds, step_ms,
+                device_ms, open_window, close_window)
+    city_scan(torch, record, card, open_window, close_window)
 
     # 6.–7. the accuracy modes at the same width, batch and dtype, held
     # against the rendered cars and the single-scale step's detections
@@ -1895,9 +2338,15 @@ def main() -> None:
         entry["launches_by_path"] = {path: p[entry["name"]]
                                      for path, p in launches.items()}
     record["kernels"] = [kernel, clahe, epilogue]
+    finish(torch, record, name, "chip_smoke.json")
+
+
+def finish(torch, record, name, filename) -> None:
+    """The record to ``chiprun_out/<filename>``, then the kernel line and
+    the result line."""
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
+    with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
+        json.dump(record, f, indent=1, default=str)
     print(json.dumps({"kernels": record["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -56,6 +56,8 @@ from aerial_image_recognition_tpu.pipeline.inference import (
     build_detect_step as jax_build_detect_step)
 from aerial_image_recognition_tpu.runtime.config import (
     DetectorConfig as JaxDetectorConfig)
+from aerial_image_recognition_tpu_torch.fetch.fake import (
+    FakeTileServer as PortFakeTileServer, FakeWorld as PortFakeWorld)
 from aerial_image_recognition_tpu_torch.models import import_torch as PI
 from aerial_image_recognition_tpu_torch.models.layers import fold_batchnorm
 from aerial_image_recognition_tpu_torch.models.onnx_lite import (
@@ -69,6 +71,8 @@ from aerial_image_recognition_tpu_torch.models.weights import (
 from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
 from aerial_image_recognition_tpu_torch.models.yolov8 import YOLOv8
 from aerial_image_recognition_tpu_torch.ops.decode import decode_yolov8
+from aerial_image_recognition_tpu_torch.pipeline.detector import (
+    CarDetector as PortCarDetector)
 from aerial_image_recognition_tpu_torch.pipeline.inference import (
     build_detect_step, detection_sets_agree)
 from aerial_image_recognition_tpu_torch.pipeline.serve import DetectionServer
@@ -419,7 +423,7 @@ def test_detect_step_against_jax_default_quad_path():
                                rtol=0)
 
 
-def _scan(base, server, step):
+def _scan(base, server, step, detector=CarDetector):
     aoi = {"type": "FeatureCollection", "features": [{
         "type": "Feature", "properties": {},
         "geometry": {"type": "Polygon", "coordinates": [[
@@ -428,7 +432,7 @@ def _scan(base, server, step):
     frame = os.path.join(base, "aoi.geojson")
     os.makedirs(base, exist_ok=True)
     write_geojson(aoi, frame)
-    det = CarDetector(base, {
+    det = detector(base, {
         "frame_path": frame, "use_xyz": False,
         "wms_url": server.base_url + "/wms", "wms_layer": "fake",
         "wms_size": (V8_SIZE, V8_SIZE), "tile_size_meters": 9.6,
@@ -447,22 +451,27 @@ def _scan(base, server, step):
 
 
 def test_city_scan_with_port_v8n_step_matches_jax_step(tmp_path):
-    """A FakeWorld CarDetector scan (WMS, 9.6 m tiles of 96 px) with the
-    port's yolov8n step injected gives the JAX step's records."""
-    world = FakeWorld(center_lon=21.0, center_lat=52.2, extent_deg=0.0006,
-                      n_cars=40, seed=3)
+    """A FakeWorld city scan (WMS, 9.6 m tiles of 96 px) by the port's
+    CarDetector over the port's fake server with the port's yolov8n step
+    gives the JAX CarDetector's records with the JAX step."""
+    world = dict(center_lon=21.0, center_lat=52.2, extent_deg=0.0006,
+                 n_cars=40, seed=3)
     cfg = _step_cfg("yolov8n", V8_FIXTURE, quad_stem=False)
     kw = dict(batch=8, src_size=V8_SIZE, model_size=V8_SIZE)
     jax_step = jax_build_detect_step(JaxDetectorConfig.from_dict(cfg), **kw)
     port_step = build_detect_step(DetectorConfig.from_dict(cfg),
                                   device="cpu", **kw)
-    srv = FakeTileServer(world)
+    srv = FakeTileServer(FakeWorld(**world))
+    psrv = PortFakeTileServer(PortFakeWorld(**world))
     srv.start()
+    psrv.start()
     try:
         out_j, recs_j = _scan(str(tmp_path / "jax"), srv, jax_step)
-        out_p, recs_p = _scan(str(tmp_path / "port"), srv, port_step)
+        out_p, recs_p = _scan(str(tmp_path / "port"), psrv, port_step,
+                              detector=PortCarDetector)
     finally:
         srv.stop()
+        psrv.stop()
     assert out_p["tiles"] == out_j["tiles"] > 20
     assert len(recs_p) == len(recs_j) >= 5
     assert [r[3] for r in recs_p] == [r[3] for r in recs_j]

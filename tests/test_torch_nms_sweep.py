@@ -20,7 +20,7 @@ order on both sides, so even a candidate exactly at the threshold falls the
 same way.
 
 Inputs: the nine cases of ``tests/test_torch_nms.py`` after its numpy
-preselect; the eleven cases of ``chip_smoke.py`` (``NMS_CASES`` and
+preselect; the twelve cases of ``chip_smoke.py`` (``NMS_CASES`` and
 ``nms_inputs`` are imported from it — the one source of those generators —
 at a small batch); and a hypothesis property with score ties, exact
 duplicate boxes, sorted or unsorted rows, both class modes and thresholds

@@ -48,6 +48,20 @@ def test_import_check_covers_the_numpy_copies():
              if PORT in p.parents}
     assert {"models/import_torch.py", "models/torch_pt.py",
             "models/onnx_lite.py", "models/yolov8.py"} <= names
+    # the city scan's host half (its own copies of the JAX package's numpy,
+    # fetch and I/O modules)
+    assert {"geo/__init__.py", "geo/ellipsoid.py", "geo/tmerc.py",
+            "geo/webmercator.py", "geo/crs.py", "geo/polygon.py",
+            "geo/tiles.py", "gio/geojson.py", "gio/shapefile.py",
+            "gio/decode.py", "utils/native.py", "runtime/checkpoint.py",
+            "runtime/observability.py", "post/dedup.py", "post/results.py",
+            "post/heatmap.py", "fetch/__init__.py", "fetch/http.py",
+            "fetch/cache.py", "fetch/xyz.py", "fetch/wms.py",
+            "fetch/wmts.py", "fetch/fake.py", "ingest/pipeline.py",
+            "pipeline/detector.py"} <= names
+    # and the native sources it builds are the port's own copies
+    assert {p.name for p in (PORT / "native").glob("*.cpp")} == {
+        "fastgeo.cpp", "fastdecode.cpp"}
 
 
 def test_import_check_sees_the_prefix_package(tmp_path):
@@ -75,6 +89,26 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
             call()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_model(device="cuda")
+
+
+def test_car_detector_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """Without an injected step, ``detect()`` builds its step on ``cuda``
+    and raises without CUDA — before it reads the frame or fetches a tile
+    (the default WMS endpoint is never contacted)."""
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+
+    def no_network(*a, **kw):
+        raise AssertionError("the scan reached the fetch plane")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    det = CarDetector(str(tmp_path))
+    monkeypatch.setattr(det, "_load_frame", no_network)
+    monkeypatch.setattr(det, "_make_fetcher", no_network)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        det.detect(force_restart=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CarDetector(str(tmp_path), device="cuda").detect()
 
 
 def test_nms_wrapper_on_cpu_is_the_plain_version_and_builds_nothing(
@@ -121,6 +155,34 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         build_detect_step(DetectorConfig(extra={"quantize": "int8"}),
                           device="cpu", mesh=object())
+    # the reference resizes multiscale's off-native scales with
+    # jax.image.resize when resize_matmul is false; the port has only the
+    # matrix-product resize, so the combination is refused, not swapped
+    for scales in ([0.85, 1.0, 1.15], [1.0]):
+        with pytest.raises(NotImplementedError, match="resize_matmul"):
+            build_detect_step(DetectorConfig(extra={
+                "multiscale": scales, "resize_matmul": False}),
+                device="cpu", model_size=64)
+    build_detect_step(DetectorConfig(extra={"resize_matmul": False}),
+                      device="cpu", model_size=64)      # single-scale: fine
+    # the scan's data-parallel mesh, the quad stem's batch layout and the
+    # heatmap's GeoPackage output
+    from aerial_image_recognition_tpu_torch.ingest.pipeline import (
+        assemble_batches)
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+    from aerial_image_recognition_tpu_torch.post.heatmap import hex_heatmap
+    for flag in (True, 4):
+        det = CarDetector(".", {"data_parallel": flag}, device="cpu")
+        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+            det._make_mesh()
+    assert CarDetector(".", {"data_parallel": False})._make_mesh() is None
+    with pytest.raises(NotImplementedError, match="quad stem"):
+        list(assemble_batches(iter([]), batch_size=2, src_size=8,
+                              layout="s2d2"))
+    with pytest.raises(NotImplementedError, match="geopackage slice"):
+        hex_heatmap([{"lon": 21.0, "lat": 52.2, "confidence": 0.5}], 50.0,
+                    output_geojson="heat.gpkg")
     # the segmentation model is the only registry name still refused
     for name in ("xunet_256", "ramp_XUnet_256.onnx"):
         with pytest.raises(NotImplementedError, match="segmentation slice"):

@@ -1,5 +1,6 @@
 """The port's whole detect step against the JAX step, then driven by the
-JAX CarDetector city scan and by the port's DetectionServer.
+port's CarDetector city scan (against the JAX CarDetector with the JAX
+step) and by the port's DetectionServer.
 
 f32 on the CPU, 64-px model on the trained fixture. Tolerances: valid slots
 identical, boxes within 1e-3 px, scores within 1e-5, lon/lat within 1e-6°.
@@ -30,6 +31,10 @@ from aerial_image_recognition_tpu.pipeline.inference import (
     build_detect_step as jax_build_detect_step)
 from aerial_image_recognition_tpu.runtime.config import (
     DetectorConfig as JaxDetectorConfig)
+from aerial_image_recognition_tpu_torch.fetch.fake import (
+    FakeTileServer as PortFakeTileServer, FakeWorld as PortFakeWorld)
+from aerial_image_recognition_tpu_torch.pipeline.detector import (
+    CarDetector as PortCarDetector)
 from aerial_image_recognition_tpu_torch.pipeline.inference import (
     build_detect_step, detection_sets_agree)
 from aerial_image_recognition_tpu_torch.pipeline.serve import DetectionServer
@@ -45,6 +50,8 @@ CFG = dict(dtype="float32", params_path=FIXTURE, confidence_threshold=0.3,
 # the e2e scan's world and AOI (tests/test_pipeline_e2e.py)
 WORLD = FakeWorld(center_lon=21.0, center_lat=52.2, extent_deg=0.004,
                   n_cars=30, seed=11)
+PORT_WORLD = PortFakeWorld(center_lon=21.0, center_lat=52.2,
+                           extent_deg=0.004, n_cars=30, seed=11)
 AOI = {"type": "FeatureCollection", "features": [{
     "type": "Feature", "properties": {},
     "geometry": {"type": "Polygon", "coordinates": [[
@@ -108,14 +115,16 @@ def test_step_matches_jax_step(steps):
     assert ok and stats["matched"] == valid.sum()
 
 
-def _scan(tmp_path, server, step, monkeypatch):
+def _scan(tmp_path, server, step, monkeypatch, detector=CarDetector):
     from aerial_image_recognition_tpu.fetch.xyz import XYZFetcher
-    monkeypatch.setattr(XYZFetcher, "window_px",
-                        lambda self, lat, m=None: SIZE)
+    from aerial_image_recognition_tpu_torch.fetch.xyz import (
+        XYZFetcher as PortXYZFetcher)
+    for cls in (XYZFetcher, PortXYZFetcher):
+        monkeypatch.setattr(cls, "window_px", lambda self, lat, m=None: SIZE)
     base = str(tmp_path)
     frame = os.path.join(base, "aoi.geojson")
     write_geojson(AOI, frame)
-    det = CarDetector(base, {
+    det = detector(base, {
         "frame_path": frame, "use_xyz": True, "xyz_url": server.xyz_template,
         "zoom": 17, "tile_size_meters": 64.0, "tile_overlap": 0.2,
         "batch_size": 16, "device_batch": BATCH, "num_workers": 8,
@@ -133,12 +142,16 @@ def test_city_scan_with_port_step_matches_jax_step(tmp_path, steps,
                                                     monkeypatch):
     jax_step, port_step = steps
     srv = FakeTileServer(WORLD)
+    psrv = PortFakeTileServer(PORT_WORLD)
     srv.start()
+    psrv.start()
     try:
         out_j, recs_j = _scan(tmp_path / "jax", srv, jax_step, monkeypatch)
-        out_p, recs_p = _scan(tmp_path / "port", srv, port_step, monkeypatch)
+        out_p, recs_p = _scan(tmp_path / "port", psrv, port_step,
+                              monkeypatch, detector=PortCarDetector)
     finally:
         srv.stop()
+        psrv.stop()
     assert out_p["tiles"] == out_j["tiles"] > 20
     assert len(recs_p) == len(recs_j) > 0
     recs_p, recs_j = np.asarray(recs_p), np.asarray(recs_j)
