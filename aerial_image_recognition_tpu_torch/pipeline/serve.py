@@ -183,7 +183,9 @@ class DetectionServer:
 
     detect_step: a built step (any object with the DetectStep surface);
     without one, ``build_detect_step`` builds it from ``config`` on
-    ``device`` (default ``cuda``; raises without CUDA).
+    ``device`` (default ``cuda``; raises without CUDA). A truthy
+    ``config["data_parallel"]`` raises NotImplementedError before any step
+    is built: data-parallel serving arrives with the multi-GPU slice.
     """
 
     def __init__(self, config: Optional[Dict] = None, *,
@@ -191,6 +193,13 @@ class DetectionServer:
                  max_wait_ms: float = 10.0, detect_step=None,
                  device: Optional[Union[str, torch.device]] = None):
         self.config = DetectorConfig().merged(config or {})
+        flag = self.config.extra.get("data_parallel")
+        if flag:
+            # the reference shards the serving batch over a device mesh
+            # here; the port's data-parallel step is not there yet
+            raise NotImplementedError(
+                f"data_parallel={flag!r}: data-parallel serving arrives with "
+                "the multi-GPU slice")
         if detect_step is None:
             from aerial_image_recognition_tpu_torch.pipeline.inference import (
                 build_detect_step)

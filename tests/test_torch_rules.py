@@ -207,6 +207,31 @@ def test_unported_options_raise():
         quantize_bundle(other, [])
 
 
+@pytest.mark.parametrize("flag", [2, True])
+def test_server_refuses_data_parallel(monkeypatch, flag):
+    """The reference shards the serving batch over a mesh when
+    ``data_parallel`` is set; the port's server refuses the flag, before it
+    builds a step, instead of serving on one device without a word."""
+    from aerial_image_recognition_tpu_torch.pipeline import inference
+    from aerial_image_recognition_tpu_torch.pipeline.serve import (
+        DetectionServer)
+
+    def no_build(*a, **kw):
+        raise AssertionError("the server built a step")
+
+    monkeypatch.setattr(inference, "build_detect_step", no_build)
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        DetectionServer({"data_parallel": flag}, device="cpu")
+    srv = DetectionServer({"data_parallel": None}, device="cpu",
+                          detect_step=_StubStep())      # unset: serves
+    srv._httpd.server_close()
+
+
+class _StubStep:
+    """The surface a DetectionServer reads from its step, nothing more."""
+    batch, input_size, model_size = 1, 8, 8
+
+
 class _FakeCudaTensor:
     """Just enough of a tensor on the card for a wrapper's dispatch."""
     device = torch.device("cuda", 0)
