@@ -13,10 +13,11 @@ the port's modules:
   * yolov7 IDetect implicit layers (ia add / im mul) folded into the 1×1
     detect conv (the deploy fusion the ONNX export performs)
 
-``export_torch_state`` is the inverse of the trunk mapping (round-trip
-tests). The reference's export of whole models, its layer-index table for
-training freezes and its shape report arrive with the front-ends and
-training slices.
+``export_torch_state`` is the inverse of the trunk mapping, and
+``torch_state_from_variables`` of the whole import (the CLI's ``export``
+verb); ``validate_variable_shapes`` is the shape report ``import-weights``
+checks an imported tree with. The layer-index table for training freezes
+arrives with the training slice.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -270,6 +271,51 @@ def yolov7_detect_from_torch(state_dict, variables, *,
     return variables
 
 
+def yolov7_detect_to_torch(variables, *,
+                           detect_idx: int = _V7_TINY_DETECT_IDX
+                           ) -> Dict[str, np.ndarray]:
+    """Inverse of yolov7_detect_from_torch, in the deploy (folded) form:
+    our detect{lvl} convs already carry ia/im folded in (the fusion the
+    reference's ONNX export performed), so the exported state holds only
+    model.{detect_idx}.m.{lvl}.{weight,bias} with no ia/im keys — importing
+    it back skips the fold and reproduces the identical flax weights."""
+    out = {}
+    for lvl in range(3):
+        k = np.asarray(_get(variables, ["params", f"detect{lvl}", "kernel"]))
+        b = np.asarray(_get(variables, ["params", f"detect{lvl}", "bias"]))
+        out[f"model.{detect_idx}.m.{lvl}.weight"] = _conv_to_torch(k)
+        out[f"model.{detect_idx}.m.{lvl}.bias"] = b
+    return out
+
+
+def torch_state_from_variables(variables: Dict[str, Any],
+                               model_name: str) -> Dict[str, np.ndarray]:
+    """Inverse of variables_from_torch_state: the complete upstream-named
+    tensor set (trunk mapping + detect heads) for a registry model. The
+    CLI's ``export`` verb writes it with ``onnx_lite.write_minimal_onnx``,
+    a way back to the reference's onnxruntime flow for every detection
+    family."""
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        REGISTRY, resolve_model_name)
+    name = resolve_model_name(model_name)
+    spec = REGISTRY[name]
+    if spec.family == "yolov7":
+        if name == "yolov7_base":
+            out = export_torch_state(variables, yolov7_base_mapping())
+            out.update(yolov7_detect_to_torch(
+                variables, detect_idx=_V7_BASE_DETECT_IDX))
+        else:
+            out = export_torch_state(variables, yolov7_tiny_mapping())
+            out.update(yolov7_detect_to_torch(variables))
+        return out
+    if spec.family == "yolov8":
+        scale = "l" if name == "yolov8_tokyo" else name[-1]
+        return export_torch_state(variables,
+                                  yolov8_mapping(yolov8_n_c2f(scale)))
+    raise KeyError(f"no torch export mapping for model family "
+                   f"{spec.family!r} ({name})")
+
+
 def yolov8_n_c2f(scale: str) -> Dict[str, int]:
     """Per-module bottleneck counts for a yolov8 scale (the n_c2f dict
     yolov8_mapping needs)."""
@@ -306,3 +352,34 @@ def variables_from_torch_state(state_dict: Dict[str, np.ndarray],
                                   yolov8_mapping(yolov8_n_c2f(scale)))
     raise KeyError(f"no torch import mapping for model family "
                    f"{spec.family!r} ({name})")
+
+
+def _leaf_shapes(tree, prefix=()) -> Dict[str, Tuple[int, ...]]:
+    """Nested dict → {"a/b/c": shape} over its leaves."""
+    if not isinstance(tree, dict):
+        return {"/".join(prefix): tuple(np.shape(tree))}
+    out: Dict[str, Tuple[int, ...]] = {}
+    for k, v in tree.items():
+        out.update(_leaf_shapes(v, prefix + (str(k),)))
+    return out
+
+
+def validate_variable_shapes(variables: Dict[str, Any],
+                             reference: Dict[str, Any]) -> None:
+    """Compare two variable trees leaf by leaf; raise listing every shape
+    mismatch (a clear error instead of silently wrong inference when an
+    imported blob does not match the chosen registry model)."""
+    a, b = _leaf_shapes(variables), _leaf_shapes(reference)
+    problems = []
+    for k in sorted(set(a) | set(b)):
+        if k not in a:
+            problems.append(f"missing from import: {k} {b[k]}")
+        elif k not in b:
+            problems.append(f"unexpected in import: {k} {a[k]}")
+        elif a[k] != b[k]:
+            problems.append(f"shape mismatch: {k} imported {a[k]} "
+                            f"vs model {b[k]}")
+    if problems:
+        raise ValueError(
+            f"{len(problems)} import/model inconsistencies, e.g.:\n  "
+            + "\n  ".join(problems[:10]))

@@ -811,7 +811,9 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
     'detect/box0_cv1'). batches: uint8
     [B,S,S,3] arrays (preprocessed here) or float [B,S,S,3] arrays already
     in [0,1] (resized to the model size: activation absmax depends on the
-    resolution). Only a running maximum per layer is kept."""
+    resolution). Only a running maximum per layer is kept. TF32 is off
+    for cuDNN during the calibration forward, so f32 means f32 on the
+    card too."""
     from aerial_image_recognition_tpu_torch.models.layers import ConvBN
     from aerial_image_recognition_tpu_torch.models.yolov8 import Bottleneck
     from aerial_image_recognition_tpu_torch.ops.preprocess import (
@@ -830,6 +832,10 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
     hooks = [m.register_forward_hook(record(name.replace(".", "/")))
              for name, m in module.named_modules()
              if isinstance(m, (ConvBN, Bottleneck))]
+    # cuDNN runs f32 convolutions in TF32 by default (operands rounded to
+    # 10 mantissa bits); an f32 calibration on the card is taken in f32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.inference_mode():
             for imgs in batches:
@@ -845,6 +851,7 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
                         x = matmul_resize_float(x, size, "bilinear")
                 module(x.to(_module_dtype(module)))
     finally:
+        torch.backends.cudnn.allow_tf32 = tf32
         for h in hooks:
             h.remove()
     return {k: float(v) for k, v in running.items()}

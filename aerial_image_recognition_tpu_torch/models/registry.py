@@ -8,9 +8,11 @@ YOLOv8 n/s/m/l/x ladder (nc=2) — all at 640 px. The segmentation model
 """
 
 import os
+from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -166,3 +168,39 @@ def create_model(name: str = "yolov7_itcvd", *,
     module.to(device=device, memory_format=torch.channels_last)
     return ModelBundle(spec=spec, module=module, device=device,
                        variables=variables)
+
+
+def save_params(params: Dict[str, Any], path: str) -> None:
+    """Write a flax-format tree as the reference's flat-npz checkpoint,
+    which both packages load (``models/weights.load_params`` here).
+
+    Keys are the ``/``-joined tree paths, in the sorted order of the
+    reference's tree flattening; bfloat16 leaves (torch tensors, or numpy
+    arrays of an ``ml_dtypes`` bfloat16) are stored bit-exact as uint16
+    under a ``:bf16`` key suffix, since numpy has no bfloat16 of its own;
+    every other leaf is stored as it is."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                walk(node[k], prefix + (str(k),))
+            return
+        key = "/".join(prefix)
+        if isinstance(node, torch.Tensor):
+            node = node.detach().cpu()
+            if node.dtype == torch.bfloat16:
+                out[key + ":bf16"] = node.view(torch.int16).numpy() \
+                    .view(np.uint16)
+                return
+            node = node.numpy()
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            out[key + ":bf16"] = arr.view(np.uint16)
+        else:
+            out[key] = arr
+
+    walk(params, ())
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **out)

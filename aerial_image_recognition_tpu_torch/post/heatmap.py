@@ -1,7 +1,6 @@
 """Hexagonal density heatmap from detection points.
 
-A copy of ``aerial_image_recognition_tpu/post/heatmap.py``; its GeoPackage
-output waits for the port's geopackage writer and raises until then.
+A copy of ``aerial_image_recognition_tpu/post/heatmap.py``.
 
 Parity slot for the reference's hex-heatmap product
 (output/warsaw/hex_heatmap_output.gpkg ships in the reference repo as a
@@ -88,11 +87,12 @@ def hex_heatmap(records: Sequence[dict], hex_size_m: float = 50.0,
     if output_geojson:
         if output_geojson.endswith(".gpkg"):
             # the reference ships this artifact as a GeoPackage
-            # (output/warsaw/hex_heatmap_output.gpkg); its writer is not
-            # ported yet
-            raise NotImplementedError(
-                "GeoPackage output arrives with the geopackage slice; write "
-                "the heatmap as .geojson")
+            # (output/warsaw/hex_heatmap_output.gpkg) — same layer name
+            from aerial_image_recognition_tpu_torch.gio.geopackage import (
+                write_gpkg)
+            write_gpkg(output_geojson, fc["features"],
+                       layer="hex_heatmap_output",
+                       geometry_type="POLYGON")
         else:
             from aerial_image_recognition_tpu_torch.gio.geojson import (
                 write_geojson)

@@ -13,7 +13,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      paths' shapes, tolerance 0: NMS (``NMS_CASES``: B=64, K=256, D=64,
      class-agnostic and class-aware, score ties, all below the confidence
      threshold, tile-like rows that end early; K=40 < D, K=250, K=1024 with
-     D=128, and the city scan's B=64, K=1024, D=256; and two rows outside
+     D=128, the city scan's B=64, K=1024, D=256 and predict's B=16, K=512,
+     D=128; and two rows outside
      the priority-order contract, which take
      the kernel's general path) with bit-identical picks, timed on the
      sweep, on a tile-like input and on the general path (device time of
@@ -86,10 +87,34 @@ Phases (any failure exits nonzero, and no result line is printed):
      CPU's; the int8 trunks of YOLOv8l and yolov7-base on the card against
      the CPU (4 tiles at 320 px, one calibration); turnkey on the trained
      nano must reach ``int8``; int8 YOLOv8l and yolov7-base steps timed in
-     turns with their bf16 steps.
+     turns with their bf16 steps;
+ 11. the front ends, run last: the port's CLI as a user runs it, each verb
+     a ``python -m aerial_image_recognition_tpu_torch`` child of this script
+     on the card, against one FakeTileServer of phase 10b's world: (a)
+     ``doctor`` names the card, the three kernels built and the native
+     fastgeo helper; (b) ``detect`` over WMS JPEG (1280-px tiles of 320 m,
+     resized to 640 on the card) of a 56-tile AOI: records equal to an
+     in-process ``CarDetector`` of the same argv (1e-6°, 1e-5), recall@3m
+     ≥ 0.95 of the world's cars, no pair within 2 m, tiles/s (host-bound);
+     (c) ``detect --tta`` on 4 tiles launches the CLAHE kernel; (d)
+     ``calibrate`` on a GeoTIFF of the world at 0.5 m/px, its absmax equal
+     to the CPU's within rtol 1e-4, then ``detect --quantize int8
+     --quantize-calib`` over (b)'s AOI matching (b) at ≥ 0.9 within 2 m;
+     (e) ``geotiff`` on that raster (window 640, stride 480) at recall@3m
+     ≥ 0.9, and at the verb's defaults (seeded yolov8_tokyo, window 1200,
+     stride 600, batch 16) timed per window batch; (f) ``predict`` on a
+     48 m square rendered at four pixel sizes (PNG, JPEG, ragged) with
+     ``--imgsz 96 --annotate``; (g) ``serve``: JPEG POSTs answered with
+     class names, SIGINT ends it with exit 0, ``serve --data-parallel``
+     exits non-zero with the server's refusal; (h) ``sweep`` of two tile
+     sizes with no entry in error; (i) ``SimpleDetector.run`` in this
+     process over the fake XYZ server with the trained yolov8n (64 m
+     windows at zoom 20, resized 699 → 640 on the card) at recall@3m ≥
+     0.9. Each child writes its kernels' launch counters when it exits
+     (``COUNTED_CHILD``); they go on the kernel line as that verb's path.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-9a, 9b, 9c, 9d) and read just after it; every kernel of a path must have launched
-in its window. The steps are profiled after every timed step (YOLOv8l's at
+9a, 9b, 9c, 9d, 11i) and read just after it, or read from the child that ran
+the path (11b–h); every kernel of a path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
 whether a profile earlier in the process moves later timings.
 
@@ -99,7 +124,10 @@ last line ``{"ok": true, "device": {...}}``. The full record also goes to
 
 ``python3 chip_smoke.py --scan-only`` runs phases 1–2, the NMS kernel
 against its plain version, the default step's two timings and phase 10
-alone (record in ``chiprun_out/chip_smoke_scan.json``).
+alone (record in ``chiprun_out/chip_smoke_scan.json``);
+``python3 chip_smoke.py --front-ends-only`` runs phases 1–2, the NMS kernel
+against its plain version and phase 11 (record in
+``chiprun_out/chip_smoke_front_ends.json``).
 """
 
 import io
@@ -263,6 +291,9 @@ NMS_CASES = [
     ("k-1024", "random", False, 8, 1024, 128),
     # the city scan's shape (phase 10): 320 m tiles scale the slots
     ("wide-k1024-d256", "random", False, B, 1024, 256),
+    # predict's shape (phase 11f): 16 images a chunk, the default
+    # pre_topk of 512 candidates, 128 slots, one class
+    ("wide-k512-d128", "random", False, 16, 512, 128),
 ]
 
 
@@ -1351,6 +1382,648 @@ def city_scan(torch, record, card, open_window, close_window):
     return rec
 
 
+# ------------------------------------------------ 11. the front ends
+
+FE_AOI = (20.988, 52.19, 21.012, 52.206)        # 56 tiles of 320 m (36 of 400)
+FE_TTA_AOI = (20.995, 52.195, 21.0, 52.198)     # 4 tiles
+FE_RASTER_PX = 1600                             # the GeoTIFF: 800 m at 0.5 m/px
+FE_SIMPLE_ZOOM = 20                             # 64 m in 699 px: 0.092 m/px
+FE_SIMPLE_AOI = (20.997, 52.1985, 21.001, 52.2005)
+# recall floors of (e) and (i) within 3 m of the world's cars
+FE_FLOORS = {"geotiff_recall_3m": 0.9, "simple_recall_3m": 0.9}
+PORT = "aerial_image_recognition_tpu_torch"
+# a child that runs the port's CLI as ``python -m`` runs it
+# (runpy.run_module with alter_sys) and writes the kernels' launch
+# counters to $CHIP_SMOKE_LAUNCHES when it exits, however it exits
+COUNTED_CHILD = f"""
+import atexit, json, os, runpy
+from {PORT}.ops.clahe_kernel import apply_luts
+from {PORT}.ops.int8_kernel import requantize
+from {PORT}.ops.nms_kernel import nms_suppress
+
+
+def dump():
+    with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+        json.dump({{"nms_suppress": nms_suppress.launches,
+                   "clahe_apply": apply_luts.launches,
+                   "int8_epilogue": requantize.launches}}, f)
+
+
+atexit.register(dump)
+runpy.run_module("{PORT}", run_name="__main__", alter_sys=True)
+"""
+
+
+def child_cmd(base, name, argv, counted=True):
+    """(command, environment, launch-count file) of one CLI run as a
+    child: ``python -m aerial_image_recognition_tpu_torch <argv>``, or,
+    counted, the same through ``COUNTED_CHILD``."""
+    counts = os.path.join(base, f"launches_{name}.json")
+    if os.path.exists(counts):
+        os.remove(counts)
+    cmd = [sys.executable] + (["-c", COUNTED_CHILD] if counted
+                              else ["-m", PORT]) + list(argv)
+    return cmd, dict(os.environ, CHIP_SMOKE_LAUNCHES=counts), counts
+
+
+def run_verb(base, name, argv, *, counted=True, ok=True, timeout=600):
+    """Run one verb as a child of this script, from the repository root;
+    its output goes to ``<base>/<name>.log``. Returns (completed process,
+    wall seconds, the child's kernel launches or None). ``ok``: fail unless
+    it exits 0."""
+    cmd, env, counts = child_cmd(base, name, argv, counted)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(base, f"{name}.log"), "w") as f:
+        f.write(f"$ {' '.join(argv)}\n{proc.stdout}\n--- stderr ---\n"
+                f"{proc.stderr}")
+    if ok and proc.returncode != 0:
+        fail(f"front end {name}: exit {proc.returncode}: "
+             f"{proc.stderr.strip()[-1500:]}")
+    launches = None
+    if counted and os.path.exists(counts):
+        with open(counts) as f:
+            launches = json.load(f)
+    return proc, wall, launches
+
+
+def last_json(text: str, opener: str = "{"):
+    """The JSON value that ends a verb's standard output (its last line,
+    or for an indented list the text from the last line opening it)."""
+    lines = text.rstrip().splitlines()
+    for k in range(len(lines) - 1, -1, -1):
+        if lines[k].startswith(opener):
+            return json.loads("\n".join(lines[k:]))
+    fail(f"no JSON result in {text[-500:]!r}")
+
+
+def aoi_frame(path, aoi):
+    from aerial_image_recognition_tpu_torch.gio.geojson import write_geojson
+    w, s, e, n = aoi
+    write_geojson({"type": "FeatureCollection", "features": [{
+        "type": "Feature", "properties": {}, "geometry": {
+            "type": "Polygon", "coordinates": [[[w, s], [e, s], [e, n],
+                                                [w, n], [w, s]]]}}]}, path)
+    return path
+
+
+def scan_records(base, prefix="detections"):
+    """(lon, lat, confidence) of a scan's results, sorted."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
+    doc = read_geojson(os.path.join(base, "output",
+                                    f"{prefix}_results.geojson"))
+    recs = sorted((f["geometry"]["coordinates"][0],
+                   f["geometry"]["coordinates"][1],
+                   f["properties"]["confidence"]) for f in doc["features"])
+    return np.asarray(recs, np.float64).reshape(-1, 3), doc["metadata"]
+
+
+def truth_recall(world, found, boxes, radius: float = 3.0,
+                 margin_m: float = 5.0):
+    """(recall of the world's cars inside any of ``boxes`` (w, s, e, n;
+    less a margin) within ``radius`` m, precision of ``found`` [N,2]
+    lon/lat against all cars, cars counted, pairs of found points within
+    2 m)."""
+    import numpy as np
+    cars = world.cars[:, :2]
+    margin = np.array([margin_m * M2LON, margin_m * M2LAT])
+    inside = np.zeros(len(cars), bool)
+    for w, s, e, n in boxes:
+        inside |= ((cars > np.array([w, s]) + margin)
+                   & (cars < np.array([e, n]) - margin)).all(1)
+    w, s, e, n = boxes[0]
+    lon0, lat0 = (w + e) / 2, (s + n) / 2
+
+    def to_m(ll):
+        return np.stack([(ll[:, 0] - lon0) / M2LON,
+                         (ll[:, 1] - lat0) / M2LAT], axis=1)
+
+    kept = to_m(np.asarray(found, np.float64).reshape(-1, 2))
+    truth = to_m(cars[inside])
+    rec = float(_nearest_within(truth, kept, radius).mean()) \
+        if len(kept) else 0.0
+    prec = float(_nearest_within(kept, to_m(cars), radius).mean()) \
+        if len(kept) else 0.0
+    return rec, prec, int(inside.sum()), len(_near_pairs(kept, 2.0))
+
+
+def matched_within(a, b, metres: float):
+    """Fraction of a's lon/lat points with one of b's within ``metres``."""
+    import numpy as np
+    if not len(a):
+        return 0.0
+    am = np.stack([a[:, 0] / M2LON, a[:, 1] / M2LAT], axis=1)
+    bm = np.stack([b[:, 0] / M2LON, b[:, 1] / M2LAT], axis=1)
+    return float(_nearest_within(am - am.mean(0), bm - am.mean(0),
+                                 metres).mean())
+
+
+def render_raster(world, path, side: int = FE_RASTER_PX, m_px: float = 0.5):
+    """A GeoTIFF (EPSG:4326) of the world around its centre at ``m_px``."""
+    from aerial_image_recognition_tpu_torch.gio.geotiff import write_geotiff
+    half = side * m_px / 2
+    c_lon, c_lat = SCAN_WORLD["center_lon"], SCAN_WORLD["center_lat"]
+    bbox = (c_lon - half * M2LON, c_lat - half * M2LAT,
+            c_lon + half * M2LON, c_lat + half * M2LAT)
+    write_geotiff(path, world.render(bbox, side, side),
+                  (bbox[0], m_px * M2LON, 0.0, bbox[3], 0.0, -m_px * M2LAT),
+                  epsg=4326)
+    return bbox
+
+
+def front_ends(torch, record, card, launches, open_window, close_window):
+    """11. The port's CLI as a user runs it, each verb a
+    ``python -m aerial_image_recognition_tpu_torch`` child of this script
+    (counted through ``COUNTED_CHILD``), on the card, at full width, against
+    one FakeTileServer of the 10b world: (a) ``doctor``; (b) ``detect``
+    over WMS JPEG (1280 px a 320 m tile, the config's default size: the
+    step resizes to 640 on the card) of ``FE_AOI``, against an in-process
+    ``CarDetector`` of the same config, the world's cars and the 2 m dedup
+    radius; (c) ``detect --tta`` on 4 tiles; (d) ``calibrate`` on a GeoTIFF
+    of the world at 0.5 m/px, its absmax against the CPU's on the same
+    windows, then ``detect --quantize int8 --quantize-calib`` over (b)'s
+    AOI against (b); (e) ``geotiff`` on that raster with the trained
+    fixture (window 640, stride 480) against the world's cars, then at the
+    verb's defaults (seeded yolov8_tokyo, window 1200, stride 600, batch
+    16), timed per window batch in this process; (f) ``predict`` on ragged
+    PNG/JPEG crops at the fixture's scale (imgsz 96) with ``--annotate``;
+    (g) ``serve``: JPEG POSTs, SIGINT, exit 0, and ``serve
+    --data-parallel`` refused; (h) ``sweep`` over two tile sizes; (i)
+    ``SimpleDetector.run`` in this process over the fake XYZ server with
+    the trained yolov8n (64 m windows at zoom 20 resized to its 0.1 m/px
+    at 640 px). Each child's kernel launches go on its own path."""
+    import shutil
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.fetch.fake import (
+        FakeTileServer, FakeWorld)
+    from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
+    from aerial_image_recognition_tpu_torch.gio.geotiff import read_geotiff
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        calibrate_absmax)
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.pipeline.cli import (
+        _overrides, build_parser)
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step)
+    from aerial_image_recognition_tpu_torch.pipeline.rasters import (
+        _extract, detect_geotiff, iter_windows)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    from aerial_image_recognition_tpu_torch.utils.native import native_paths
+    base = os.path.join(ROOT, "chiprun_out", "front_ends")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    rec = record["front_ends"] = {"card": card}
+    name = torch.cuda.get_device_name(0)
+
+    def child_path(path, counts, needed):
+        launches[path] = counts or {}
+        for k in needed:
+            if not launches[path].get(k):
+                fail(f"the front end {path} never launched {k}: {counts}")
+
+    # (a) doctor, exactly as a user types it
+    proc, wall, _ = run_verb(base, "doctor", ["doctor"], counted=False)
+    doc = json.loads(proc.stdout)
+    if not doc.get("devices") or doc["devices"][0] != name \
+            or doc.get("kernels_built") != {k: True for k in (
+                "nms_suppress", "clahe_apply", "int8_epilogue")} \
+            or doc.get("native_fastgeo") is not True \
+            or not doc.get("matmul_smoke_test", {}).get("ok"):
+        fail(f"doctor: {doc}")
+    rec["doctor"] = {"wall_s": wall, "report": doc}
+    print(f"front ends (a) doctor: {doc['devices']}, torch "
+          f"{doc['torch_version']}, CUDA {doc['cuda_version']}, "
+          f"{doc.get('memory_total_gb')} GB, nvidia-smi "
+          f"{doc.get('nvidia_smi')}, kernels built, native {doc['native']}, "
+          f"{wall:.1f} s [{card}]", flush=True)
+
+    world = FakeWorld(**SCAN_WORLD)
+    srv = FakeTileServer(world)
+    srv.start()
+    try:
+        wms = ["--wms-url", srv.base_url + "/wms", "--wms-layer", "fake"]
+        frame = aoi_frame(os.path.join(base, "aoi.geojson"), FE_AOI)
+        scan = ["--frame", frame, "--tile-size-meters", "320",
+                "--tile-overlap", "0.25", "--params", FIXTURE,
+                "--device-batch", str(B), "--batch-size", str(B),
+                "--num-workers", "16", "--confidence-threshold", "0.4",
+                "--duplicate-distance", "2.0"] + wms
+
+        # (b) detect, and the same scan in this process
+        b_dir = os.path.join(base, "detect")
+        argv = ["detect", "--base-dir", b_dir, "--force-restart"] + scan
+        proc, wall, counts = run_verb(base, "detect", argv)
+        child_path("fe_detect", counts, ["nms_suppress"])
+        out = last_json(proc.stdout)
+        got, meta = scan_records(b_dir)
+        for fname in ("detections_results.geojson",
+                      "detections_results.shp", "detections_results.dbf",
+                      "detections_coverage.geojson"):
+            if not os.path.exists(os.path.join(b_dir, "output", fname)):
+                fail(f"detect: {fname} not written")
+        ns = build_parser().parse_args(argv)
+        ref_dir = os.path.join(base, "detect_in_process")
+        CarDetector(ref_dir, _overrides(ns)).detect(force_restart=True)
+        want, _ = scan_records(ref_dir)
+        if got.shape != want.shape or len(got) != out["detections"]:
+            fail(f"detect: {got.shape} records against {want.shape} in "
+                 f"process, {out['detections']} reported")
+        d_geo = float(np.abs(got[:, :2] - want[:, :2]).max())
+        d_conf = float(np.abs(got[:, 2] - want[:, 2]).max())
+        if d_geo > 1e-6 or d_conf > 1e-5:
+            fail(f"detect vs in process: {d_geo:.2e} deg, {d_conf:.2e}")
+        r3, p3, n_cars, dups = truth_recall(world, got[:, :2], [FE_AOI])
+        if r3 < 0.95 or dups:
+            fail(f"detect: recall@3m {r3:.3f} of {n_cars} cars, {dups} "
+                 "pairs within 2 m")
+        batches = meta["ingest_stats"]["batches"]
+        if counts["nms_suppress"] != batches:
+            fail(f"detect: {counts['nms_suppress']} NMS launches in "
+                 f"{batches} batches")
+        rec["detect"] = {
+            "tiles": out["tiles"], "detections": len(got), "wall_s": wall,
+            "scan_wall_s": meta["wall_clock_s"],
+            "tiles_per_s": out["tiles"] / meta["wall_clock_s"],
+            "recall_3m": r3, "precision_3m": p3, "cars_inside": n_cars,
+            "max_abs_diff_deg_vs_in_process": d_geo,
+            "max_abs_diff_conf_vs_in_process": d_conf,
+            "phase_timings": meta["phase_timings"],
+            "fetch_stats": meta["fetch_stats"], "native": native_paths(),
+            "launches": counts, "bound": "host (the fake server renders "
+            "and JPEG-encodes 1280-px tiles in Python)"}
+        print(f"front ends (b) detect: {out['tiles']} WMS JPEG tiles of "
+              f"1280 px (320 m, resized to 640 on the card) in "
+              f"{meta['wall_clock_s']:.2f} s of scan, "
+              f"{rec['detect']['tiles_per_s']:.1f} tiles/s (host-bound), "
+              f"process {wall:.1f} s; {len(got)} records, equal to the "
+              f"in-process CarDetector within {d_geo:.1e} deg and "
+              f"{d_conf:.1e} in confidence; recall@3m {r3:.3f} of {n_cars} "
+              f"cars, precision@3m {p3:.3f}, no pair within 2 m; launches "
+              f"{counts}; native {native_paths()} [{card}]", flush=True)
+
+        # (c) detect --tta on a few tiles
+        c_dir = os.path.join(base, "tta")
+        tta_frame = aoi_frame(os.path.join(base, "aoi_tta.geojson"),
+                              FE_TTA_AOI)
+        argv = ["detect", "--base-dir", c_dir, "--force-restart", "--tta"] \
+            + scan[2:] + ["--frame", tta_frame]
+        proc, wall, counts = run_verb(base, "tta", argv)
+        child_path("fe_tta", counts, ["nms_suppress", "clahe_apply"])
+        tta_out = last_json(proc.stdout)
+        rec["tta"] = {"tiles": tta_out["tiles"],
+                      "detections": tta_out["detections"], "wall_s": wall,
+                      "launches": counts}
+        print(f"front ends (c) detect --tta: {tta_out['tiles']} tiles, "
+              f"{tta_out['detections']} records, launches {counts}, "
+              f"process {wall:.1f} s [{card}]", flush=True)
+
+        # (d) calibrate on a GeoTIFF of the world, card against CPU, then
+        # detect with the calibration
+        tif = os.path.join(base, "world.tif")
+        raster_bbox = render_raster(world, tif)
+        calib = os.path.join(base, "calib.json")
+        proc, wall, counts = run_verb(
+            base, "calibrate", ["calibrate", tif, "--params", FIXTURE,
+                                "--window", "640", "--max-windows", "16",
+                                "--out", calib])
+        launches["fe_calibrate"] = counts
+        with open(calib) as f:
+            card_absmax = json.load(f)
+        gt = read_geotiff(tif)
+        corners = list(iter_windows(FE_RASTER_PX, FE_RASTER_PX, 640,
+                                    640))[:16]
+        batches = [np.stack([_extract(gt.data, r, c, 640)
+                             for r, c in corners[i:i + 8]])
+                   for i in range(0, len(corners), 8)]
+        cpu_bundle = create_model(params_path=FIXTURE, dtype=torch.float32,
+                                  device="cpu", fold_bn=True)
+        cpu_absmax = calibrate_absmax(cpu_bundle, batches, model_size=640)
+        del cpu_bundle
+        if set(cpu_absmax) != set(card_absmax):
+            fail("calibrate: the card's and the CPU's layers differ")
+        rel = max(abs(card_absmax[k] - v) / max(abs(v), 1e-12)
+                  for k, v in cpu_absmax.items())
+        if rel > 1e-4:
+            fail(f"calibrate: card against CPU rel {rel:.2e} (> 1e-4)")
+        d_dir = os.path.join(base, "int8")
+        argv = ["detect", "--base-dir", d_dir, "--force-restart",
+                "--quantize", "int8", "--quantize-calib", calib] + scan
+        proc, wall_q, counts_q = run_verb(base, "int8", argv)
+        child_path("fe_int8", counts_q, ["nms_suppress", "int8_epilogue"])
+        q_out = last_json(proc.stdout)
+        q_recs, q_meta = scan_records(d_dir)
+        m_q = matched_within(got[:, :2], q_recs[:, :2], 2.0)
+        m_b = matched_within(q_recs[:, :2], got[:, :2], 2.0)
+        q_batches = q_meta["ingest_stats"]["batches"]
+        if min(m_q, m_b) < 0.9 \
+                or counts_q["int8_epilogue"] != TRUNK_CONVS * q_batches:
+            fail(f"int8 detect: {m_q:.3f} of (b)'s records within 2 m, "
+                 f"{m_b:.3f} the other way; launches {counts_q} in "
+                 f"{q_batches} batches")
+        rec["calibrate"] = {"windows": len(corners), "layers": len(cpu_absmax),
+                            "wall_s": wall,
+                            "card_vs_cpu_max_rel": rel,
+                            "tf32_during_calibration": False}
+        rec["int8_detect"] = {
+            "tiles": q_out["tiles"],
+            "detections": len(q_recs), "scan_wall_s": q_meta["wall_clock_s"],
+            "wall_s": wall_q, "matched_b_2m": m_q, "matched_from_b_2m": m_b,
+            "launches": counts_q}
+        print(f"front ends (d) calibrate: {len(corners)} windows of 640 px, "
+              f"{len(cpu_absmax)} layers, card against CPU max rel "
+              f"{rel:.2e} (TF32 off), {wall:.1f} s; detect --quantize int8 "
+              f"--quantize-calib: {len(q_recs)} records, {m_q:.3f} of (b)'s "
+              f"within 2 m ({m_b:.3f} the other way), scan "
+              f"{q_meta['wall_clock_s']:.2f} s, launches {counts_q} "
+              f"[{card}]", flush=True)
+
+        # (e) geotiff with the trained fixture, then at the verb's defaults
+        g_out = os.path.join(base, "geotiff.geojson")
+        proc, wall, counts = run_verb(
+            base, "geotiff", ["geotiff", tif, "--model", "yolov7_itcvd",
+                              "--params", FIXTURE, "--window", "640",
+                              "--stride", "480", "--out", g_out])
+        child_path("fe_geotiff", counts, ["nms_suppress"])
+        g_line = last_json(proc.stdout)
+        g_doc = read_geojson(g_out)
+        found = np.array([f["geometry"]["coordinates"]
+                          for f in g_doc["features"]], np.float64)
+        g_r3, g_p3, g_cars, g_dups = truth_recall(world, found,
+                                                [raster_bbox])
+        if g_line["detections"] != len(found) \
+                or g_r3 < FE_FLOORS["geotiff_recall_3m"]:
+            fail(f"geotiff: {g_line}, {len(found)} features, recall@3m "
+                 f"{g_r3:.3f} of {g_cars} cars")
+        proc, wall_d, counts_d = run_verb(
+            base, "geotiff_defaults",
+            ["geotiff", tif, "--out", os.path.join(base, "g_def.geojson")])
+        child_path("fe_geotiff_defaults", counts_d, ["nms_suppress"])
+        step = build_detect_step(DetectorConfig(
+            model_path="yolov8_tokyo", confidence_threshold=0.4),
+            batch=16, src_size=1200)
+        n_win = len(list(iter_windows(FE_RASTER_PX, FE_RASTER_PX, 1200,
+                                      600)))
+        detect_geotiff(gt, window=1200, stride=600, detect_step=step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            detect_geotiff(gt, window=1200, stride=600, detect_step=step)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) / 5 * 1e3 \
+            / -(-n_win // step.batch)
+        del step
+        rec["geotiff"] = {
+            "windows": len(list(iter_windows(FE_RASTER_PX, FE_RASTER_PX,
+                                             640, 480))),
+            "detections": len(found), "recall_3m": g_r3,
+            "precision_3m": g_p3, "cars_inside": g_cars,
+            "pairs_within_2m": g_dups, "wall_s": wall, "launches": counts,
+            "defaults": {"model": "yolov8_tokyo (seeded)", "window": 1200,
+                         "stride": 600, "batch": 16, "windows": n_win,
+                         "ms_per_window_batch": batch_ms, "wall_s": wall_d,
+                         "launches": counts_d}}
+        print(f"front ends (e) geotiff: {FE_RASTER_PX}-px raster at 0.5 "
+              f"m/px, window 640 stride 480, {len(found)} records, "
+              f"recall@3m {g_r3:.3f} of {g_cars} cars (floor "
+              f"{FE_FLOORS['geotiff_recall_3m']}), precision@3m "
+              f"{g_p3:.3f}, {g_dups} pairs within 2 m, {wall:.1f} s; at "
+              f"the defaults (yolov8_tokyo seeded, window 1200, stride 600, "
+              f"batch 16): {batch_ms:.2f} ms a window batch, launches "
+              f"{counts_d} [{card}]", flush=True)
+
+        # (f) predict on ragged crops at the fixture's scale
+        rec["predict"] = fe_predict(world, base, card, child_path)
+
+        # (g) serve, and serve --data-parallel refused
+        rec["serve"] = fe_serve(world, base, card, child_path)
+
+        # (h) sweep over two tile sizes of (b)'s AOI
+        h_dir = os.path.join(base, "sweep")
+        argv = ["sweep", "--base-dir", h_dir, "--tile-sizes", "320,400"] \
+            + scan
+        proc, wall, counts = run_verb(base, "sweep", argv)
+        child_path("fe_sweep", counts, ["nms_suppress"])
+        entries = last_json(proc.stdout, "[")
+        if [e.get("tile_size_m") for e in entries] != [320.0, 400.0] \
+                or any("error" in e for e in entries):
+            fail(f"sweep: {entries}")
+        rec["sweep"] = {"entries": entries, "wall_s": wall,
+                        "launches": counts}
+        print("front ends (h) sweep: " + "; ".join(
+            f"{e['tile_size_m']:g} m: {e['tiles']} tiles, {e['detections']}"
+            f" records, {e['wall_s']} s" for e in entries)
+            + f"; no entry has an error; launches {counts} [{card}]",
+            flush=True)
+
+        # (i) SimpleDetector in this process, step built on the card
+        rec["simple"] = fe_simple(torch, world, srv, base, card, open_window,
+                                  close_window)
+    finally:
+        srv.stop()
+
+
+def fe_predict(world, base, card, child_path):
+    """(f): one 48 m square of the world around a spot with several cars,
+    rendered at 96 px as PNG and as JPEG, at 192 px as PNG and as a ragged
+    150×110 JPEG — every one the fixture's 0.5 m/px once ``predict
+    --imgsz 96 --annotate`` resizes it to 96 — and each image's boxes
+    must land on the world's cars in its own pixels: recall ≥ 0.8 of the
+    cars wholly inside within 4 px per 96 px of image edge, and ≥ 0.9 of
+    the boxes on a car."""
+    import numpy as np
+    from PIL import Image
+    cars = world.cars[:, :2]
+    span = 48.0                                   # metres at 96 px
+    for c_lon, c_lat in cars:
+        d = np.abs(cars - (c_lon, c_lat)) / (M2LON, M2LAT)
+        if int((d.max(1) < span / 2 - 4).sum()) >= 4:
+            break
+    bbox = (c_lon - span / 2 * M2LON, c_lat - span / 2 * M2LAT,
+            c_lon + span / 2 * M2LON, c_lat + span / 2 * M2LAT)
+    crops = []
+    for fname, (w_px, h_px), fmt in (("a.png", (96, 96), "PNG"),
+                                     ("b.jpg", (96, 96), "JPEG"),
+                                     ("c.png", (192, 192), "PNG"),
+                                     ("d.jpg", (150, 110), "JPEG")):
+        path = os.path.join(base, fname)
+        Image.fromarray(world.render(bbox, w_px, h_px)).save(
+            path, fmt, **({"quality": 95} if fmt == "JPEG" else {}))
+        crops.append((path, w_px, h_px))
+    ann = os.path.join(base, "annotated")
+    proc, wall, counts = run_verb(
+        base, "predict", ["predict"] + [c[0] for c in crops]
+        + ["--params", FIXTURE, "--imgsz", "96", "--confidence", "0.4",
+           "--annotate", ann])
+    child_path("fe_predict", counts, ["nms_suppress"])
+    images = last_json(proc.stdout)["images"]
+    per = []
+    west, south, east, north = bbox
+    for (path, w_px, h_px), img in zip(crops, images):
+        px = (cars[:, 0] - west) / (east - west) * w_px
+        py = (north - cars[:, 1]) / (north - south) * h_px
+        mx, my = 2.5 / span * w_px, 2.5 / span * h_px   # half a car
+        inside = (px > mx) & (px < w_px - mx) & (py > my) & (py < h_px - my)
+        gt = np.stack([px, py], 1)
+        boxes = np.array([d["box_xyxy"] for d in img["detections"]],
+                         np.float64).reshape(-1, 4)
+        centres = (boxes[:, :2] + boxes[:, 2:]) / 2
+        tol = 4.0 * max(w_px, h_px) / 96
+        r = float(_nearest_within(gt[inside], centres, tol).mean()) \
+            if inside.any() else 1.0
+        p = float(_nearest_within(centres, gt, tol).mean()) \
+            if len(centres) else 0.0
+        if (img["width"], img["height"]) != (w_px, h_px) or r < 0.8 \
+                or p < 0.9 or not os.path.exists(
+                    os.path.join(ann, os.path.basename(path))) \
+                or {d["label"] for d in img["detections"]} - {"car"}:
+            fail(f"predict {os.path.basename(path)}: {img['width']}x"
+                 f"{img['height']}, recall {r:.3f} of {int(inside.sum())} "
+                 f"cars, precision {p:.3f}, labels "
+                 f"{[d['label'] for d in img['detections']][:5]}")
+        per.append({"image": os.path.basename(path), "size": [w_px, h_px],
+                    "detections": len(boxes), "cars_inside": int(
+                        inside.sum()), "recall": r, "precision": p})
+    print("front ends (f) predict: " + "; ".join(
+        f"{q['image']} {q['size'][0]}x{q['size'][1]}: {q['detections']} "
+        f"boxes, recall {q['recall']:.2f} of {q['cars_inside']} cars, "
+        f"precision {q['precision']:.2f}" for q in per)
+        + f"; annotated copies written; launches {counts}, {wall:.1f} s "
+        f"[{card}]", flush=True)
+    return {"images": per, "wall_s": wall, "launches": counts,
+            "nms_shape": {"K": 512, "D": 128, "class_aware": False}}
+
+
+def fe_serve(world, base, card, child_path):
+    """(g): ``serve`` as a child: its address line, JPEG tiles POSTed
+    (records with class names), SIGINT, exit 0; then ``serve
+    --data-parallel`` exits non-zero with the server's refusal."""
+    import select
+    import signal
+    import numpy as np
+    cmd, env, counts_file = child_cmd(
+        base, "serve", ["serve", "--port", "0", "--params", FIXTURE,
+                        "--batch", "8", "--max-wait-ms", "20"])
+    err = open(os.path.join(base, "serve.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        if not ready:
+            fail("serve: no address line within 300 s")
+        line = json.loads(proc.stdout.readline())
+        n = 8
+        images, bounds = [], []
+        for k in range(n):
+            c_lon = SCAN_WORLD["center_lon"] + (k - n / 2) * 330 * M2LON
+            c_lat = SCAN_WORLD["center_lat"]
+            bbox = (c_lon - 160 * M2LON, c_lat - 160 * M2LAT,
+                    c_lon + 160 * M2LON, c_lat + 160 * M2LAT)
+            images.append(world.render(bbox, SIZE, SIZE))
+            bounds.append(bbox)
+        t0 = time.perf_counter()
+        replies = post_jpegs(line["serving"], images, np.asarray(bounds), n)
+        post_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    with open(counts_file) as f:
+        counts = json.load(f)
+    child_path("fe_serve", counts, ["nms_suppress"])
+    for k, (status, body) in enumerate(replies):
+        if status != 200 or body["count"] != len(body["detections"]) \
+                or body["count"] == 0 \
+                or {d["class"] for d in body["detections"]} != {"car"}:
+            fail(f"serve request {k}: {status} {str(body)[:300]}")
+    if rc != 0:
+        fail(f"serve: exit {rc} after SIGINT")
+    proc_dp, _, _ = run_verb(base, "serve_data_parallel",
+                             ["serve", "--data-parallel"], counted=False,
+                             ok=False, timeout=300)
+    if proc_dp.returncode == 0 or "data-parallel serving arrives with the " \
+            "multi-GPU slice" not in proc_dp.stderr:
+        fail(f"serve --data-parallel: exit {proc_dp.returncode}, "
+             f"{proc_dp.stderr[-500:]}")
+    counts_seen = [body["count"] for _, body in replies]
+    print(f"front ends (g) serve: {line}, {n} JPEG POSTs answered in "
+          f"{post_s:.2f} s with {sum(counts_seen)} records (class 'car'), "
+          f"SIGINT → exit 0, launches {counts}; serve --data-parallel → "
+          f"exit {proc_dp.returncode} with the server's refusal [{card}]",
+          flush=True)
+    return {"address": line, "requests": n, "counts": counts_seen,
+            "post_s": post_s, "exit_after_sigint": rc, "launches": counts,
+            "data_parallel_exit": proc_dp.returncode}
+
+
+def fe_simple(torch, world, srv, base, card, open_window, close_window):
+    """(i): ``SimpleDetector.run`` in this process over the fake XYZ server
+    at zoom 20 (a 64 m window is 699 px there), with the trained yolov8n,
+    whose 640-px input then sees its training scale (0.1 m/px): the step is
+    built by the detector itself, on the card, resizing 699 → 640 there.
+    The reference's facade takes no weights file, so they go in through
+    its config. Recall within 3 m of the world's cars inside the windows
+    it scanned (its coverage layer), at the floor ``FE_FLOORS``."""
+    import dataclasses
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.fetch.xyz import XYZFetcher
+    from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
+    from aerial_image_recognition_tpu_torch.pipeline.simple import (
+        SimpleDetector)
+    out_dir = os.path.join(base, "simple")
+    frame = aoi_frame(os.path.join(base, "aoi_simple.geojson"),
+                      FE_SIMPLE_AOI)
+    det = SimpleDetector(
+        "yolov8n", out_dir, xyz_url=srv.xyz_template, zoom=FE_SIMPLE_ZOOM,
+        num_workers=16, fetcher=XYZFetcher(srv.xyz_template,
+                                           zoom=FE_SIMPLE_ZOOM,
+                                           num_workers=16, subdomains=("",)))
+    det.config = dataclasses.replace(det.config, params_path=V8_FIXTURE)
+    open_window()
+    t0 = time.perf_counter()
+    try:
+        out = det.run(frame, spacing_meters=60.0, batch_size=B,
+                      force_restart=True)
+        torch.cuda.synchronize()
+    finally:
+        det.close()
+    wall = time.perf_counter() - t0
+    close_window("fe_simple", ["nms_suppress"])
+    step = det._step
+    doc = read_geojson(out["output"])
+    found = np.array([f["geometry"]["coordinates"] for f in doc["features"]],
+                     np.float64)
+    cov = read_geojson(os.path.join(out_dir, "simple_coverage.geojson"))
+    windows = []
+    for f in cov["features"]:
+        ring = np.asarray(f["geometry"]["coordinates"][0])
+        windows.append((*ring.min(0), *ring.max(0)))
+    r3, p3, n_cars, _ = truth_recall(world, found, windows)
+    if step.device.type != "cuda" or step.model_size != 640 \
+            or r3 < FE_FLOORS["simple_recall_3m"]:
+        fail(f"SimpleDetector: step on {step.device} at "
+             f"{step.input_size}→{step.model_size}, recall@3m {r3:.3f} of "
+             f"{n_cars} cars, {len(found)} records")
+    print(f"front ends (i) SimpleDetector.run: {out['points']} points, "
+          f"windows of {step.input_size} px (64 m, zoom {FE_SIMPLE_ZOOM}) "
+          f"resized to {step.model_size} on the card, trained yolov8n; "
+          f"{out['detections']} records, recall@3m {r3:.3f} of {n_cars} "
+          f"cars (floor {FE_FLOORS['simple_recall_3m']}), precision@3m "
+          f"{p3:.3f}, {wall:.2f} s [{card}]", flush=True)
+    return {"points": out["points"], "window_px": step.input_size,
+            "detections": out["detections"], "recall_3m": r3,
+            "precision_3m": p3, "cars_inside": n_cars, "wall_s": wall}
+
+
 # ------------------------------------------------ 9. the other families
 
 def render_centred_tiles(rng, n_car: int, n_empty: int,
@@ -1904,11 +2577,51 @@ def scan_only(torch, record, card) -> None:
         path: p["nms_suppress"] for path, p in launches.items()}
 
 
+def front_ends_only(torch, record, card) -> None:
+    """``--front-ends-only``: the NMS kernel against its plain version
+    (``NMS_CASES``, predict's shape among them), then phase 11 — the quick
+    card check of the CLI. The kernel line holds the NMS kernel; every
+    kernel's launches by path stand in the record."""
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    record["kernels"] = [check_nms_kernel(torch, record)]
+    print(f"nms_suppress: bit-identical to plain on "
+          f"{len(record['nms_cases'])} cases [{card}]", flush=True)
+    wrappers = {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+                "int8_epilogue": requantize}
+    launches = {}
+
+    def open_window():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def close_window(path, needed):
+        launches[path] = {k: w.launches for k, w in wrappers.items()}
+        for k in needed:
+            if launches[path][k] == 0:
+                fail(f"the {path} path never launched {k}")
+
+    front_ends(torch, record, card, launches, open_window, close_window)
+    record["launches_by_path"] = launches
+    nms = record["kernels"][0]
+    nms["launches"] = sum(p.get("nms_suppress", 0)
+                          for p in launches.values())
+    nms["launches_by_path"] = {path: p.get("nms_suppress", 0)
+                               for path, p in launches.items()}
+
+
 def main() -> None:
-    only_scan = sys.argv[1:] == ["--scan-only"]
-    if sys.argv[1:] and not only_scan:
-        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             "--scan-only for the city scan's phases alone")
+    modes = {"--scan-only": "chip_smoke_scan.json",
+             "--front-ends-only": "chip_smoke_front_ends.json"}
+    mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
+    if sys.argv[1:] and mode not in modes:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
+             "--scan-only for the city scan's phases alone or with "
+             "--front-ends-only for the CLI's")
     try:
         import torch
     except ImportError as e:
@@ -1955,9 +2668,13 @@ def main() -> None:
     record["build_s"] = time.perf_counter() - t0
     print(f"build: nms_suppress, clahe_apply, int8_epilogue in "
           f"{record['build_s']:.2f} s", flush=True)
-    if only_scan:
+    if mode == "--scan-only":
         scan_only(torch, record, card)
-        finish(torch, record, name, "chip_smoke_scan.json")
+        finish(torch, record, name, modes[mode])
+        return
+    if mode == "--front-ends-only":
+        front_ends_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
         return
 
     # 3. kernel vs plain
@@ -2333,9 +3050,13 @@ def main() -> None:
           f"{record['multiscale']['step_ms_host_input']:.2f} before "
           f"[{card}]", flush=True)
 
+    # 11. the front ends, each verb a child process on this card
+    front_ends(torch, record, card, launches, open_window, close_window)
+
     for entry in (kernel, clahe, epilogue):
-        entry["launches"] = sum(p[entry["name"]] for p in launches.values())
-        entry["launches_by_path"] = {path: p[entry["name"]]
+        entry["launches"] = sum(p.get(entry["name"], 0)
+                                for p in launches.values())
+        entry["launches_by_path"] = {path: p.get(entry["name"], 0)
                                      for path, p in launches.items()}
     record["kernels"] = [kernel, clahe, epilogue]
     finish(torch, record, name, "chip_smoke.json")

@@ -119,8 +119,13 @@ def test_heatmap_equal_and_gpkg_names_its_slice(tmp_path):
     recs = [{"lon": 21.0 + a * 2e-3, "lat": 52.2 + b * 2e-3,
              "confidence": float(c)} for a, b, c in rng.random((300, 3))]
     assert PHM.hex_heatmap(recs, 40.0) == JHM.hex_heatmap(recs, 40.0)
-    with pytest.raises(NotImplementedError, match="geopackage slice"):
-        PHM.hex_heatmap(recs, 40.0, output_geojson=str(tmp_path / "h.gpkg"))
+    # the GeoPackage output, refused until the port had its writer, now
+    # holds the JAX heatmap's layer
+    from aerial_image_recognition_tpu.gio.geopackage import read_gpkg
+    PHM.hex_heatmap(recs, 40.0, output_geojson=str(tmp_path / "p.gpkg"))
+    JHM.hex_heatmap(recs, 40.0, output_geojson=str(tmp_path / "j.gpkg"))
+    assert read_gpkg(str(tmp_path / "p.gpkg")) == \
+        read_gpkg(str(tmp_path / "j.gpkg"))
     assert PHM.hex_heatmap([], 40.0)["features"] == []
 
 

@@ -10,6 +10,7 @@ import ast
 import dataclasses
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -76,15 +77,47 @@ def test_import_check_sees_the_prefix_package(tmp_path):
     assert sorted(found) == [False, True, True]
 
 
-def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """Without CUDA and without a device every entry point that builds a
+    model raises, before it reads an input file or fetches a tile: the
+    library calls and the CLI's model-building verbs alike."""
+    from aerial_image_recognition_tpu_torch.gio.geotiff import write_geotiff
     from aerial_image_recognition_tpu_torch.models.registry import (
         create_model)
+    from aerial_image_recognition_tpu_torch.pipeline import (
+        cli, rasters, simple)
     from aerial_image_recognition_tpu_torch.pipeline.inference import (
         build_detect_step)
+    from aerial_image_recognition_tpu_torch.pipeline.predict import (
+        predict_images)
     from aerial_image_recognition_tpu_torch.pipeline.serve import (
         DetectionServer)
+    from aerial_image_recognition_tpu_torch.pipeline.sweep import run_sweep
+
+    def no_input(*a, **kw):
+        raise AssertionError("an input was read before the device check")
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (build_detect_step, create_model, DetectionServer):
+    monkeypatch.setattr(rasters, "read_geotiff", no_input)
+    monkeypatch.setattr(simple, "XYZFetcher", no_input)
+    tif = str(tmp_path / "in.tif")
+    write_geotiff(tif, np.zeros((8, 8, 3), np.uint8),
+                  (21.0, 1e-5, 0.0, 52.2, 0.0, -1e-5), 4326)
+    calls = [build_detect_step, create_model, DetectionServer,
+             lambda: predict_images([tif]),
+             lambda: rasters.detect_geotiff(tif),
+             lambda: simple.SimpleDetector(output_dir=str(tmp_path)),
+             lambda: run_sweep(str(tmp_path), {"frame_path": "missing"},
+                               tile_sizes=(64.0,))]
+    for argv in (["detect", "--frame", "missing.geojson"],
+                 ["sweep", "--frame", "missing.geojson"],
+                 ["geotiff", tif], ["predict", tif], ["serve"],
+                 ["calibrate", tif, "--out", str(tmp_path / "c.json")],
+                 ["export", "missing.npz", str(tmp_path / "m.onnx")],
+                 ["import-weights", "missing.onnx", "--out",
+                  str(tmp_path / "w.npz")]):
+        calls.append(lambda argv=argv: cli.main(argv))
+    for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -143,7 +176,7 @@ def test_nms_wrapper_on_cpu_is_the_plain_version_and_builds_nothing(
     assert nms_suppress.launches == before
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     from aerial_image_recognition_tpu_torch.models.registry import (
         create_model)
     from aerial_image_recognition_tpu_torch.pipeline.inference import (
@@ -165,8 +198,9 @@ def test_unported_options_raise():
                 device="cpu", model_size=64)
     build_detect_step(DetectorConfig(extra={"resize_matmul": False}),
                       device="cpu", model_size=64)      # single-scale: fine
-    # the scan's data-parallel mesh, the quad stem's batch layout and the
-    # heatmap's GeoPackage output
+    # the scan's data-parallel mesh and the quad stem's batch layout (the
+    # heatmap's GeoPackage output, refused until the writer was ported,
+    # now writes its layer)
     from aerial_image_recognition_tpu_torch.ingest.pipeline import (
         assemble_batches)
     from aerial_image_recognition_tpu_torch.pipeline.detector import (
@@ -180,9 +214,11 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="quad stem"):
         list(assemble_batches(iter([]), batch_size=2, src_size=8,
                               layout="s2d2"))
-    with pytest.raises(NotImplementedError, match="geopackage slice"):
-        hex_heatmap([{"lon": 21.0, "lat": 52.2, "confidence": 0.5}], 50.0,
-                    output_geojson="heat.gpkg")
+    from aerial_image_recognition_tpu_torch.gio.geopackage import read_gpkg
+    heat = str(tmp_path / "heat.gpkg")
+    hex_heatmap([{"lon": 21.0, "lat": 52.2, "confidence": 0.5}], 50.0,
+                output_geojson=heat)
+    assert read_gpkg(heat)["layer"] == "hex_heatmap_output"
     # the segmentation model is the only registry name still refused
     for name in ("xunet_256", "ramp_XUnet_256.onnx"):
         with pytest.raises(NotImplementedError, match="segmentation slice"):
