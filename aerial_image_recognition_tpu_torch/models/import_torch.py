@@ -354,22 +354,14 @@ def variables_from_torch_state(state_dict: Dict[str, np.ndarray],
                    f"{spec.family!r} ({name})")
 
 
-def _leaf_shapes(tree, prefix=()) -> Dict[str, Tuple[int, ...]]:
-    """Nested dict → {"a/b/c": shape} over its leaves."""
-    if not isinstance(tree, dict):
-        return {"/".join(prefix): tuple(np.shape(tree))}
-    out: Dict[str, Tuple[int, ...]] = {}
-    for k, v in tree.items():
-        out.update(_leaf_shapes(v, prefix + (str(k),)))
-    return out
-
-
 def validate_variable_shapes(variables: Dict[str, Any],
                              reference: Dict[str, Any]) -> None:
     """Compare two variable trees leaf by leaf; raise listing every shape
     mismatch (a clear error instead of silently wrong inference when an
     imported blob does not match the chosen registry model)."""
-    a, b = _leaf_shapes(variables), _leaf_shapes(reference)
+    from aerial_image_recognition_tpu_torch.models.weights import _flatten
+    a, b = ({"/".join(path): np.shape(leaf) for path, leaf in _flatten(t)}
+            for t in (variables, reference))
     problems = []
     for k in sorted(set(a) | set(b)):
         if k not in a:

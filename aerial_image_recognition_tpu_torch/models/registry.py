@@ -8,7 +8,6 @@ YOLOv8 n/s/m/l/x ladder (nc=2) — all at 640 px. The segmentation model
 """
 
 import os
-from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -179,28 +178,22 @@ def save_params(params: Dict[str, Any], path: str) -> None:
     arrays of an ``ml_dtypes`` bfloat16) are stored bit-exact as uint16
     under a ``:bf16`` key suffix, since numpy has no bfloat16 of its own;
     every other leaf is stored as it is."""
+    from aerial_image_recognition_tpu_torch.models.weights import _flatten
     out: Dict[str, np.ndarray] = {}
-
-    def walk(node, prefix):
-        if isinstance(node, Mapping):
-            for k in sorted(node):
-                walk(node[k], prefix + (str(k),))
-            return
-        key = "/".join(prefix)
-        if isinstance(node, torch.Tensor):
-            node = node.detach().cpu()
-            if node.dtype == torch.bfloat16:
-                out[key + ":bf16"] = node.view(torch.int16).numpy() \
+    for keys, leaf in sorted(_flatten(params), key=lambda kl: kl[0]):
+        key = "/".join(keys)
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+            if leaf.dtype == torch.bfloat16:
+                out[key + ":bf16"] = leaf.view(torch.int16).numpy() \
                     .view(np.uint16)
-                return
-            node = node.numpy()
-        arr = np.asarray(node)
+                continue
+            leaf = leaf.numpy()
+        arr = np.asarray(leaf)
         if arr.dtype.name == "bfloat16":
             out[key + ":bf16"] = arr.view(np.uint16)
         else:
             out[key] = arr
-
-    walk(params, ())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         np.savez_compressed(f, **out)
