@@ -63,7 +63,10 @@ WORLD = dict(center_lon=21.0, center_lat=52.2, extent_deg=0.01, n_cars=400,
 M2LON = 1.0 / (111319.9 * math.cos(math.radians(52.2)))
 M2LAT = 1.0 / 111319.9
 
+# the tests run beside others in parallel workers: two threads each, and
+# as many for the CLI processes they start
 torch.set_num_threads(2)
+CHILD_THREADS = {"OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
 
 
 class _Parsed(Exception):
@@ -230,7 +233,7 @@ def test_detect_without_a_device_exits_before_any_fetch(tmp_path,
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PC.main(argv)
         # and as a process: a non-zero exit, the error on stderr, no tile
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", **CHILD_THREADS)
         proc = subprocess.run(
             [sys.executable, "-m", "aerial_image_recognition_tpu_torch"]
             + argv, cwd=ROOT, env=env, capture_output=True, text=True,
@@ -477,11 +480,13 @@ def test_export_bytes_equal_jax(tmp_path, capsys):
 def test_serve_as_a_process(tmp_path):
     """``serve --device cpu`` prints its address, answers a JPEG POST with
     records and class names, and SIGINT ends it with exit 0."""
+    err = open(tmp_path / "serve.err", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "aerial_image_recognition_tpu_torch", "serve",
          "--port", "0", "--params", FIXTURE, "--batch", "2",
          "--max-wait-ms", "5", "--device", "cpu"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=ROOT, env=dict(os.environ, **CHILD_THREADS),
+        stdout=subprocess.PIPE, stderr=err, text=True)
     try:
         line = json.loads(proc.stdout.readline())
         assert line["model"] == "yolov7_itcvd"
@@ -501,11 +506,13 @@ def test_serve_as_a_process(tmp_path):
         assert body["count"] == len(body["detections"]) >= 5
         assert {d["class"] for d in body["detections"]} == {"car"}
         proc.send_signal(signal.SIGINT)
-        assert proc.wait(timeout=120) == 0
+        assert proc.wait(timeout=120) == 0, (tmp_path / "serve.err") \
+            .read_text()[-2000:]
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+        err.close()
 
 
 def test_doctor_without_cuda(capsys):
