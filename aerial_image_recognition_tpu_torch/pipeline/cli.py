@@ -271,8 +271,8 @@ _LATER = {
     "val": "the val verb arrives with the training slice of the port",
     "automask": "the automask verb arrives with the segmentation slice of "
                 "the port",
-    "bench": "the bench verb arrives with the port's benchmark (a benchmark "
-             "PR); until then chip_smoke.py measures the port on the card",
+    "bench": "the bench verb arrives with the port's own benchmark; until "
+             "then chip_smoke.py measures the port on the card",
 }
 
 

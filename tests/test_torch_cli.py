@@ -15,7 +15,9 @@ in both): the same tiles, record counts within 10 %, and ≥ 0.9 of each
 package's records within 1 m and 0.05 in confidence of one of the other's
 (bf16 trunks; the quad stem against plain stems). ``import-weights`` and
 ``export`` equal the JAX verbs' arrays and bytes; ``calibrate`` gives the
-JAX verb's absmax within rtol 1e-5 (PR 4's tolerance: this side folds BN).
+JAX verb's absmax within rtol 1e-5 (the tolerance
+``tests/test_torch_int8.py`` holds ``calibrate_absmax`` to: this side
+folds BN).
 """
 
 import argparse

@@ -42,7 +42,7 @@ from aerial_image_recognition_tpu.runtime.config import (
 from aerial_image_recognition_tpu_torch.gio import geopackage as PG
 from aerial_image_recognition_tpu_torch.gio import geotiff as PT
 from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
-from aerial_image_recognition_tpu_torch.pipeline import rasters as PR
+from aerial_image_recognition_tpu_torch.pipeline import rasters as PRS
 from aerial_image_recognition_tpu_torch.pipeline.inference import (
     build_detect_step)
 from aerial_image_recognition_tpu_torch.post.heatmap import hex_heatmap
@@ -270,11 +270,11 @@ def test_heatmap_geopackage_equals_jax(tmp_path):
     (100, 100, 64, 32), (64, 64, 64, 64), (30, 200, 64, 48),
     (1200, 1800, 1200, 600), (257, 513, 128, 96)])
 def test_iter_windows_equal(h, w, window, stride):
-    assert list(PR.iter_windows(h, w, window, stride)) == \
+    assert list(PRS.iter_windows(h, w, window, stride)) == \
         list(JR.iter_windows(h, w, window, stride))
     img = np.random.default_rng(4).integers(0, 255, (h, w, 4), np.uint8)
-    for r, c in list(PR.iter_windows(h, w, window, stride))[-3:]:
-        np.testing.assert_array_equal(PR._extract(img, r, c, window),
+    for r, c in list(PRS.iter_windows(h, w, window, stride))[-3:]:
+        np.testing.assert_array_equal(PRS._extract(img, r, c, window),
                                       JR._extract(img, r, c, window))
 
 
@@ -318,7 +318,7 @@ def test_detect_geotiff_equals_jax(tmp_path, scene, crs):
     tif = str(tmp_path / "scene.tif")
     PT.write_geotiff(tif, scene["img"], transform, epsg=epsg)
     out_p, out_j = str(tmp_path / "p.geojson"), str(tmp_path / "j.geojson")
-    got = PR.detect_geotiff(tif, window=WINDOW, stride=STRIDE,
+    got = PRS.detect_geotiff(tif, window=WINDOW, stride=STRIDE,
                             detect_step=scene["port"], output_geojson=out_p)
     want = JR.detect_geotiff(tif, window=WINDOW, stride=STRIDE,
                              detect_step=scene["jax"], output_geojson=out_j)
@@ -378,7 +378,7 @@ def test_detect_geotiff_builds_its_own_step_on_the_cpu(tmp_path,
         "build_detect_step", spy)
     kw = dict(window=side, stride=side, model="yolov7_itcvd",
               params=FIXTURE, confidence=0.3, batch=1)
-    got = PR.detect_geotiff(tif, device="cpu", **kw)
+    got = PRS.detect_geotiff(tif, device="cpu", **kw)
     want = JR.detect_geotiff(tif, **kw)
     ((kwargs, step),) = built
     assert kwargs == {"batch": 1, "src_size": side, "device": "cpu"}
