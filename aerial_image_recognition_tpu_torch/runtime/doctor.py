@@ -91,8 +91,7 @@ def _kernels() -> Dict:
 
 
 def diagnose(compile_check: bool = True,
-             device_timeout_s: float = 60.0,
-             build_kernels: bool = True) -> Dict:
+             device_timeout_s: float = 60.0) -> Dict:
     out: Dict = {}
     try:
         import torch
@@ -120,8 +119,7 @@ def diagnose(compile_check: bool = True,
     except Exception as e:
         out["cuda_error"] = repr(e)
     out.update(_nvidia_smi())
-    if build_kernels:
-        out.update(_kernels())
+    out.update(_kernels())
 
     from aerial_image_recognition_tpu_torch.utils.native import native_paths
     out["native"] = native_paths()

@@ -94,7 +94,7 @@ Phases (any failure exits nonzero, and no result line is printed):
      ``doctor`` names the card, the three kernels built and the native
      fastgeo helper; (b) ``detect`` over WMS JPEG (1280-px tiles of 320 m,
      resized to 640 on the card) of a 56-tile AOI: records equal to an
-     in-process ``CarDetector`` of the same argv (1e-6°, 1e-5), recall@3m
+     in-process ``CarDetector`` of the same argv (bit-equal), recall@3m
      ≥ 0.95 of the world's cars, no pair within 2 m, tiles/s (host-bound);
      (c) ``detect --tta`` on 4 tiles launches the CLAHE kernel; (d)
      ``calibrate`` on a GeoTIFF of the world at 0.5 m/px, its absmax equal
@@ -102,7 +102,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      --quantize-calib`` over (b)'s AOI matching (b) at ≥ 0.9 within 2 m;
      (e) ``geotiff`` on that raster (window 640, stride 480) at recall@3m
      ≥ 0.9, and at the verb's defaults (seeded yolov8_tokyo, window 1200,
-     stride 600, batch 16) timed per window batch; (f) ``predict`` on a
+     stride 600, batch 16) on a 5400-px raster (four full batches), timed
+     per full window batch and split into extraction, upload, step and the
+     rest; (f) ``predict`` on a
      48 m square rendered at four pixel sizes (PNG, JPEG, ragged) with
      ``--imgsz 96 --annotate``; (g) ``serve``: JPEG POSTs answered with
      class names, SIGINT ends it with exit 0, ``serve --data-parallel``
@@ -1387,6 +1389,7 @@ def city_scan(torch, record, card, open_window, close_window):
 FE_AOI = (20.988, 52.19, 21.012, 52.206)        # 56 tiles of 320 m (36 of 400)
 FE_TTA_AOI = (20.995, 52.195, 21.0, 52.198)     # 4 tiles
 FE_RASTER_PX = 1600                             # the GeoTIFF: 800 m at 0.5 m/px
+FE_DEFAULTS_PX = 5400                           # 8 × 8 windows of 1200 px
 FE_SIMPLE_ZOOM = 20                             # 64 m in 699 px: 0.092 m/px
 FE_SIMPLE_AOI = (20.997, 52.1985, 21.001, 52.2005)
 # recall floors of (e) and (i) within 3 m of the world's cars
@@ -1569,12 +1572,8 @@ def front_ends(torch, record, card, launches, open_window, close_window):
         _overrides, build_parser)
     from aerial_image_recognition_tpu_torch.pipeline.detector import (
         CarDetector)
-    from aerial_image_recognition_tpu_torch.pipeline.inference import (
-        build_detect_step)
     from aerial_image_recognition_tpu_torch.pipeline.rasters import (
-        _extract, detect_geotiff, iter_windows)
-    from aerial_image_recognition_tpu_torch.runtime.config import (
-        DetectorConfig)
+        _extract, iter_windows)
     from aerial_image_recognition_tpu_torch.utils.native import native_paths
     base = os.path.join(ROOT, "chiprun_out", "front_ends")
     shutil.rmtree(base, ignore_errors=True)
@@ -1637,7 +1636,8 @@ def front_ends(torch, record, card, launches, open_window, close_window):
                  f"process, {out['detections']} reported")
         d_geo = float(np.abs(got[:, :2] - want[:, :2]).max())
         d_conf = float(np.abs(got[:, 2] - want[:, 2]).max())
-        if d_geo > 1e-6 or d_conf > 1e-5:
+        # same code, argv, server and card in both: bit-equal, no tolerance
+        if d_geo or d_conf:
             fail(f"detect vs in process: {d_geo:.2e} deg, {d_conf:.2e}")
         r3, p3, n_cars, dups = truth_recall(world, got[:, :2], [FE_AOI])
         if r3 < 0.95 or dups:
@@ -1662,9 +1662,8 @@ def front_ends(torch, record, card, launches, open_window, close_window):
               f"1280 px (320 m, resized to 640 on the card) in "
               f"{meta['wall_clock_s']:.2f} s of scan, "
               f"{rec['detect']['tiles_per_s']:.1f} tiles/s (host-bound), "
-              f"process {wall:.1f} s; {len(got)} records, equal to the "
-              f"in-process CarDetector within {d_geo:.1e} deg and "
-              f"{d_conf:.1e} in confidence; recall@3m {r3:.3f} of {n_cars} "
+              f"process {wall:.1f} s; {len(got)} records, bit-equal to the "
+              f"in-process CarDetector; recall@3m {r3:.3f} of {n_cars} "
               f"cars, precision@3m {p3:.3f}, no pair within 2 m; launches "
               f"{counts}; native {native_paths()} [{card}]", flush=True)
 
@@ -1761,42 +1760,20 @@ def front_ends(torch, record, card, launches, open_window, close_window):
                 or g_r3 < FE_FLOORS["geotiff_recall_3m"]:
             fail(f"geotiff: {g_line}, {len(found)} features, recall@3m "
                  f"{g_r3:.3f} of {g_cars} cars")
-        proc, wall_d, counts_d = run_verb(
-            base, "geotiff_defaults",
-            ["geotiff", tif, "--out", os.path.join(base, "g_def.geojson")])
-        child_path("fe_geotiff_defaults", counts_d, ["nms_suppress"])
-        step = build_detect_step(DetectorConfig(
-            model_path="yolov8_tokyo", confidence_threshold=0.4),
-            batch=16, src_size=1200)
-        n_win = len(list(iter_windows(FE_RASTER_PX, FE_RASTER_PX, 1200,
-                                      600)))
-        detect_geotiff(gt, window=1200, stride=600, detect_step=step)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            detect_geotiff(gt, window=1200, stride=600, detect_step=step)
-        torch.cuda.synchronize()
-        batch_ms = (time.perf_counter() - t0) / 5 * 1e3 \
-            / -(-n_win // step.batch)
-        del step
         rec["geotiff"] = {
             "windows": len(list(iter_windows(FE_RASTER_PX, FE_RASTER_PX,
                                              640, 480))),
             "detections": len(found), "recall_3m": g_r3,
             "precision_3m": g_p3, "cars_inside": g_cars,
             "pairs_within_2m": g_dups, "wall_s": wall, "launches": counts,
-            "defaults": {"model": "yolov8_tokyo (seeded)", "window": 1200,
-                         "stride": 600, "batch": 16, "windows": n_win,
-                         "ms_per_window_batch": batch_ms, "wall_s": wall_d,
-                         "launches": counts_d}}
+            "defaults": fe_geotiff_defaults(torch, world, base, card,
+                                            child_path)}
         print(f"front ends (e) geotiff: {FE_RASTER_PX}-px raster at 0.5 "
               f"m/px, window 640 stride 480, {len(found)} records, "
               f"recall@3m {g_r3:.3f} of {g_cars} cars (floor "
               f"{FE_FLOORS['geotiff_recall_3m']}), precision@3m "
-              f"{g_p3:.3f}, {g_dups} pairs within 2 m, {wall:.1f} s; at "
-              f"the defaults (yolov8_tokyo seeded, window 1200, stride 600, "
-              f"batch 16): {batch_ms:.2f} ms a window batch, launches "
-              f"{counts_d} [{card}]", flush=True)
+              f"{g_p3:.3f}, {g_dups} pairs within 2 m, {wall:.1f} s, "
+              f"launches {counts} [{card}]", flush=True)
 
         # (f) predict on ragged crops at the fixture's scale
         rec["predict"] = fe_predict(world, base, card, child_path)
@@ -1827,6 +1804,123 @@ def front_ends(torch, record, card, launches, open_window, close_window):
                                   close_window)
     finally:
         srv.stop()
+
+
+def fe_geotiff_defaults(torch, world, base, card, child_path):
+    """(e) at the verb's defaults (seeded yolov8_tokyo, window 1200, stride
+    600, batch 16, the step resizing 1200 → 640 on the card) on a
+    ``FE_DEFAULTS_PX`` raster of the world at 0.5 m/px: 64 windows, four
+    full batches. The verb runs as a child; the same call is then timed in
+    this process per full window batch and split, inside the timed calls,
+    into the step as the call makes it (pinned upload, resize, forward,
+    NMS; host wall to a synchronize) and the host's part (window
+    extraction, readback, georeference, dedup) by difference. The parts
+    are then timed alone on one batch, each to a synchronize: extraction,
+    the upload, and the step with the batch already on the card (CUDA
+    events)."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.gio.geotiff import read_geotiff
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        _upload, build_detect_step)
+    from aerial_image_recognition_tpu_torch.pipeline.rasters import (
+        _extract, detect_geotiff, iter_windows)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    window, stride, reps = 1200, 600, 5
+    tif = os.path.join(base, "world_defaults.tif")
+    render_raster(world, tif, side=FE_DEFAULTS_PX)
+    proc, wall, counts = run_verb(
+        base, "geotiff_defaults",
+        ["geotiff", tif, "--out", os.path.join(base, "g_def.geojson")])
+    child_path("fe_geotiff_defaults", counts, ["nms_suppress"])
+    n_child = last_json(proc.stdout)["detections"]
+    gt = read_geotiff(tif)
+    step = build_detect_step(DetectorConfig(
+        model_path="yolov8_tokyo", confidence_threshold=0.4),
+        batch=16, src_size=window)
+    corners = list(iter_windows(FE_DEFAULTS_PX, FE_DEFAULTS_PX, window,
+                                stride))
+    n_batch = len(corners) // step.batch
+    if n_batch * step.batch != len(corners) \
+            or counts["nms_suppress"] != n_batch:
+        fail(f"geotiff defaults: {len(corners)} windows, {counts} launches "
+             f"for batches of {step.batch}")
+
+    def timed(fn, n=reps):
+        """One warm-up call, then n calls each to a synchronize: (last
+        output, ms a call)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / n * 1e3
+
+    class StepTimer:
+        """The step as detect_geotiff calls it, each call timed to a
+        synchronize (the call reads the results back right after)."""
+
+        def __init__(self, inner):
+            self.inner, self.ms = inner, []
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def __call__(self, images, bounds):
+            t0 = time.perf_counter()
+            out = self.inner(images, bounds)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    in_call = StepTimer(step)
+    recs, call_ms = timed(lambda: detect_geotiff(
+        gt, window=window, stride=stride, detect_step=in_call))
+    if len(recs) != n_child:
+        fail(f"geotiff defaults: {len(recs)} records in process, {n_child} "
+             "from the verb")
+    call_ms /= n_batch
+    step_ms = sum(in_call.ms[n_batch:]) / (reps * n_batch)   # no warm-up
+    host_ms = call_ms - step_ms
+
+    def extract():                   # as detect_geotiff fills its batch
+        imgs = np.zeros((step.batch, window, window, 3), np.uint8)
+        for k, (r, c) in enumerate(corners[:step.batch]):
+            imgs[k] = _extract(gt.data, r, c, window)
+        return imgs
+
+    imgs, extract_ms = timed(extract)
+    bounds = np.tile(np.asarray([[0, 0, 1, 1]], np.float32), (step.batch, 1))
+    _, upload_ms = timed(lambda: _upload(imgs, step.device, torch.uint8))
+    dev_imgs = _upload(imgs, step.device, torch.uint8)
+    dev_bounds = _upload(bounds, step.device, torch.float32)
+    step(dev_imgs, dev_bounds)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        step(dev_imgs, dev_bounds)
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end) / reps
+    del step, in_call, dev_imgs
+    print(f"front ends (e) geotiff at the defaults (yolov8_tokyo seeded, "
+          f"window {window}, stride {stride}, batch 16): "
+          f"{FE_DEFAULTS_PX}-px raster, {len(corners)} windows in {n_batch} "
+          f"full batches, {n_child} records; {call_ms:.2f} ms a full window "
+          f"batch = step {step_ms:.2f} as called + host {host_ms:.2f}; "
+          f"alone: extraction {extract_ms:.2f}, upload {upload_ms:.2f}, "
+          f"step with the batch on the card {device_ms:.2f}; verb "
+          f"{wall:.1f} s, launches {counts} [{card}]", flush=True)
+    return {"model": "yolov8_tokyo (seeded)", "raster_px": FE_DEFAULTS_PX,
+            "window": window, "stride": stride, "batch": 16,
+            "windows": len(corners), "full_batches": n_batch,
+            "detections": n_child, "ms_per_window_batch": call_ms,
+            "step_ms_in_call": step_ms, "host_ms_in_call": host_ms,
+            "extract_ms_alone": extract_ms, "upload_ms_alone": upload_ms,
+            "step_device_ms_alone": device_ms, "wall_s": wall,
+            "launches": counts}
 
 
 def fe_predict(world, base, card, child_path):
@@ -2535,6 +2629,24 @@ def other_families(torch, record, card, images, bounds, open_window,
     return aware_ms
 
 
+def launch_window(wrappers, launches):
+    """(open_window, close_window) over the kernels' launch counters:
+    ``open_window()`` sets every wrapper's count to 0 just before a path;
+    ``close_window(path, needed)`` stores the counts in ``launches[path]``
+    just after it and fails if a kernel in ``needed`` never launched."""
+    def open_window():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def close_window(path, needed):
+        launches[path] = {k: w.launches for k, w in wrappers.items()}
+        for k in needed:
+            if not launches[path].get(k):
+                fail(f"the {path} path never launched {k}")
+
+    return open_window, close_window
+
+
 def scan_only(torch, record, card) -> None:
     """``--scan-only``: the NMS kernel against its plain version
     (``NMS_CASES``, the scan's shape among them), the default step timed as
@@ -2559,15 +2671,8 @@ def scan_only(torch, record, card) -> None:
           f"{device_ms:.2f} ms with the batch on the card [{card}]",
           flush=True)
     launches = {}
-
-    def open_window():
-        nms_suppress.launches = 0
-
-    def close_window(path, needed):
-        launches[path] = {"nms_suppress": nms_suppress.launches}
-        if "nms_suppress" in needed and not nms_suppress.launches:
-            fail(f"the {path} path never launched nms_suppress")
-
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress}, launches)
     ingest_ring(torch, record, card, step, images, bounds, step_ms,
                 device_ms, open_window, close_window)
     city_scan(torch, record, card, open_window, close_window)
@@ -2591,19 +2696,10 @@ def front_ends_only(torch, record, card) -> None:
     record["kernels"] = [check_nms_kernel(torch, record)]
     print(f"nms_suppress: bit-identical to plain on "
           f"{len(record['nms_cases'])} cases [{card}]", flush=True)
-    wrappers = {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
-                "int8_epilogue": requantize}
     launches = {}
-
-    def open_window():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def close_window(path, needed):
-        launches[path] = {k: w.launches for k, w in wrappers.items()}
-        for k in needed:
-            if launches[path][k] == 0:
-                fail(f"the {path} path never launched {k}")
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+         "int8_epilogue": requantize}, launches)
 
     front_ends(torch, record, card, launches, open_window, close_window)
     record["launches_by_path"] = launches
@@ -2729,19 +2825,10 @@ def main() -> None:
     if (step.batch, step.input_size, step.model_size) != (B, SIZE, SIZE):
         fail(f"step shape {(step.batch, step.input_size, step.model_size)}")
 
-    wrappers = {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
-                "int8_epilogue": requantize}
     launches = {}
-
-    def open_window():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def close_window(path, needed):
-        launches[path] = {k: w.launches for k, w in wrappers.items()}
-        for k in needed:
-            if launches[path][k] == 0:
-                fail(f"the {path} path never launched {k}")
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+         "int8_epilogue": requantize}, launches)
 
     open_window()                                # default path starts here
     n_iter = 20
