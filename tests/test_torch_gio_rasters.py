@@ -15,11 +15,16 @@ the f32 box it scales), so each JAX coordinate is rounded to f32: held
 within one f32 spacing of the JAX value (1.9e-6° of longitude at 21°,
 3.8e-6° of latitude at 52°, 0.06 m of easting at 5e5 m, 0.5 m of northing
 at 5.79e6 m), confidence within 1e-5, box size within 1e-3 px, same
-classes and count.
+classes and count. Each case runs with both packages' native fastgeo
+loaded, and again with both loaders off (the host fallback, which on a
+projected raster reads metres as lon/lat in both packages); one more case
+shows that mixing the two paths changes a projected raster's records.
 """
 
+import fcntl
 import math
 import os
+import shutil
 import sqlite3
 import struct
 import zlib
@@ -35,10 +40,13 @@ from aerial_image_recognition_tpu.gio import geotiff as JT
 from aerial_image_recognition_tpu.pipeline import rasters as JR
 from aerial_image_recognition_tpu.pipeline.inference import (
     build_detect_step as jax_build_detect_step)
+from aerial_image_recognition_tpu.post.dedup import (
+    dedup_host as jax_dedup_host)
 from aerial_image_recognition_tpu.post.heatmap import (
     hex_heatmap as jax_hex_heatmap)
 from aerial_image_recognition_tpu.runtime.config import (
     DetectorConfig as JaxDetectorConfig)
+from aerial_image_recognition_tpu.utils import native as JN
 from aerial_image_recognition_tpu_torch.gio import geopackage as PG
 from aerial_image_recognition_tpu_torch.gio import geotiff as PT
 from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
@@ -47,6 +55,7 @@ from aerial_image_recognition_tpu_torch.pipeline.inference import (
     build_detect_step)
 from aerial_image_recognition_tpu_torch.post.heatmap import hex_heatmap
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
+from aerial_image_recognition_tpu_torch.utils import native as PN
 from test_geotiff_rasters import _aerial_like, _lzw_encode
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
@@ -309,8 +318,35 @@ def _recs(records):
     return sorted(records, key=lambda r: (round(r["x"], 3), r["y"]))
 
 
-@pytest.mark.parametrize("crs", ["epsg4326", "utm"])
-def test_detect_geotiff_equals_jax(tmp_path, scene, crs):
+def _jax_fastgeo(monkeypatch, tmp_path_factory):
+    """Make the JAX package's fastgeo loader resolve in this process.
+
+    Its loader builds into one shared path beside the source and keeps a
+    failed build for the life of the process, so parallel workers that
+    build at the same time can leave a worker without it. Under a lock
+    shared by the workers of this run, the loader's state is reset and it
+    is asked again (three times at most: a build of a worker that does
+    not take the lock may still collide with ours)."""
+    if shutil.which("g++") is None:
+        pytest.fail("g++ not found: the native dedup path of both packages "
+                    "needs it")
+    lock = tmp_path_factory.getbasetemp().parent / "jax_fastgeo.lock"
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            for _ in range(3):
+                monkeypatch.setattr(JN, "_failed", False)
+                monkeypatch.setattr(JN, "_lib", None)
+                if JN.load() is not None:
+                    break
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    assert JN.load() is not None, "the JAX package's fastgeo did not load"
+    assert PN.load() is not None, "the port's fastgeo did not load"
+
+
+def _detect_both(tmp_path, scene, crs, dedup_m=2.0):
+    """Both packages' ``detect_geotiff`` over the scene (records unsorted)."""
     if crs == "epsg4326":
         transform, epsg = scene["geo"], 4326
     else:
@@ -319,11 +355,30 @@ def test_detect_geotiff_equals_jax(tmp_path, scene, crs):
     PT.write_geotiff(tif, scene["img"], transform, epsg=epsg)
     out_p, out_j = str(tmp_path / "p.geojson"), str(tmp_path / "j.geojson")
     got = PRS.detect_geotiff(tif, window=WINDOW, stride=STRIDE,
-                            detect_step=scene["port"], output_geojson=out_p)
+                            detect_step=scene["port"], output_geojson=out_p,
+                            dedup_m=dedup_m)
     want = JR.detect_geotiff(tif, window=WINDOW, stride=STRIDE,
-                             detect_step=scene["jax"], output_geojson=out_j)
-    got, want = _recs(got), _recs(want)
+                             detect_step=scene["jax"], output_geojson=out_j,
+                             dedup_m=dedup_m)
+    return got, want, transform, epsg, out_p, out_j
+
+
+def _assert_records_close(got, want):
+    """Same count and classes; coordinates within one f32 spacing of the
+    JAX value, confidence within 1e-5, box size within 1e-3 px. Records
+    are paired by the assignment that is cheapest in units of those
+    tolerances (overlapping windows before dedup give near-twins, which a
+    sort could interleave)."""
+    from scipy.optimize import linear_sum_assignment
     assert len(got) == len(want) >= 10
+    key = np.array([[r["x"], r["y"], r["confidence"]] for r in want])
+    pos = np.array([[r["x"], r["y"], r["confidence"]] for r in got])
+    unit = np.concatenate([np.spacing(np.abs(key[:, :2]).astype(
+        np.float32)).astype(np.float64), np.full((len(key), 1), 1e-5)], 1)
+    cost = (np.abs(key[:, None] - pos[None]) / unit[:, None]).sum(axis=2)
+    rows, cols = linear_sum_assignment(cost)
+    want = [want[i] for i in rows]
+    got = [got[i] for i in cols]
     assert [r["class"] for r in got] == [r["class"] for r in want]
     a = np.array([[r["x"], r["y"], r["confidence"], r["w_px"], r["h_px"]]
                   for r in got])
@@ -334,6 +389,39 @@ def test_detect_geotiff_equals_jax(tmp_path, scene, crs):
     assert (np.abs(a[:, :2] - b[:, :2]) <= spacing).all()
     np.testing.assert_allclose(a[:, 2], b[:, 2], atol=1e-5, rtol=0)
     np.testing.assert_allclose(a[:, 3:], b[:, 3:], atol=1e-3, rtol=0)
+    return a
+
+
+@pytest.mark.parametrize("dedup", ["native", "host"])
+@pytest.mark.parametrize("crs", ["epsg4326", "utm"])
+def test_detect_geotiff_equals_jax(tmp_path, tmp_path_factory, monkeypatch,
+                                   scene, crs, dedup):
+    """Both packages on the same dedup path: ``native`` makes each one's
+    fastgeo load first (and fails where it cannot); ``host`` turns both
+    loaders off, so a projected raster takes the reference's approximate
+    host fallback in both.
+
+    That fallback reads metres as lon/lat, which magnifies the JAX
+    georeference's f32 rounding (0.5 m of northing) into other picks; there
+    the port's picks are held to the JAX package's fallback applied to the
+    port's own coordinates, and both packages' records before dedup to
+    each other."""
+    if dedup == "native":
+        _jax_fastgeo(monkeypatch, tmp_path_factory)
+    else:
+        monkeypatch.setattr(JN, "load", lambda: None)
+        monkeypatch.setattr(PN, "load", lambda: None)
+    got, want, transform, epsg, out_p, out_j = _detect_both(tmp_path, scene,
+                                                            crs)
+    if crs == "utm" and dedup == "host":
+        raw, raw_j, *_ = _detect_both(tmp_path, scene, crs, dedup_m=0)
+        _assert_records_close(raw, raw_j)
+        keep = jax_dedup_host(np.array([r["x"] for r in raw]),
+                              np.array([r["y"] for r in raw]),
+                              np.array([r["confidence"] for r in raw],
+                                       np.float32), 2.0)
+        want = [r for r, k in zip(raw, keep) if k]
+    a = _assert_records_close(got, want)
     assert all(r["lon"] == r["x"] and r["lat"] == r["y"] for r in got)
     # inside the raster, and the output layer carries the raster's CRS
     x0, y0 = transform[0], transform[3]
@@ -344,6 +432,17 @@ def test_detect_geotiff_equals_jax(tmp_path, scene, crs):
     assert doc_p["metadata"] == doc_j["metadata"] == {
         "epsg": epsg, "window": WINDOW, "stride": STRIDE}
     assert len(doc_p["features"]) == len(got)
+
+
+def test_detect_geotiff_dedup_path_changes_projected_records(
+        tmp_path, tmp_path_factory, monkeypatch, scene):
+    """Why the test above pins the dedup path: on a projected raster the
+    JAX package without its fastgeo reads metres as lon/lat in its host
+    fallback, so with the port's fastgeo on the two keep other records."""
+    _jax_fastgeo(monkeypatch, tmp_path_factory)
+    monkeypatch.setattr(JN, "load", lambda: None)
+    got, want, *_ = _detect_both(tmp_path, scene, "utm")
+    assert len(want) >= 10 and len(got) != len(want)
 
 
 def test_detect_geotiff_builds_its_own_step_on_the_cpu(tmp_path,
