@@ -1,10 +1,10 @@
 """Post-training int8 quantization of the detector trunks.
 
-Counterpart of ``aerial_image_recognition_tpu/models/int8.py`` for the
-detector families: yolov7-tiny (``yolov7_itcvd``, leaky), yolov7-base and
-YOLOv8 n–x (silu). The XUnet transcription arrives with the segmentation
-slice, and the fully-int8 quad-stem entry with the quad stem; both raise
-``NotImplementedError`` until then.
+Counterpart of ``aerial_image_recognition_tpu/models/int8.py``: the
+detector families yolov7-tiny (``yolov7_itcvd``, leaky), yolov7-base and
+YOLOv8 n–x (silu) → ``Int8Bundle``, and the XUnet-256 segmentation model
+(relu) → ``Int8XUnetBundle``. The fully-int8 quad-stem entry waits for the
+quad stem and raises ``NotImplementedError`` until then.
 
 Scheme (standard PTQ, arranged so the int8 graph needs NO runtime rescales):
   * weights: per-output-channel symmetric int8, BatchNorm folded first;
@@ -27,7 +27,9 @@ Scheme (standard PTQ, arranged so the int8 graph needs NO runtime rescales):
 
 The stems stay in the bundle's dtype (bf16 in production); the yolov7
 detect heads and the yolov8 output convs stay f32 (the yolov8 box and class
-towers are int8 trunk convs). Each trunk graph mirrors its module's
+towers are int8 trunk convs). XUnet keeps its 3-channel entry conv
+(enc0/cv1) in the bundle's dtype and its 1×1 mask head in f32, with the
+dec3 coding scale folded into the head's kernel. Each trunk graph mirrors its module's
 ``trunk`` from the P2 feature on; a prepare/run interpreter pair shares the
 single transcription.
 
@@ -260,6 +262,31 @@ def _v8_trunk(g, x, depth: float):
     return outs
 
 
+def _xunet_trunk(g, x):
+    """Mirror of ``XUnet.trunk`` from the enc0/cv1 feature to the dec3
+    output (relu everywhere, so every conv folds its requantization into
+    the epilogue constants; pools and upsamples pass int8 through; the
+    skip concats ride the producer-scale folding like every other concat).
+    mask_out stays f32 in the bundle."""
+    skips = []
+    x = g.conv("enc0/cv2", x, 3)
+    skips.append(x)
+    x = g.pool2(x)
+    for i in (1, 2, 3):
+        x = g.conv(f"enc{i}/cv1", x, 3)
+        x = g.conv(f"enc{i}/cv2", x, 3)
+        skips.append(x)
+        x = g.pool2(x)
+    x = g.conv("bottleneck/cv1", x, 3)
+    x = g.conv("bottleneck/cv2", x, 3)
+    for i in range(4):
+        x = g.up2(x)
+        x = g.conv(f"up{i}", x, 1)
+        x = g.conv(f"dec{i}/cv1", [x, skips[3 - i]], 3)
+        x = g.conv(f"dec{i}/cv2", x, 3)
+    return x
+
+
 class _Prepare:
     """Walks the trunk graph building qparams (numpy) from the f32 flax-
     format variables + calibration scales. Raises on any channel-count
@@ -361,8 +388,8 @@ class _Prepare:
 def _prune_orig(variables, keep):
     """Drop the trunk weights from the flax-format tree a quantized bundle
     carries — the int8 graph reads only the stems and the f32 heads:
-    yolov7's ``detect0``–``detect2``, and of yolov8's ``detect`` subtree
-    the six ``*_out`` convs (its towers run int8). Without this the unused
+    yolov7's ``detect0``–``detect2``, of yolov8's ``detect`` subtree
+    the six ``*_out`` convs (its towers run int8), and XUnet's ``enc0``. Without this the unused
     float trunk would ride along with the int8 kernels."""
     params = {k: v for k, v in variables["params"].items() if k in keep}
     if "detect" in params:
@@ -384,7 +411,7 @@ def _family_meta(spec, arch: str):
                 "strides": (2, 2)}
     if spec.family != "yolov7":
         raise NotImplementedError(
-            f"int8 for the {spec.family} family arrives with its slice")
+            f"no int8 detector lowering for the {spec.family} family")
     if arch == "base":
         return {"stems": ("stem0", "stem1", "stem2", "stem3"),
                 "act": "silu", "bn_eps": 1e-5, "strides": (1, 2, 1, 2)}
@@ -416,20 +443,33 @@ def load_absmax(path: str) -> Dict[str, float]:
 
 
 def qparams_from_jax(q, static_scales) -> Dict[str, Any]:
-    """The reference's ``Int8Bundle.params["q"]`` and ``static_scales`` →
-    the numpy ``q`` dictionary ``Int8Bundle.from_q`` takes, so that both
-    trunks can run on identical qparams. Leaves may be numpy or anything
-    ``np.asarray`` takes; the quad-stem entry (``q["stems"]``) is dropped."""
+    """The reference's ``Int8Bundle.params["q"]`` (or
+    ``Int8XUnetBundle.params["q"]``) and ``static_scales`` → the numpy
+    ``q`` dictionary ``Int8Bundle.from_q`` (``Int8XUnetBundle.from_q``)
+    takes, so that both trunks can run on identical qparams. Leaves may be
+    numpy or anything ``np.asarray`` takes; the quad-stem entry
+    (``q["stems"]``) is dropped."""
+    scales = {k: float(v) for k, v in static_scales.items()}
+    if "mask_kernel" in q:
+        return {"convs": _convs_from_jax(q["convs"]),
+                "mask_kernel": np.asarray(q["mask_kernel"], np.float32),
+                "mask_bias": np.asarray(q["mask_bias"], np.float32),
+                "scales": scales}
+    return {"p2_scale": np.float32(q["p2_scale"]),
+            "convs": _convs_from_jax(q["convs"]),
+            "out_scales": [np.float32(s) for s in q.get("out_scales", [])],
+            "scales": scales}
+
+
+def _convs_from_jax(jconvs) -> Dict[str, Any]:
     convs = {}
-    for name, qp in q["convs"].items():
+    for name, qp in jconvs.items():
         convs[name] = {"w8": np.asarray(qp["w8"], np.int8),
                        "m": np.asarray(qp["m"], np.float32),
                        "b": np.asarray(qp["b"], np.float32)}
         if "inv" in qp:
             convs[name]["inv"] = np.float32(qp["inv"])
-    return {"p2_scale": np.float32(q["p2_scale"]), "convs": convs,
-            "out_scales": [np.float32(s) for s in q.get("out_scales", [])],
-            "scales": {k: float(v) for k, v in static_scales.items()}}
+    return convs
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +556,25 @@ def device_kernel(w8: np.ndarray, device: torch.device) -> torch.Tensor:
     o = w8.shape[3]
     return torch.from_numpy(np.ascontiguousarray(
         w8.reshape(-1, o).T)).to(device).t()
+
+
+def _f32_on(a, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _device_convs(convs, device: torch.device) -> Dict[str, Any]:
+    """``_Prepare``'s numpy qparams → what ``_Run`` reads on ``device``:
+    the kernel as ``device_kernel`` makes it, ``m`` and ``b`` as f32
+    tensors, ``inv`` (silu) as a host number, which the epilogue takes as
+    an argument."""
+    out = {}
+    for name, qp in convs.items():
+        out[name] = {"w": device_kernel(qp["w8"], device),
+                     "m": _f32_on(qp["m"], device),
+                     "b": _f32_on(qp["b"], device)}
+        if "inv" in qp:
+            out[name]["inv"] = float(np.float32(qp["inv"]))
+    return out
 
 
 class _Run:
@@ -711,17 +770,8 @@ class Int8Bundle:
             getattr(module, name).to(dtype)
         module.to(device=device, memory_format=torch.channels_last)
 
-        def dev(a):
-            return torch.from_numpy(np.array(a, np.float32)).to(device)
-
-        convs = {}
-        for name, qp in q["convs"].items():
-            convs[name] = {"w": device_kernel(qp["w8"], device),
-                           "m": dev(qp["m"]), "b": dev(qp["b"])}
-            if "inv" in qp:
-                # a host number: the epilogue takes it as an argument
-                convs[name]["inv"] = float(np.float32(qp["inv"]))
-        dq = {"convs": convs, "p2_scale": dev(q["p2_scale"]),
+        dq = {"convs": _device_convs(q["convs"], device),
+              "p2_scale": _f32_on(q["p2_scale"], device),
               "out_scales": [float(np.float32(s))
                              for s in q.get("out_scales", [])]}
         scales = dict(q["scales"])
@@ -799,6 +849,119 @@ class Int8Bundle:
             "the quad stem, which the port has parked")
 
 
+class _XUnetEnds(nn.Module):
+    """What a quantized XUnet keeps in floating point: the entry conv
+    enc0/cv1 (3×3 on the 3-channel image, stride 1) with its BN unfolded
+    — the kernel, the BN mean, ``g`` = γ/√(σ²+ε) computed in f32 and the
+    BN bias, all in the bundle's dtype — and the f32 ``mask_out`` head,
+    whose kernel carries dec3's coding scale."""
+
+    def __init__(self, tree, mask_kernel: np.ndarray, mask_bias: np.ndarray,
+                 dtype: torch.dtype, bn_eps: float = 1e-3):
+        super().__init__()
+        p = tree["params"]["enc0"]["cv1"]
+        st = tree["batch_stats"]["enc0"]["cv1"]["bn"]
+        k = np.asarray(p["conv"]["kernel"], np.float32)          # HWIO
+        gamma = torch.from_numpy(np.array(p["bn"]["scale"], np.float32))
+        var = torch.from_numpy(np.array(st["var"], np.float32))
+        g = gamma * torch.rsqrt(var + bn_eps)
+        self.register_buffer("entry_w", torch.from_numpy(
+            np.ascontiguousarray(k.transpose(3, 2, 0, 1))).to(dtype))
+        self.register_buffer("entry_mean", torch.from_numpy(
+            np.array(st["mean"], np.float32)).to(dtype))
+        self.register_buffer("entry_g", g.to(dtype))
+        self.register_buffer("entry_bias", torch.from_numpy(
+            np.array(p["bn"]["bias"], np.float32)).to(dtype))
+        _, _, c_in, c_out = mask_kernel.shape
+        self.mask_out = nn.Linear(c_in, c_out)
+        with torch.no_grad():
+            self.mask_out.weight.copy_(torch.from_numpy(
+                np.array(mask_kernel[0, 0].T, np.float32)))
+            self.mask_out.bias.copy_(torch.from_numpy(
+                np.array(mask_bias, np.float32)))
+
+    def entry(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B,3,S,S] → relu((conv(x) − mean)·g + bias) [B,C,S,S] in the
+        bundle's dtype, the reference's operation order."""
+        t = F.conv2d(x.to(self.entry_w.dtype), self.entry_w, None, 1, 1)
+        return torch.relu((t - self.entry_mean[:, None, None])
+                          * self.entry_g[:, None, None]
+                          + self.entry_bias[:, None, None])
+
+
+@dataclass
+class Int8XUnetBundle:
+    """Drop-in for the xunet ``ModelBundle`` (same ``forward`` contract:
+    float images in, f32 mask logits out), with every conv between the
+    entry and the head int8: enc0/cv1 stays in the bundle's dtype, its
+    output is quantized at the calibrated entry scale, the trunk runs on
+    int8 codes with the relu epilogue, and the f32 ``mask_out`` reads the
+    dec3 codes with their scale folded into its kernel.
+
+    ``module`` holds the entry conv and the head only; ``q`` the int8
+    kernels and epilogue constants on ``device``; ``params`` the host
+    mirror ``{"orig": the pruned flax-format tree (enc0), "q": …}``;
+    ``static_scales`` the coding scales (plus ``__entry__``); ``absmax``
+    the calibration it was quantized with, where known."""
+    spec: Any
+    module: nn.Module
+    device: torch.device
+    q: Dict[str, Any]
+    params: Dict[str, Any]
+    static_scales: Dict[str, float]
+    absmax: Optional[Dict[str, float]] = None
+
+    @classmethod
+    def from_q(cls, spec, variables, q, *, dtype: torch.dtype,
+               device: torch.device,
+               absmax: Optional[Dict[str, float]] = None
+               ) -> "Int8XUnetBundle":
+        """Build from flax-format f32 ``variables`` (only enc0/cv1 is
+        read) and a numpy ``q`` dictionary (``convs``, ``mask_kernel``
+        [1,1,C,1] with dec3's scale folded in, ``mask_bias``, ``scales``)."""
+        device = torch.device(device)
+        orig = _prune_orig(variables, {"enc0"})
+        module = _XUnetEnds(orig, np.asarray(q["mask_kernel"], np.float32),
+                            np.asarray(q["mask_bias"], np.float32), dtype)
+        module.requires_grad_(False)
+        module.to(device)
+        host_q = {k: v for k, v in q.items() if k != "scales"}
+        return cls(spec=spec, module=module, device=device,
+                   q={"convs": _device_convs(q["convs"], device)},
+                   params={"orig": orig, "q": host_q},
+                   static_scales=dict(q["scales"]),
+                   absmax=None if absmax is None else dict(absmax))
+
+    def entry_codes(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B,3,S,S] → the entry feature's int8 codes [B,S,S,C]; a
+        true division by the 0-dim scale tensor."""
+        t = self.module.entry(images).permute(0, 2, 3, 1).to(torch.float32)
+        s = torch.full((), self.static_scales["__entry__"],
+                       dtype=torch.float32, device=t.device)
+        return (t / s).round_().clamp_(-127, 127).to(torch.int8) \
+            .contiguous()
+
+    def trunk_codes(self, xi: torch.Tensor, g: Optional[_Run] = None) -> QT:
+        """Entry codes → the dec3 output (a QT of int8 codes). ``g`` runs
+        the graph (default: a relu ``_Run`` over this bundle's qparams)."""
+        g = g or _Run(self.q["convs"], act="relu", scales=self.static_scales)
+        return _xunet_trunk(g, QT(xi, self.static_scales["__entry__"],
+                                  xi.shape[-1]))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B,3,S,S] (/255, any float dtype) → [B,S,S,1] f32 mask
+        logits."""
+        if images.is_cuda \
+                and torch.get_float32_matmul_precision() != "highest":
+            raise RuntimeError(
+                "the f32 mask head needs full-precision f32 matmuls; "
+                "torch.get_float32_matmul_precision() is "
+                f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
+                "back to 'highest'")
+        out = self.trunk_codes(self.entry_codes(images))
+        return self.module.mask_out(out.v.to(torch.float32))
+
+
 # ---------------------------------------------------------------------------
 # calibration and the public entry
 
@@ -857,25 +1020,62 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
     return {k: float(v) for k, v in running.items()}
 
 
+def quantize_xunet(bundle, calib_batches: Sequence[Any],
+                   model_size: Optional[int] = None,
+                   absmax: Optional[Dict[str, float]] = None
+                   ) -> Int8XUnetBundle:
+    """Calibrate + quantize an XUnet ``ModelBundle`` → ``Int8XUnetBundle``
+    on the same device, the entry conv in the bundle's dtype. Weights are
+    read from ``bundle.variables``."""
+    if bundle.spec.family != "xunet":
+        raise NotImplementedError("quantize_xunet: xunet bundles only")
+    if bundle.variables is None:
+        raise ValueError("quantize_xunet needs the f32 variables the "
+                         "bundle was built from (bundle.variables)")
+    if absmax is None:
+        absmax = calibrate_absmax(bundle, calib_batches, model_size)
+    variables = bundle.variables
+    prep = _Prepare(variables, absmax, bn_eps=1e-3, act="relu")
+    base = np.shape(
+        variables["params"]["enc0"]["cv1"]["conv"]["kernel"])[-1]
+    s_entry = max(absmax["enc0/cv1"], 1e-12) / 127.0
+    out = _xunet_trunk(prep, QT(None, s_entry, base))
+    p = variables["params"]["mask_out"]
+    scales = dict(prep.scales)
+    scales["__entry__"] = s_entry
+    q = {"convs": prep.qparams,
+         # dequant fold: conv(x_i8·s, K) == conv(x_i8, K·s) for the 1×1 head
+         "mask_kernel": np.asarray(p["kernel"], np.float32) * out.s,
+         "mask_bias": np.asarray(p["bias"], np.float32),
+         "scales": scales}
+    return Int8XUnetBundle.from_q(bundle.spec, variables, q,
+                                  dtype=_module_dtype(bundle.module),
+                                  device=bundle.device, absmax=absmax)
+
+
 def quantize_bundle(bundle, calib_batches: Sequence[Any],
                     model_size: Optional[int] = None,
-                    absmax: Optional[Dict[str, float]] = None) -> Int8Bundle:
-    """Calibrate + quantize a detector ``ModelBundle`` (yolov7-tiny with
-    the standard stems, yolov7-base, any yolov8 scale) → ``Int8Bundle`` on
-    the same device, stems in the bundle's dtype.
+                    absmax: Optional[Dict[str, float]] = None):
+    """Calibrate + quantize a ``ModelBundle``: the detector families
+    (yolov7-tiny with the standard stems, yolov7-base, any yolov8 scale)
+    → ``Int8Bundle`` on the same device, stems in the bundle's dtype;
+    xunet → ``Int8XUnetBundle`` (``quantize_xunet``).
 
     calib_batches: a few representative uint8 [B,S,S,3] batches (or floats
     in [0,1]). Pass absmax= to reuse a saved calibration instead. The
     weights are read from ``bundle.variables`` (the f32 flax-format tree
     the bundle was built from), not from its fused module.
     """
+    if bundle.spec.family == "xunet":
+        return quantize_xunet(bundle, calib_batches, model_size,
+                              absmax=absmax)
     module = bundle.module
     variant = getattr(module, "variant", "")
     if bundle.spec.family == "yolov7" and variant == "tiny" \
             and getattr(module, "s2d_stem", False):
         raise NotImplementedError(
-            "int8 PTQ covers yolov7 tiny/base with the standard stems and "
-            "yolov8 n–x; the s2d_stem experiment keeps bf16")
+            "int8 PTQ covers yolov7 tiny/base with the standard stems, "
+            "yolov8 n–x, and xunet; the s2d_stem experiment keeps bf16")
     is_v8 = bundle.spec.family == "yolov8"
     arch = module.scale if is_v8 else variant
     meta = _family_meta(bundle.spec, arch)       # raises for other families

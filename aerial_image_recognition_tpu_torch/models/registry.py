@@ -3,8 +3,9 @@
 Counterpart of ``aerial_image_recognition_tpu/models/registry.py``: every
 detector the reference registers — ``yolov7_itcvd`` (YOLOv7-tiny, nc=1),
 ``yolov7_base`` (nc=1), ``yolov8_tokyo`` (YOLOv8l, nc=2 car/truck) and the
-YOLOv8 n/s/m/l/x ladder (nc=2) — all at 640 px. The segmentation model
-(``xunet_256``) arrives with its slice and is refused by name until then.
+YOLOv8 n/s/m/l/x ladder (nc=2), all at 640 px, and the building
+segmentation model ``xunet_256`` (XUnet, nc=1, 256 px), whose ``forward``
+returns mask logits.
 """
 
 import os
@@ -17,6 +18,7 @@ from torch import nn
 
 from aerial_image_recognition_tpu_torch.models.weights import (
     load_flax_into, load_params, params_to_flax)
+from aerial_image_recognition_tpu_torch.models.xunet import XUnet
 from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
 from aerial_image_recognition_tpu_torch.models.yolov8 import YOLOv8
 from aerial_image_recognition_tpu_torch.runtime.device import resolve_device
@@ -44,6 +46,9 @@ REGISTRY: Dict[str, ModelSpec] = {
     "yolov8_tokyo": ModelSpec("yolov8_tokyo", "yolov8", 2, 640,
                               lambda: YOLOv8(num_classes=2, scale="l"),
                               ("car", "truck")),
+    # the ramp_XUnet_256 slot: building footprints
+    "xunet_256": ModelSpec("xunet_256", "xunet", 1, 256,
+                           lambda: XUnet(out_channels=1), ("building",)),
 }
 
 
@@ -58,10 +63,6 @@ for _sc in "nsmlx":
         f"yolov8{_sc}", "yolov8", 2, 640, _yolov8_at_scale(_sc),
         ("car", "truck"))
 
-# names the reference registers that a later slice of the port brings
-_LATER = ("xunet", "ramp")
-
-
 def resolve_model_name(model_path: str) -> str:
     """Map reference-style model names and .onnx paths to registry names."""
     base = os.path.basename(model_path).lower()
@@ -73,10 +74,8 @@ def resolve_model_name(model_path: str) -> str:
         return "yolov7_itcvd"
     if "yolov8" in base or "tokyo" in base:
         return "yolov8_tokyo"
-    if any(tag in base for tag in _LATER):
-        raise NotImplementedError(
-            f"model {model_path!r} (xunet_256) arrives with the segmentation "
-            "slice of the port")
+    if "xunet" in base or "ramp" in base:
+        return "xunet_256"
     raise KeyError(f"cannot resolve model {model_path!r}")
 
 
@@ -95,10 +94,13 @@ class ModelBundle:
 
     def forward(self, images: torch.Tensor):
         """images [B,3,S,S] (/255, trunk dtype) → (boxes [B,A,4] cxcywh
-        pixels f32, scores [B,A,nc] f32)."""
+        pixels f32, scores [B,A,nc] f32); xunet: mask logits [B,S,S,1]
+        f32."""
         from aerial_image_recognition_tpu_torch.ops.decode import (
             decode_yolov7, decode_yolov8)
         outs = self.module(images)
+        if self.spec.family == "xunet":
+            return outs
         if self.spec.family == "yolov8":
             return decode_yolov8(outs, self.spec.num_classes)
         return decode_yolov7(outs, self.module.anchors,
@@ -113,8 +115,10 @@ class ModelBundle:
 def _prior_init_detect_bias(module: nn.Module, spec: ModelSpec) -> None:
     """Detection-prior bias init (the upstream yolo trick): objectness and
     class logits (yolov7) or the class logits (yolov8) start at σ(−5) ≈
-    0.7 %. Only for fresh random weights."""
+    0.7 %. Only for fresh random weights; no-op for xunet."""
     with torch.no_grad():
+        if spec.family == "xunet":
+            return
         if spec.family == "yolov8":
             for i in range(3):
                 getattr(module.detect, f"cls{i}_out").bias[:] = -5.0
@@ -139,7 +143,7 @@ def create_model(name: str = "yolov7_itcvd", *,
     one from upstream weights); without either the weights are random,
     drawn from ``seed``. fold_bn: fuse BN into the convs (the
     deploy form the detect step runs), done in f32 before the cast to
-    ``dtype``. The detect heads stay f32 either way.
+    ``dtype``. The detect heads (xunet: ``mask_out``) stay f32 either way.
     """
     device = resolve_device(device)
     spec = REGISTRY[resolve_model_name(name)]

@@ -5,5 +5,5 @@ from aerial_image_recognition_tpu_torch.pipeline.detector import (  # noqa: F401
 from aerial_image_recognition_tpu_torch.pipeline.simple import (  # noqa: F401
     SimpleDetector)
 from aerial_image_recognition_tpu_torch.pipeline.inference import (  # noqa: F401
-    DetectStep, build_detect_step, make_detect_fn,
+    DetectStep, build_detect_step, make_detect_fn, make_segment_fn,
 )

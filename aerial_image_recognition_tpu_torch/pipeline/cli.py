@@ -7,12 +7,11 @@ verb that builds a model. Without it the model runs on ``cuda``, and a
 machine without CUDA makes the verb exit non-zero before it reads or
 fetches anything; ``--device cpu`` runs on the CPU explicitly.
 
-Ported verbs: detect, sweep, doctor, geotiff, serve, predict,
-import-weights, export, calibrate. Parsed, then refused with
-NotImplementedError naming what brings them: train and val (the training
-slice), automask and ``serve --segment-params`` (the segmentation slice),
-``--data-parallel`` on any verb (the multi-GPU slice) and bench (the
-port's benchmark).
+Ported verbs: detect, sweep, doctor, geotiff, serve (with ``/segment``
+under ``--segment-params``), automask, predict, import-weights, export,
+calibrate. Parsed, then refused with NotImplementedError naming what
+brings them: train and val (the training slice), ``--data-parallel`` on
+any verb (the multi-GPU slice) and bench (the port's benchmark).
 
 Usage:
   python -m aerial_image_recognition_tpu_torch detect --frame warsaw.shp \\
@@ -185,22 +184,27 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--quantize-calib", dest="quantize_calib", default=None)
     pv.add_argument("--segment-params", dest="segment_params", default=None,
                     help="XUnet-256 checkpoint (.npz) — also serve "
-                    "POST /segment (arrives with the segmentation slice)")
+                    "POST /segment building-segmentation requests")
     pv.add_argument("--segment-batch", dest="segment_batch", type=int,
                     default=16)
     _add_device(pv)
 
     pm = sub.add_parser("automask", help="automatic instance masks over a "
-                        "GeoTIFF (arrives with the segmentation slice)")
+                        "GeoTIFF (SAM2 workflow parity)")
     pm.add_argument("path")
     pm.add_argument("--params")
     pm.add_argument("--window", type=int, default=256)
     pm.add_argument("--min-area", type=int, default=20)
     pm.add_argument("--stability", type=float, default=0.6)
-    pm.add_argument("--quantize", choices=["int8"], default=None)
-    pm.add_argument("--stride", type=int, default=None)
+    pm.add_argument("--quantize", choices=["int8"], default=None,
+                    help="int8-PTQ the XUnet trunk (self-calibrates on "
+                         "the raster's own windows)")
+    pm.add_argument("--stride", type=int, default=None,
+                    help="window stride; < window overlap-averages the "
+                         "stitched probabilities (seam mitigation)")
     pm.add_argument("--out-mask")
     pm.add_argument("--out-polygons")
+    _add_device(pm)
 
     pp = sub.add_parser("predict", help="detect on image files of any "
                         "size (the notebook's cells 27-29 spot-check; "
@@ -269,8 +273,6 @@ def build_parser() -> argparse.ArgumentParser:
 _LATER = {
     "train": "the train verb arrives with the training slice of the port",
     "val": "the val verb arrives with the training slice of the port",
-    "automask": "the automask verb arrives with the segmentation slice of "
-                "the port",
     "bench": "the bench verb arrives with the port's own benchmark; until "
              "then chip_smoke.py measures the port on the card",
 }
@@ -285,10 +287,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command in _LATER:
         raise NotImplementedError(_LATER[args.command])
-    if args.command == "serve" and args.segment_params:
-        raise NotImplementedError(
-            "serve --segment-params: the /segment plane arrives with the "
-            "segmentation slice of the port")
     if getattr(args, "data_parallel", None) and args.command != "serve":
         # the server refuses the flag itself, before it builds its step
         raise NotImplementedError(
@@ -439,7 +437,9 @@ def main(argv: Optional[List[str]] = None) -> int:
              "quantize": args.quantize,
              "quantize_calib": args.quantize_calib},
             host=args.host, port=args.port,
-            max_wait_ms=args.max_wait_ms, device=args.device).start()
+            max_wait_ms=args.max_wait_ms,
+            segment_params=args.segment_params,
+            segment_batch=args.segment_batch, device=args.device).start()
         # flushed: a supervising process reads the address from the pipe
         print(json.dumps({"serving": srv.url,
                           "model": srv.step.bundle.spec.name}), flush=True)
@@ -448,6 +448,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                 _time.sleep(3600)
         except KeyboardInterrupt:
             srv.stop()
+        return 0
+
+    if args.command == "automask":
+        from aerial_image_recognition_tpu_torch.pipeline.automask import (
+            automask_geotiff)
+        inst = automask_geotiff(
+            args.path, window=args.window, params=args.params,
+            quantize=args.quantize, stride=args.stride,
+            min_area_px=args.min_area, stability_min=args.stability,
+            output_mask=args.out_mask, output_polygons=args.out_polygons,
+            device=args.device)
+        print(json.dumps({"instances": len(inst)}))
         return 0
 
     return 1

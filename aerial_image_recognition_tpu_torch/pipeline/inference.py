@@ -22,6 +22,9 @@ can drive it.
 with a saved calibration (``quantize_calib``) from the first call, without
 one through ``SelfQuantizingStep``, which calibrates on the scan's own
 first batches and swaps to int8 behind a parity gate.
+
+``make_segment_fn`` is the segmentation model's counterpart: uint8 tiles →
+preprocess → XUnet (float or int8) → sigmoid mask probabilities.
 """
 
 from dataclasses import dataclass
@@ -535,3 +538,24 @@ class SelfQuantizingStep:
         self.quantize_state = "bf16-fallback"
         self.fallback_reason = reason
         print(f"int8 self-calibration failed — continuing in bf16: {reason}")
+
+
+def make_segment_fn(bundle, cfg: DetectorConfig):
+    """XUnet path: uint8 tiles [B,H,W,3] (numpy or a tensor) → sigmoid
+    mask probabilities [B,S,S,1] f32 on the bundle's device, S the model's
+    input size. Tiles of another size are resized there by the matrix
+    product (``preprocess_batch``). ``bundle`` is the xunet
+    ``ModelBundle`` or its ``Int8XUnetBundle``.
+
+    The function carries its weights (the reference's takes a params tree
+    beside the images); it returns once the work is queued on the card."""
+    model_size = bundle.spec.input_size
+    dtype = _DTYPES[cfg.dtype]
+
+    @torch.inference_mode()
+    def segment(images_u8):
+        x = preprocess_batch(_upload(images_u8, bundle.device, torch.uint8),
+                             out_size=model_size, dtype=dtype)
+        return torch.sigmoid(bundle.forward(x))
+
+    return segment

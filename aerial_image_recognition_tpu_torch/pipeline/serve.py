@@ -1,26 +1,37 @@
-"""Detection serving: an HTTP endpoint with dynamic batching.
+"""Detection and segmentation serving: HTTP endpoints with dynamic
+batching.
 
-Counterpart of the detect plane of
-``aerial_image_recognition_tpu/pipeline/serve.py`` (``_Pending``,
-``_Plane``, ``DetectionServer``); the segmentation plane arrives with the
-segmentation slice. Concurrent requests are coalesced into fixed-shape
-padded batches, run through the detect step on the card, and split back per
-request. A batch thread queues batch N+1 on the device while a readback
-thread copies batch N's results to the host.
+Counterpart of ``aerial_image_recognition_tpu/pipeline/serve.py``
+(``_Pending``, ``_Plane``, ``DetectionServer``). Concurrent requests are
+coalesced into fixed-shape padded batches, run on the card, and split back
+per request. Each model has its own plane: a batch thread queues batch N+1
+on the device while the plane's readback thread copies batch N's results
+to the host. The detect plane (the detect step) is always on; the segment
+plane (XUnet-256 building segmentation) is on when the server is given
+``segment_params`` or a ``segment_fn``.
 
 API:
   POST /detect?west=&south=&east=&north=   body = JPEG/PNG bytes
       → {"detections": [{"lon","lat","confidence","class","yolo"}],
          "count": N}. Images of another size are resized (PIL bilinear) to
       the step's input size first.
-  GET  /healthz → {"ok": true, "model": ..., "batch": ..., "input_size": ...}
-  GET  /stats   → request/batch counters and timings (``planes.detect``
-                  holds the plane's own batches / batch_fill_sum / compute_s);
+  POST /segment?threshold=0.5&polygons=0   body = JPEG/PNG bytes
+      → {"shape": [H,W], "mean_prob": p, "coverage": f,
+         "mask_png": base64 PNG (mode L, 0/255), and with polygons=1
+         "polygons": [[[x,y],...], ...] boundary rings in pixel coords}.
+      Images are resized to the model size on the way in, and the
+      probabilities back to the request's size before thresholding.
+  GET  /healthz → {"ok": true, "model": ..., "batch": ..., "input_size": ...,
+                   "segment": bool}
+  GET  /stats   → request/batch counters and timings (``planes.<name>``
+                  holds each plane's own batches / batch_fill_sum / compute_s);
                   over a turnkey-int8 step also ``quantize_state``,
                   ``quantize_parity`` and, after a fallback,
                   ``quantize_fallback_reason``
 """
 
+import base64
+import io
 import json
 import queue
 import threading
@@ -34,8 +45,10 @@ import numpy as np
 import torch
 
 from aerial_image_recognition_tpu_torch.gio.decode import decode_rgb
+from aerial_image_recognition_tpu_torch.pipeline.rasters import (
+    mask_to_polygons)
 from aerial_image_recognition_tpu_torch.post.georef import (
-    detections_to_records)
+    detections_to_records, to_numpy)
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
 
 
@@ -179,18 +192,26 @@ class _Plane:
 
 
 class DetectionServer:
-    """HTTP detection service over the port's detect step.
+    """HTTP detection (and segmentation) service on the card.
 
     detect_step: a built step (any object with the DetectStep surface);
     without one, ``build_detect_step`` builds it from ``config`` on
     ``device`` (default ``cuda``; raises without CUDA). A truthy
     ``config["data_parallel"]`` raises NotImplementedError before any step
     is built: data-parallel serving arrives with the multi-GPU slice.
+
+    The segment plane: ``segment_fn`` (uint8 [B,S,S,3] → probabilities
+    [B,S,S,1], carrying its weights, as ``make_segment_fn`` makes it) for
+    ``segment_size``-px model input, or ``segment_params`` (an XUnet-256
+    checkpoint path or flax-format tree), from which the bf16 XUnet is
+    built on ``device``. ``segment_batch`` is the plane's batch.
     """
 
     def __init__(self, config: Optional[Dict] = None, *,
                  host: str = "127.0.0.1", port: int = 0,
                  max_wait_ms: float = 10.0, detect_step=None,
+                 segment_fn=None, segment_params=None,
+                 segment_batch: int = 16, segment_size: int = 256,
                  device: Optional[Union[str, torch.device]] = None):
         self.config = DetectorConfig().merged(config or {})
         flag = self.config.extra.get("data_parallel")
@@ -208,15 +229,36 @@ class DetectionServer:
         self.step = detect_step
         self.max_wait_s = max_wait_ms / 1000.0
         self._stop = threading.Event()
-        self.stats = {"requests": 0, "batches": 0, "detections": 0,
-                      "errors": 0, "timeouts": 0, "batch_fill_sum": 0,
-                      "resized": 0, "compute_s": 0.0}
+        self.stats = {"requests": 0, "segment_requests": 0, "batches": 0,
+                      "detections": 0, "errors": 0, "timeouts": 0,
+                      "batch_fill_sum": 0, "resized": 0, "compute_s": 0.0}
         self._stats_lock = threading.Lock()
 
         self._planes: Dict[str, _Plane] = {
             "detect": _Plane(self, "detect", detect_step.batch,
                              detect_step.input_size,
                              self._detect_dispatch, self._detect_finish)}
+
+        self._seg_fn = None
+        if segment_fn is None and segment_params is not None:
+            from aerial_image_recognition_tpu_torch.models.registry import (
+                create_model)
+            from aerial_image_recognition_tpu_torch.pipeline.inference import (
+                make_segment_fn)
+            path = segment_params if isinstance(segment_params, str) \
+                else None
+            bundle = create_model(
+                "xunet_256", dtype=torch.bfloat16, params_path=path,
+                variables=None if path else segment_params, device=device,
+                fold_bn=True)
+            segment_fn = make_segment_fn(
+                bundle, DetectorConfig(model_family="xunet"))
+            segment_size = bundle.spec.input_size
+        if segment_fn is not None:
+            self._seg_fn = segment_fn
+            self._planes["segment"] = _Plane(
+                self, "segment", segment_batch, segment_size,
+                self._segment_dispatch, self._segment_finish)
 
         server = self
 
@@ -238,7 +280,8 @@ class DetectionServer:
                     self._reply(200, {
                         "ok": True, "model": server.step.bundle.spec.name,
                         "batch": server.step.batch,
-                        "input_size": server.step.input_size})
+                        "input_size": server.step.input_size,
+                        "segment": "segment" in server._planes})
                 elif path == "/stats":
                     with server._stats_lock:
                         out = dict(server.stats)
@@ -260,7 +303,8 @@ class DetectionServer:
 
             def _read_image(self, plane: _Plane):
                 """Read + decode the request body, resize to the plane's
-                input size. Returns the image, or None after replying."""
+                input size. Returns (image, original (h, w)), or None after
+                replying."""
                 n = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(n) if n else b""
                 img = decode_rgb(body)
@@ -269,6 +313,7 @@ class DetectionServer:
                         server.stats["errors"] += 1
                     self._reply(400, {"error": "undecodable image"})
                     return None
+                orig_hw = img.shape[:2]
                 s = plane.input_size
                 if img.shape[0] != s or img.shape[1] != s:
                     from PIL import Image
@@ -276,7 +321,7 @@ class DetectionServer:
                         (s, s), Image.BILINEAR))
                     with server._stats_lock:
                         server.stats["resized"] += 1
-                return img
+                return img, orig_hw
 
             def _enqueue_and_wait(self, plane: _Plane,
                                   p: _Pending) -> bool:
@@ -300,13 +345,23 @@ class DetectionServer:
 
             def do_POST(self):
                 path = urlparse(self.path).path
-                if path != "/detect":
+                if path not in ("/detect", "/segment"):
                     self._reply(404, {"error": "unknown path"})
+                    return
+                if path == "/segment" and "segment" not in server._planes:
+                    self._reply(404, {"error": "segmentation not enabled "
+                                      "(start with segment_params=...)"})
                     return
                 if server._stop.is_set():
                     self._reply(503, {"error": "server stopping"})
                     return
                 q = parse_qs(urlparse(self.path).query)
+                if path == "/detect":
+                    self._post_detect(q)
+                else:
+                    self._post_segment(q)
+
+            def _post_detect(self, q):
                 try:
                     bounds = np.asarray(
                         [float(q[k][0]) for k in
@@ -316,10 +371,10 @@ class DetectionServer:
                                       "query params required"})
                     return
                 plane = server._planes["detect"]
-                img = self._read_image(plane)
-                if img is None:
+                got = self._read_image(plane)
+                if got is None:
                     return
-                p = _Pending(image=img, meta={"bounds": bounds},
+                p = _Pending(image=got[0], meta={"bounds": bounds},
                              deadline=time.perf_counter() + 60.0)
                 if not self._enqueue_and_wait(plane, p):
                     return
@@ -328,6 +383,30 @@ class DetectionServer:
                     server.stats["detections"] += len(p.result)
                 self._reply(200, {"detections": p.result,
                                   "count": len(p.result)})
+
+            def _post_segment(self, q):
+                try:
+                    threshold = float(q.get("threshold", ["0.5"])[0])
+                    polygons = q.get("polygons", ["0"])[0] not in (
+                        "0", "", "false")
+                except ValueError:
+                    self._reply(400, {"error": "bad threshold"})
+                    return
+                plane = server._planes["segment"]
+                got = self._read_image(plane)
+                if got is None:
+                    return
+                img, orig_hw = got
+                p = _Pending(image=img,
+                             meta={"orig_hw": orig_hw,
+                                   "threshold": threshold,
+                                   "polygons": polygons},
+                             deadline=time.perf_counter() + 60.0)
+                if not self._enqueue_and_wait(plane, p):
+                    return
+                with server._stats_lock:
+                    server.stats["segment_requests"] += 1
+                self._reply(200, p.result)
 
         class _Server(ThreadingHTTPServer):
             # the default listen backlog of 5 drops connections under a
@@ -364,6 +443,43 @@ class DetectionServer:
         for i, p in enumerate(group):
             p.result = by_tile.get(i, [])
 
+    def _segment_dispatch(self, group: List[_Pending]):
+        plane = self._planes["segment"]
+        b, s = plane.batch, plane.input_size
+        imgs = np.zeros((b, s, s, 3), np.uint8)
+        for i, p in enumerate(group):
+            imgs[i] = p.image
+        return self._seg_fn(imgs)
+
+    def _segment_finish(self, probs, group: List[_Pending]):
+        from PIL import Image
+        arr = to_numpy(probs).astype(np.float32)
+        if arr.ndim == 4:
+            arr = arr[..., 0]
+        for i, p in enumerate(group):
+            prob = arr[i]
+            h0, w0 = p.meta["orig_hw"]
+            if (h0, w0) != prob.shape:
+                # model-resolution probabilities back to the request's
+                # resolution before thresholding (resizing the binary mask
+                # instead would alias the boundary); a float32 array is a
+                # mode "F" image
+                prob = np.asarray(Image.fromarray(prob).resize(
+                    (w0, h0), Image.BILINEAR), np.float32)
+            mask = prob >= p.meta["threshold"]
+            buf = io.BytesIO()
+            Image.fromarray(mask * np.uint8(255)).save(buf, "PNG")
+            payload = {
+                "shape": [int(h0), int(w0)],
+                "mean_prob": float(prob.mean()),
+                "coverage": float(mask.mean()),
+                "mask_png": base64.b64encode(buf.getvalue()).decode(),
+            }
+            if p.meta["polygons"]:
+                payload["polygons"] = [ring.tolist()
+                                       for ring in mask_to_polygons(mask)]
+            p.result = payload
+
     # ------------------------------------------------------------ lifecycle
 
     @property
@@ -379,6 +495,12 @@ class DetectionServer:
             bnds = np.full((b, 4), (0, 0, 1e-6, 1e-6), np.float32)
             _det, lon, _lat = self.step(imgs, bnds)
             float(lon.sum())
+            if self._seg_fn is not None:
+                plane = self._planes["segment"]
+                simgs = np.zeros(
+                    (plane.batch, plane.input_size, plane.input_size, 3),
+                    np.uint8)
+                float(to_numpy(self._seg_fn(simgs)).sum())
         self._serve_thread.start()
         for plane in self._planes.values():
             plane.start()

@@ -113,10 +113,34 @@ Phases (any failure exits nonzero, and no result line is printed):
      process over the fake XYZ server with the trained yolov8n (64 m
      windows at zoom 20, resized 699 → 640 on the card) at recall@3m ≥
      0.9. Each child writes its kernels' launch counters when it exits
-     (``COUNTED_CHILD``); they go on the kernel line as that verb's path.
+     (``COUNTED_CHILD``); they go on the kernel line as that verb's path;
+ 12. segmentation, run after 11: XUnet-256 from the trained fixture
+     ``xunet_fakeworld.npz`` at full width, 256 px, bf16 trunk, f32 head,
+     batch 16, on held-out tiles of its training world (buildings, seed
+     123): (a) f32 logits on the card against the CPU within 1e-3 of their
+     largest magnitude, bf16 against f32 masks at IoU ≥ 0.99, ground-truth
+     IoU ≥ 0.80; (b) int8: ``quantize_xunet`` on the card, the relu
+     epilogue kernel bit-equal to its plain version on the trunk's own s32
+     sums at all 21 int8 convs (and timed at the first), 21 launches a
+     forward, int8 against f32 masks at IoU ≥ 0.99 and ground truth no
+     worse than f32's less 0.005; (c) ``segment_geotiff`` and
+     ``automask_geotiff`` (stride 192 < window) built on the card from the
+     checkpoint over a 1024-px raster (16 windows), bf16 and int8: every
+     building of ≥ 100 px recovered as an instance, instance count within
+     0.7–1.5× + 2 of them, mask IoU ≥ 0.7 with the buildings, int8 mask
+     IoU ≥ 0.99 with bf16; (d) a DetectionServer with both planes: 16 JPEG
+     tiles (one of 320 px) POSTed to /segment at once, every mask equal to
+     the server's segment function run in process on the same images,
+     /detect answering beside it; (e) ``automask --quantize int8`` and
+     ``serve --segment-params`` as counted children: the verb's GeoPackage
+     equal to an in-process call's, the served mask equal to (d)'s, exit
+     0 after SIGINT; (f) ms per batch of 16 (bf16, int8; host and device
+     input), tiles/s, GFLOP a tile and the share of its bf16 bound, peak
+     memory, a profile of each.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-9a, 9b, 9c, 9d, 11i) and read just after it, or read from the child that ran
-the path (11b–h); every kernel of a path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
+9a, 9b, 9c, 9d, 11i, 12a–e) and read just after it, or read from the child
+that ran the path (11b–h, 12e); every kernel of a path must have launched in
+its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
 whether a profile earlier in the process moves later timings.
 
@@ -129,7 +153,10 @@ against its plain version, the default step's two timings and phase 10
 alone (record in ``chiprun_out/chip_smoke_scan.json``);
 ``python3 chip_smoke.py --front-ends-only`` runs phases 1–2, the NMS kernel
 against its plain version and phase 11 (record in
-``chiprun_out/chip_smoke_front_ends.json``).
+``chiprun_out/chip_smoke_front_ends.json``);
+``python3 chip_smoke.py --segment-only`` runs phases 1–2, the NMS and CLAHE
+kernels against their plain versions and phase 12 (record in
+``chiprun_out/chip_smoke_segment.json``).
 """
 
 import io
@@ -977,8 +1004,14 @@ def profile_step(torch, step, images, bounds, n: int = 3):
 
 
 def step_flops(torch, step, images, bounds) -> float:
-    """Multiply-adds ×2 of every conv and head matmul in one step call,
-    counted from the shapes the layers see (forward hooks)."""
+    """Multiply-adds ×2 of every conv and head matmul in one step call."""
+    return forward_flops(torch, step.bundle.module,
+                         lambda: step(images, bounds))
+
+
+def forward_flops(torch, module, fn) -> float:
+    """Multiply-adds ×2 of every conv and linear layer of ``module`` in
+    fn(), counted from the shapes the layers see (forward hooks)."""
     total = [0.0]
 
     def conv(m, inp, out):
@@ -989,13 +1022,13 @@ def step_flops(torch, step, images, bounds) -> float:
         total[0] += 2.0 * m.in_features * out.numel()
 
     hooks = []
-    for m in step.bundle.module.modules():
+    for m in module.modules():
         if isinstance(m, torch.nn.Conv2d):
             hooks.append(m.register_forward_hook(conv))
         elif isinstance(m, torch.nn.Linear):
             hooks.append(m.register_forward_hook(linear))
     try:
-        step(images, bounds)
+        fn()
         torch.cuda.synchronize()
     finally:
         for h in hooks:
@@ -1003,33 +1036,44 @@ def step_flops(torch, step, images, bounds) -> float:
     return total[0]
 
 
-def post_jpegs(url, images, bounds, n):
-    """POST n tiles as JPEG concurrently; returns the parsed replies."""
-    from PIL import Image
-    replies = [None] * n
+def post_all(posts, what: str):
+    """POST every (url, body) of ``posts`` at once; returns the (status,
+    parsed JSON) replies in order, and fails if any request failed."""
+    replies = [None] * len(posts)
     errors = []
 
     def one(k):
         try:
-            buf = io.BytesIO()
-            Image.fromarray(images[k]).save(buf, "JPEG", quality=95)
-            w, s, e, no = (float(v) for v in bounds[k])
-            req = urllib.request.Request(
-                f"{url}/detect?west={w!r}&south={s!r}&east={e!r}&north={no!r}",
-                data=buf.getvalue(), method="POST")
+            url, body = posts[k]
+            req = urllib.request.Request(url, data=body, method="POST")
             with urllib.request.urlopen(req, timeout=120) as r:
                 replies[k] = (r.status, json.load(r))
         except Exception as e:          # reported below, never swallowed
             errors.append(f"request {k}: {e!r}")
 
-    threads = [threading.Thread(target=one, args=(k,)) for k in range(n)]
+    threads = [threading.Thread(target=one, args=(k,))
+               for k in range(len(posts))]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=180)
     if errors or any(t.is_alive() for t in threads):
-        fail(f"/detect requests failed: {errors or 'timed out'}")
+        fail(f"{what} requests failed: {errors or 'timed out'}")
     return replies
+
+
+def post_jpegs(url, images, bounds, n):
+    """POST n tiles as JPEG to /detect concurrently; returns the parsed
+    replies."""
+    from PIL import Image
+    posts = []
+    for k in range(n):
+        buf = io.BytesIO()
+        Image.fromarray(images[k]).save(buf, "JPEG", quality=95)
+        w, s, e, no = (float(v) for v in bounds[k])
+        posts.append((f"{url}/detect?west={w!r}&south={s!r}&east={e!r}"
+                      f"&north={no!r}", buf.getvalue()))
+    return post_all(posts, "/detect")
 
 
 # ------------------------------------------------ 10. the city scan
@@ -1452,6 +1496,15 @@ def run_verb(base, name, argv, *, counted=True, ok=True, timeout=600):
     return proc, wall, launches
 
 
+def child_launches(launches, path, counts, needed):
+    """Store a child's kernel launches as ``launches[path]``; fail if a
+    kernel in ``needed`` never launched there."""
+    launches[path] = counts or {}
+    for k in needed:
+        if not launches[path].get(k):
+            fail(f"the child path {path} never launched {k}: {counts}")
+
+
 def last_json(text: str, opener: str = "{"):
     """The JSON value that ends a verb's standard output (its last line,
     or for an indented list the text from the last line opening it)."""
@@ -1582,10 +1635,7 @@ def front_ends(torch, record, card, launches, open_window, close_window):
     name = torch.cuda.get_device_name(0)
 
     def child_path(path, counts, needed):
-        launches[path] = counts or {}
-        for k in needed:
-            if not launches[path].get(k):
-                fail(f"the front end {path} never launched {k}: {counts}")
+        child_launches(launches, path, counts, needed)
 
     # (a) doctor, exactly as a user types it
     proc, wall, _ = run_verb(base, "doctor", ["doctor"], counted=False)
@@ -1994,36 +2044,23 @@ def fe_predict(world, base, card, child_path):
             "nms_shape": {"K": 512, "D": 128, "class_aware": False}}
 
 
-def fe_serve(world, base, card, child_path):
-    """(g): ``serve`` as a child: its address line, JPEG tiles POSTed
-    (records with class names), SIGINT, exit 0; then ``serve
-    --data-parallel`` exits non-zero with the server's refusal."""
+def serve_child(base, name, argv, use):
+    """Start ``serve`` (``argv``) as a counted child of this script, wait
+    for its address line, call ``use(line)``, then end it with SIGINT.
+    Returns (address line, use's result, exit code, the child's kernel
+    launches); its stderr goes to ``<base>/<name>.log``."""
     import select
     import signal
-    import numpy as np
-    cmd, env, counts_file = child_cmd(
-        base, "serve", ["serve", "--port", "0", "--params", FIXTURE,
-                        "--batch", "8", "--max-wait-ms", "20"])
-    err = open(os.path.join(base, "serve.log"), "w")
+    cmd, env, counts_file = child_cmd(base, name, argv)
+    err = open(os.path.join(base, f"{name}.log"), "w")
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=err, text=True)
     try:
         ready, _, _ = select.select([proc.stdout], [], [], 300)
         if not ready:
-            fail("serve: no address line within 300 s")
+            fail(f"{name}: no address line within 300 s")
         line = json.loads(proc.stdout.readline())
-        n = 8
-        images, bounds = [], []
-        for k in range(n):
-            c_lon = SCAN_WORLD["center_lon"] + (k - n / 2) * 330 * M2LON
-            c_lat = SCAN_WORLD["center_lat"]
-            bbox = (c_lon - 160 * M2LON, c_lat - 160 * M2LAT,
-                    c_lon + 160 * M2LON, c_lat + 160 * M2LAT)
-            images.append(world.render(bbox, SIZE, SIZE))
-            bounds.append(bbox)
-        t0 = time.perf_counter()
-        replies = post_jpegs(line["serving"], images, np.asarray(bounds), n)
-        post_s = time.perf_counter() - t0
+        result = use(line)
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(timeout=120)
     finally:
@@ -2032,7 +2069,32 @@ def fe_serve(world, base, card, child_path):
             proc.wait()
         err.close()
     with open(counts_file) as f:
-        counts = json.load(f)
+        return line, result, rc, json.load(f)
+
+
+def fe_serve(world, base, card, child_path):
+    """(g): ``serve`` as a child: its address line, JPEG tiles POSTed
+    (records with class names), SIGINT, exit 0; then ``serve
+    --data-parallel`` exits non-zero with the server's refusal."""
+    import numpy as np
+    n = 8
+    images, bounds = [], []
+    for k in range(n):
+        c_lon = SCAN_WORLD["center_lon"] + (k - n / 2) * 330 * M2LON
+        c_lat = SCAN_WORLD["center_lat"]
+        bbox = (c_lon - 160 * M2LON, c_lat - 160 * M2LAT,
+                c_lon + 160 * M2LON, c_lat + 160 * M2LAT)
+        images.append(world.render(bbox, SIZE, SIZE))
+        bounds.append(bbox)
+
+    def use(line):
+        t0 = time.perf_counter()
+        replies = post_jpegs(line["serving"], images, np.asarray(bounds), n)
+        return replies, time.perf_counter() - t0
+
+    line, (replies, post_s), rc, counts = serve_child(
+        base, "serve", ["serve", "--port", "0", "--params", FIXTURE,
+                        "--batch", "8", "--max-wait-ms", "20"], use)
     child_path("fe_serve", counts, ["nms_suppress"])
     for k, (status, body) in enumerate(replies):
         if status != 200 or body["count"] != len(body["detections"]) \
@@ -2629,6 +2691,423 @@ def other_families(torch, record, card, images, bounds, open_window,
     return aware_ms
 
 
+# ------------------------------------------------ 12. segmentation
+
+XUNET_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "xunet_fakeworld.npz")
+# the buildings' training world (examples/train_xunet_fakeworld.py)
+SEG_WORLD = dict(center_lon=21.0, center_lat=52.2, extent_deg=0.01,
+                 n_cars=150, n_buildings=120, seed=4)
+SEG_B, SEG_SIZE, SEG_TILE_M = 16, 256, 64.0     # the server's segment batch
+SEG_RASTER_PX = 1024                            # 4 × 4 windows at 0.25 m/px
+XUNET_INT8_CONVS = 21
+
+
+def seg_tiles(world, n: int, seed: int, size: int = SEG_SIZE):
+    """n tiles of 64 m at random places of the world (the training run's
+    generator; seed 123 is held out) and their building masks."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    half_lon, half_lat = SEG_TILE_M / 2 * M2LON, SEG_TILE_M / 2 * M2LAT
+    span = world.extent_deg / 2
+    tiles, masks, boxes = [], [], []
+    for _ in range(n):
+        clon = world.center_lon + (rng.random() - 0.5) * 2 * (span - half_lon)
+        clat = world.center_lat + (rng.random() - 0.5) * 2 * (span - half_lat)
+        bbox = (clon - half_lon, clat - half_lat, clon + half_lon,
+                clat + half_lat)
+        tiles.append(world.render(bbox, size, size))
+        masks.append(world.render_mask(bbox, size, size) > 0)
+        boxes.append(bbox)
+    return np.stack(tiles), np.stack(masks), boxes
+
+
+def iou(a, b) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def building_recall(world_mask, instances, shape, min_px: int = 100):
+    """(components of the ground truth with >= min_px pixels, the share of
+    them that some instance's mask overlaps)."""
+    import numpy as np
+    from scipy import ndimage as ndi
+    ids = np.zeros(shape, bool)
+    for inst in instances:
+        ids[inst["mask_slice"]] |= inst["mask"]
+    labels, n = ndi.label(world_mask)
+    comps = [i for i in range(1, n + 1) if (labels == i).sum() >= min_px]
+    hit = sum(1 for i in comps if (ids & (labels == i)).any())
+    return len(comps), hit / max(len(comps), 1)
+
+
+def segmentation(torch, record, card, launches, open_window, close_window,
+                 images, bounds):
+    """12. Segmentation on the card: XUnet-256 from the trained fixture at
+    full width, 256 px, bf16 trunk, f32 head, batch 16, on held-out tiles
+    of its training world. (a) f32 logits card vs CPU, bf16 vs f32 masks,
+    ground-truth IoU; (b) int8: ``quantize_xunet`` on the card, the relu
+    epilogue kernel against its plain version on the trunk's own s32 sums,
+    int8 vs f32 masks and ground truth; (c) ``segment_geotiff`` and
+    ``automask_geotiff`` on a 1024-px raster (4 × 4 windows), bf16 and
+    int8, stride < window for automask; (d) the DetectionServer with both
+    planes: 16 JPEG tiles (one of 320 px) POSTed to /segment at once, each
+    mask equal to the in-process segment function's, /detect answering;
+    (e) the ``automask`` verb (int8) and ``serve --segment-params`` as
+    counted children; (f) times. Returns the epilogue's relu timing at the
+    trunk's first conv."""
+    import base64
+    import shutil
+    import numpy as np
+    from PIL import Image
+    from aerial_image_recognition_tpu_torch.fetch.fake import FakeWorld
+    from aerial_image_recognition_tpu_torch.gio.geopackage import read_gpkg
+    from aerial_image_recognition_tpu_torch.gio.geotiff import (
+        read_geotiff, write_geotiff)
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        QT, _Run, conv_s32, quantize_xunet)
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        _requantize_plain, requantize)
+    from aerial_image_recognition_tpu_torch.pipeline.automask import (
+        automask_geotiff)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        make_segment_fn)
+    from aerial_image_recognition_tpu_torch.pipeline.rasters import (
+        segment_geotiff)
+    from aerial_image_recognition_tpu_torch.pipeline.serve import (
+        DetectionServer)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    if not os.path.exists(XUNET_FIXTURE):
+        fail(f"trained fixture missing: {XUNET_FIXTURE}")
+    base = os.path.join(ROOT, "chiprun_out", "segmentation")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    rec = record["segmentation"] = {"card": card, "batch": SEG_B,
+                                    "size": SEG_SIZE}
+    world = FakeWorld(**SEG_WORLD)
+    tiles, gt, _ = seg_tiles(world, SEG_B, seed=123)
+    cfg = DetectorConfig(model_family="xunet")
+    cfg32 = DetectorConfig(model_family="xunet", dtype="float32")
+
+    # (a) f32 on the card against the CPU, bf16 against f32, ground truth
+    torch.backends.cudnn.allow_tf32 = False      # the f32 reference is f32
+    f32 = create_model("xunet_256", dtype=torch.float32,
+                       params_path=XUNET_FIXTURE, fold_bn=True)
+    f32_cpu = create_model("xunet_256", dtype=torch.float32,
+                           params_path=XUNET_FIXTURE, fold_bn=True,
+                           device="cpu")
+    x2 = torch.from_numpy(tiles[:2]).permute(0, 3, 1, 2).float() / 255.0
+    with torch.inference_mode():
+        l_card = f32.forward(x2.cuda()).cpu().numpy()
+        l_cpu = f32_cpu.forward(x2).numpy()
+    rel = float(np.abs(l_card - l_cpu).max() / np.abs(l_cpu).max())
+    if rel > 1e-3 or l_card.shape != (2, SEG_SIZE, SEG_SIZE, 1):
+        fail(f"segmentation f32 logits, card vs CPU: max error {rel:.2e} "
+             f"of the largest magnitude, shape {l_card.shape}")
+    p32 = make_segment_fn(f32, cfg32)(tiles).cpu().numpy()[..., 0]
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default again
+    del f32, f32_cpu
+    bundle = create_model("xunet_256", dtype=torch.bfloat16,
+                          params_path=XUNET_FIXTURE, fold_bn=True)
+    seg = make_segment_fn(bundle, cfg)
+    open_window()
+    probs = seg(tiles)
+    if probs.dtype != torch.float32 or tuple(probs.shape) != (
+            SEG_B, SEG_SIZE, SEG_SIZE, 1) or not torch.isfinite(probs).all():
+        fail(f"segment fn: {probs.dtype} {tuple(probs.shape)}")
+    p16 = probs.cpu().numpy()[..., 0]
+    m16, m32 = p16 >= 0.5, p32 >= 0.5
+    a = {"logits_card_vs_cpu_rel": rel, "bf16_vs_f32_iou": iou(m16, m32),
+         "gt_iou_bf16": iou(m16, gt), "gt_iou_f32": iou(m32, gt),
+         "gt_coverage": float(gt.mean())}
+    if a["bf16_vs_f32_iou"] < 0.99 or a["gt_iou_bf16"] < 0.80:
+        fail(f"segmentation (a): {a}")
+    dev_tiles = torch.from_numpy(tiles).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t = {"bf16_ms_host_input": cuda_ms(lambda: seg(tiles), 10),
+         "bf16_ms_device_input": cuda_ms(lambda: seg(dev_tiles), 20)}
+    t["bf16_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    close_window("seg_bf16", [])
+    x = dev_tiles.permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+    flops = forward_flops(torch, bundle.module, lambda: bundle.forward(x))
+    t.update(gflop_per_tile=flops / SEG_B / 1e9,
+             bound_ms=flops / BF16_FLOPS * 1e3)
+    t["bound_share_bf16"] = t["bound_ms"] / t["bf16_ms_device_input"]
+    rec["a"] = a
+    print(f"segmentation (a): f32 logits card vs CPU within {rel:.2e} of "
+          f"the largest; bf16 vs f32 masks IoU {a['bf16_vs_f32_iou']:.4f}; "
+          f"ground truth IoU bf16 {a['gt_iou_bf16']:.4f}, f32 "
+          f"{a['gt_iou_f32']:.4f} on {SEG_B} held-out tiles [{card}]",
+          flush=True)
+
+    # (b) int8: the relu epilogue on the trunk's own sums first (outside
+    # any path window), then the quantized path
+    calib = [tiles[i:i + 8] for i in range(0, SEG_B, 8)]
+    qb = quantize_xunet(bundle, calib)
+    checked = []
+
+    class CheckRun(_Run):
+        def conv(self, name, xq, kernel, stride=1):
+            parts = xq if isinstance(xq, list) else [xq]
+            v = parts[0].v if len(parts) == 1 \
+                else torch.cat([p.v for p in parts], dim=-1)
+            qp = self.q[name]
+            r = conv_s32(v, qp["w"], kernel, stride)
+            got = requantize(r, qp["m"], qp["b"], None, "relu")
+            plain = _requantize_plain(r, qp["m"], qp["b"], None, "relu")
+            if not torch.equal(got, plain):
+                fail(f"int8 epilogue (relu) on {name}'s sums: "
+                     f"{int((got != plain).sum())} codes differ from plain")
+            checked.append((name, tuple(r.shape)))
+            return QT(got, self.scales.get(name, 0.0), got.shape[-1])
+
+    xq = dev_tiles[:2].permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+    with torch.inference_mode():
+        qb.trunk_codes(qb.entry_codes(xq),
+                       g=CheckRun(qb.q["convs"], act="relu",
+                                  scales=qb.static_scales))
+    if len(checked) != XUNET_INT8_CONVS:
+        fail(f"int8 epilogue check ran on {len(checked)} convs")
+    # the epilogue alone at the trunk's first conv (enc0/cv2), batch 16
+    with torch.inference_mode():
+        xi = qb.entry_codes(x)
+        qp = qb.q["convs"]["enc0/cv2"]
+        r = conv_s32(xi, qp["w"], 3, 1)
+    n, cols = r.numel(), r.shape[-1]
+    relu = {"shape": [n // cols, cols],
+            "ms": cuda_ms(lambda: requantize(r, qp["m"], qp["b"], None,
+                                             "relu"), 50),
+            "plain_ms": cuda_ms(lambda: _requantize_plain(
+                r, qp["m"], qp["b"], None, "relu"), 5, warmup=1)}
+    nbytes = n * 5 + 2 * cols * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, n * 6 / F32_FLOPS * 1e3
+    relu.update(bound_ms=max(t_bytes, t_ops), max_abs_err=0,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    del r
+    qseg = make_segment_fn(qb, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    open_window()
+    qprobs = qseg(tiles).cpu().numpy()[..., 0]
+    t["int8_ms_host_input"] = cuda_ms(lambda: qseg(tiles), 5)
+    t["int8_ms_device_input"] = cuda_ms(lambda: qseg(dev_tiles), 10)
+    t["int8_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t["bf16_ms_device_input_between"] = cuda_ms(lambda: seg(dev_tiles), 10)
+    t["int8_ms_device_input_second"] = cuda_ms(lambda: qseg(dev_tiles), 10)
+    close_window("seg_int8", ["int8_epilogue"])
+    forwards = 1 + 3 + 5 + 3 + 10 + 3 + 10       # warm-ups included
+    if launches["seg_int8"]["int8_epilogue"] != XUNET_INT8_CONVS * forwards:
+        fail(f"int8 segmentation: {launches['seg_int8']} launches in "
+             f"{forwards} forwards")
+    mq = qprobs >= 0.5
+    b = {"int8_vs_f32_iou": iou(mq, m32), "gt_iou_int8": iou(mq, gt),
+         "gt_iou_f32": a["gt_iou_f32"], "epilogue_checked_convs": checked,
+         "epilogue_relu": relu}
+    if b["int8_vs_f32_iou"] < 0.99 or b["gt_iou_int8"] < a["gt_iou_f32"] \
+            - 0.005:
+        fail(f"segmentation (b): {b}")
+    rec["b"] = b
+    print(f"segmentation (b): relu epilogue equal to plain on the trunk's "
+          f"own sums at all {len(checked)} int8 convs; {relu['ms']:.4f} ms "
+          f"at {relu['shape']} (plain {relu['plain_ms']:.3f}, bound "
+          f"{relu['bound_ms']:.4f}); int8 vs f32 masks IoU "
+          f"{b['int8_vs_f32_iou']:.4f}, ground truth int8 "
+          f"{b['gt_iou_int8']:.4f} against f32 {b['gt_iou_f32']:.4f} "
+          f"[{card}]", flush=True)
+
+    # (c) the raster workflows, built on the card from the checkpoint
+    half = SEG_RASTER_PX * 0.125
+    bbox = (SEG_WORLD["center_lon"] - half * M2LON,
+            SEG_WORLD["center_lat"] - half * M2LAT,
+            SEG_WORLD["center_lon"] + half * M2LON,
+            SEG_WORLD["center_lat"] + half * M2LAT)
+    tif = os.path.join(base, "buildings.tif")
+    write_geotiff(tif, world.render(bbox, SEG_RASTER_PX, SEG_RASTER_PX),
+                  (bbox[0], 0.25 * M2LON, 0.0, bbox[3], 0.0, -0.25 * M2LAT),
+                  4326)
+    truth = world.render_mask(bbox, SEG_RASTER_PX, SEG_RASTER_PX) > 0
+    shape = truth.shape
+    c = {}
+    open_window()
+    t0 = time.perf_counter()
+    mask = segment_geotiff(tif, params=XUNET_FIXTURE,
+                           output_mask=os.path.join(base, "mask.tif"),
+                           output_polygons=os.path.join(base, "mask.geojson"))
+    c["segment_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inst = automask_geotiff(tif, params=XUNET_FIXTURE, stride=192,
+                            min_area_px=100)
+    c["automask_stride192_s"] = time.perf_counter() - t0
+    close_window("seg_rasters", [])
+    open_window()
+    mask_q = segment_geotiff(tif, params=XUNET_FIXTURE, quantize="int8")
+    inst_q = automask_geotiff(tif, params=XUNET_FIXTURE, quantize="int8",
+                              stride=192, min_area_px=100)
+    close_window("seg_rasters_int8", ["int8_epilogue"])
+    n_gt, hit = building_recall(truth, inst, shape)
+    _, hit_q = building_recall(truth, inst_q, shape)
+    c.update(mask_gt_iou=iou(mask > 0, truth),
+             mask_int8_vs_bf16_iou=iou(mask_q > 0, mask > 0),
+             buildings=n_gt, instances=len(inst), instances_int8=len(inst_q),
+             buildings_recovered=hit, buildings_recovered_int8=hit_q,
+             mask_file_equal=bool(np.array_equal(
+                 read_geotiff(os.path.join(base, "mask.tif")).data
+                 .reshape(shape) > 0, mask > 0)))
+    if n_gt < 5 or min(hit, hit_q) < 1.0 or c["mask_gt_iou"] < 0.7 \
+            or not 0.7 * n_gt <= len(inst) <= 1.5 * n_gt + 2 \
+            or c["mask_int8_vs_bf16_iou"] < 0.99 or not c["mask_file_equal"]:
+        fail(f"segmentation (c): {c}")
+    rec["c"] = c
+    print(f"segmentation (c): {SEG_RASTER_PX}-px raster, 16 windows: mask "
+          f"IoU {c['mask_gt_iou']:.4f} with the buildings ({c['segment_s']:.2f}"
+          f" s, built on the card); automask at stride 192 recovers "
+          f"{hit:.0%} of {n_gt} buildings with {len(inst)} instances "
+          f"(int8: {hit_q:.0%}, {len(inst_q)}), int8 mask IoU "
+          f"{c['mask_int8_vs_bf16_iou']:.4f} with bf16 [{card}]", flush=True)
+
+    # (d) the server with both planes: 16 tiles at once, one of 320 px
+    from aerial_image_recognition_tpu_torch.gio.decode import decode_rgb
+    bodies = []
+    for k in range(SEG_B):
+        img = tiles[k] if k else np.asarray(Image.fromarray(tiles[k]).resize(
+            (320, 320), Image.BILINEAR))
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=95)
+        bodies.append(buf.getvalue())
+    open_window()
+    srv = DetectionServer({"params_path": FIXTURE, "device_batch": 8},
+                          segment_params=XUNET_FIXTURE,
+                          segment_batch=SEG_B, max_wait_ms=50.0).start()
+    try:
+        t0 = time.perf_counter()
+        replies = post_all([(f"{srv.url}/segment?threshold=0.5&polygons=1",
+                             body) for body in bodies], "/segment")
+        post_s = time.perf_counter() - t0
+        det_replies = post_jpegs(srv.url, images[:4], bounds[:4], 4)
+        with urllib.request.urlopen(srv.url + "/stats", timeout=60) as r:
+            stats = json.load(r)
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=60) as r:
+            health = json.load(r)
+        # the in-process reference: the server's own segment function on
+        # the same decoded, resized images, in one batch of 16
+        dec = []
+        for body in bodies:
+            im = decode_rgb(body)
+            if im.shape[:2] != (SEG_SIZE, SEG_SIZE):
+                im = np.asarray(Image.fromarray(im).resize(
+                    (SEG_SIZE, SEG_SIZE), Image.BILINEAR))
+            dec.append(im)
+        ref = srv._seg_fn(np.stack(dec)).cpu().numpy()[..., 0]
+    finally:
+        srv.stop()
+    close_window("seg_server", ["nms_suppress"])
+    differ = 0
+    for k, (status, body) in enumerate(replies):
+        if status != 200:
+            fail(f"segment request {k}: {status} {str(body)[:300]}")
+        got = np.asarray(Image.open(io.BytesIO(
+            base64.b64decode(body["mask_png"])))) > 127
+        prob = ref[k]
+        if k == 0:
+            prob = np.asarray(Image.fromarray(prob).resize(
+                (320, 320), Image.BILINEAR), np.float32)
+        differ += int((got != (prob >= 0.5)).sum())
+        if body["shape"] != list(prob.shape) or "polygons" not in body:
+            fail(f"segment reply {k}: {str(body)[:300]}")
+    if differ or stats["segment_requests"] != SEG_B or not health["segment"]:
+        fail(f"segmentation (d): {differ} mask pixels differ from the "
+             f"in-process function; stats {stats}")
+    for k, (status, body) in enumerate(det_replies):
+        if status != 200 or body["count"] != len(body["detections"]):
+            fail(f"detect beside segment, request {k}: {status} {body}")
+    rec["d"] = {"requests": SEG_B, "post_s": post_s,
+                "segment_batches": stats["planes"]["segment"]["batches"],
+                "detect_requests": len(det_replies), "stats": stats}
+    print(f"segmentation (d): {SEG_B} JPEG /segment requests (one 320 px) "
+          f"answered in {post_s:.2f} s, {rec['d']['segment_batches']} "
+          f"batches, every mask equal to the in-process function's; /detect "
+          f"answered beside it [{card}]", flush=True)
+
+    # (e) the CLI: automask (int8) and serve --segment-params, children
+    def child_path(path, counts, needed):
+        child_launches(launches, path, counts, needed)
+
+    gpkg = os.path.join(base, "verb.gpkg")
+    proc, wall, counts = run_verb(
+        base, "automask", ["automask", tif, "--params", XUNET_FIXTURE,
+                           "--quantize", "int8", "--stride", "192",
+                           "--min-area", "100", "--out-polygons", gpkg,
+                           "--out-mask", os.path.join(base, "verb.tif")])
+    child_path("fe_automask", counts, ["int8_epilogue"])
+    n_verb = last_json(proc.stdout)["instances"]
+    lib = os.path.join(base, "lib.gpkg")
+    open_window()
+    inst_lib = automask_geotiff(tif, params=XUNET_FIXTURE, quantize="int8",
+                                stride=192, min_area_px=100,
+                                output_polygons=lib)
+    close_window("seg_automask_in_process", ["int8_epilogue"])
+    same = read_gpkg(gpkg) == read_gpkg(lib)
+    if n_verb != len(inst_lib) or not same:
+        fail(f"automask verb: {n_verb} instances, in process "
+             f"{len(inst_lib)}, GeoPackages equal: {same}")
+    e = {"automask_wall_s": wall, "automask_instances": n_verb,
+         "automask_gpkg_equal_in_process": same,
+         "automask_launches": counts}
+    t0 = time.perf_counter()
+    _, ((status, body),), rc, serve_counts = serve_child(
+        base, "serve_segment",
+        ["serve", "--port", "0", "--params", FIXTURE, "--batch", "8",
+         "--segment-params", XUNET_FIXTURE, "--segment-batch", "16",
+         "--max-wait-ms", "20"],
+        lambda line: post_all([(line["serving"] + "/segment", bodies[1])],
+                              "serve --segment-params /segment"))
+    child_path("fe_serve_segment", serve_counts, ["nms_suppress"])
+    got = np.asarray(Image.open(io.BytesIO(
+        base64.b64decode(body["mask_png"])))) > 127
+    if status != 200 or rc != 0 or not np.array_equal(got, ref[1] >= 0.5):
+        fail(f"serve --segment-params: exit {rc}, mask differs from the "
+             f"in-process function's on {int((got != (ref[1] >= 0.5)).sum())}"
+             " pixels")
+    e.update(serve_wall_s=time.perf_counter() - t0, serve_exit=rc,
+             serve_launches=serve_counts)
+    rec["e"] = e
+    print(f"segmentation (e): automask --quantize int8 → {n_verb} "
+          f"instances, GeoPackage equal to the in-process call's, "
+          f"{wall:.1f} s, launches {counts}; serve --segment-params answered "
+          f"/segment with the in-process mask and exited 0 after SIGINT "
+          f"[{card}]", flush=True)
+
+    # (f) times, and where the device time goes
+    t["tiles_per_s_bf16"] = SEG_B / t["bf16_ms_device_input"] * 1e3
+    t["tiles_per_s_int8"] = SEG_B / t["int8_ms_device_input"] * 1e3
+    t["profile_bf16"] = profile_step(torch, lambda im, _b: seg(im),
+                                     dev_tiles, None, n=5)
+    t["profile_int8"] = profile_step(torch, lambda im, _b: qseg(im),
+                                     dev_tiles, None, n=3)
+    rec["f"] = t
+    print(f"segmentation (f): batch of {SEG_B} at {SEG_SIZE} px: bf16 "
+          f"{t['bf16_ms_host_input']:.2f} ms host input / "
+          f"{t['bf16_ms_device_input']:.2f} ms device input "
+          f"({t['tiles_per_s_bf16']:.0f} tiles/s), int8 "
+          f"{t['int8_ms_host_input']:.2f} / {t['int8_ms_device_input']:.2f} "
+          f"ms ({t['int8_ms_device_input_second']:.2f} again, bf16 between "
+          f"{t['bf16_ms_device_input_between']:.2f}); "
+          f"{t['gflop_per_tile']:.2f} GFLOP a tile, bound "
+          f"{t['bound_ms']:.3f} ms ({t['bound_share_bf16']:.1%} of it); peak "
+          f"memory bf16 {t['bf16_peak_mem_gb']:.2f} GB, int8 "
+          f"{t['int8_peak_mem_gb']:.2f} GB [{card}]", flush=True)
+    for key in ("profile_bf16", "profile_int8"):
+        prof = t[key]
+        if "top" in prof:
+            print(f"segmentation {key}: device busy "
+                  f"{prof['device_busy_ms_per_step']:.2f} of "
+                  f"{prof['wall_ms_per_step_profiled']:.2f} ms, idle share "
+                  f"{prof['idle_share']:.3f}, top: " + "; ".join(
+                      f"{r['ms_per_step']:.3f} ms {r['name'][:50]}"
+                      for r in prof["top"][:6]) + f" [{card}]", flush=True)
+    return relu
+
+
 def launch_window(wrappers, launches):
     """(open_window, close_window) over the kernels' launch counters:
     ``open_window()`` sets every wrapper's count to 0 just before a path;
@@ -2710,14 +3189,56 @@ def front_ends_only(torch, record, card) -> None:
                                for path, p in launches.items()}
 
 
+def segment_only(torch, record, card) -> None:
+    """``--segment-only``: phase 3's kernel checks (NMS, CLAHE), then phase
+    12. The kernel line holds all three kernels; the epilogue's times are
+    phase 12's, relu at the XUnet trunk's first conv."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    nms = check_nms_kernel(torch, record)
+    clahe = check_clahe_kernel(torch, record)
+    print(f"nms_suppress: bit-identical to plain on "
+          f"{len(record['nms_cases'])} cases; clahe_apply: raw f32 equal to "
+          f"plain on {len(record['clahe_cases'])} cases [{card}]", flush=True)
+    images, bounds, _ = render_tiles(np.random.default_rng(1), 8, SIZE)
+    launches = {}
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+         "int8_epilogue": requantize}, launches)
+    relu = segmentation(torch, record, card, launches, open_window,
+                        close_window, images, bounds)
+    epilogue = {
+        "name": "int8_epilogue", "route": "cuda",
+        "source": "aerial_image_recognition_tpu_torch/csrc/int8_epilogue.cu",
+        "replaces": "aerial_image_recognition_tpu/models/int8.py:364 (jnp "
+                    "chain fused by XLA; no TPU kernel)",
+        "act": "relu", **{k: relu[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "shape")}, "library_ms": None}
+    record["kernels"] = [nms, clahe, epilogue]
+    record["launches_by_path"] = launches
+    for entry in record["kernels"]:
+        entry["launches"] = sum(p.get(entry["name"], 0)
+                                for p in launches.values())
+        entry["launches_by_path"] = {path: p.get(entry["name"], 0)
+                                     for path, p in launches.items()}
+
+
 def main() -> None:
     modes = {"--scan-only": "chip_smoke_scan.json",
-             "--front-ends-only": "chip_smoke_front_ends.json"}
+             "--front-ends-only": "chip_smoke_front_ends.json",
+             "--segment-only": "chip_smoke_segment.json"}
     mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in modes:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
-             "--scan-only for the city scan's phases alone or with "
-             "--front-ends-only for the CLI's")
+             "--scan-only for the city scan's phases alone, with "
+             "--front-ends-only for the CLI's or with --segment-only for "
+             "segmentation's")
     try:
         import torch
     except ImportError as e:
@@ -2770,6 +3291,10 @@ def main() -> None:
         return
     if mode == "--front-ends-only":
         front_ends_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
+        return
+    if mode == "--segment-only":
+        segment_only(torch, record, card)
         finish(torch, record, name, modes[mode])
         return
 
@@ -3139,6 +3664,11 @@ def main() -> None:
 
     # 11. the front ends, each verb a child process on this card
     front_ends(torch, record, card, launches, open_window, close_window)
+
+    # 12. segmentation on the card
+    epilogue["xunet_relu"] = segmentation(
+        torch, record, card, launches, open_window, close_window, images,
+        bounds)
 
     for entry in (kernel, clahe, epilogue):
         entry["launches"] = sum(p.get(entry["name"], 0)

@@ -21,6 +21,7 @@ folds BN).
 """
 
 import argparse
+import base64
 import io
 import json
 import math
@@ -123,8 +124,8 @@ def test_every_verb_answers_help(verb, capsys):
     # the same flags, and --device on the verbs that build a model
     assert port_opts - {"--device", "--device DEVICE"} == jax_opts - {
         "--device"}
-    builds = verb in ("detect", "sweep", "geotiff", "serve", "predict",
-                      "export", "import-weights", "calibrate")
+    builds = verb in ("detect", "sweep", "geotiff", "serve", "automask",
+                      "predict", "export", "import-weights", "calibrate")
     assert ("--device" in port_opts) == builds
 
 
@@ -195,15 +196,11 @@ def _flat(tree, prefix=""):
     (["train", "--coco", "c.json", "--images", "im", "--out", "o.npz"],
      "training slice"),
     (["val", "--coco", "c.json", "--images", "im"], "training slice"),
-    (["automask", "x.tif"], "segmentation slice"),
-    (["serve", "--segment-params", "x.npz", "--device", "cpu"],
-     "segmentation slice"),
     (["bench"], "benchmark"),
     (["detect", "--data-parallel", "--device", "cpu"], "multi-GPU slice"),
     (["sweep", "--data-parallel", "2"], "multi-GPU slice"),
     (["serve", "--data-parallel", "--device", "cpu"], "multi-GPU slice"),
-], ids=["train", "val", "automask", "serve-segment", "bench", "detect-dp",
-        "sweep-dp", "serve-dp"])
+], ids=["train", "val", "bench", "detect-dp", "sweep-dp", "serve-dp"])
 def test_unported_verbs_and_flags_raise(argv, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         PC.main(argv)
@@ -375,6 +372,121 @@ def test_calibrate_equals_jax(tmp_path, capsys):
     assert line_p["windows"] == line_j["windows"] == 8
     got, want = json.load(open(out_p)), json.load(open(out_j))
     assert len(got) >= 50 and set(got) <= set(want)
+    for k, v in got.items():
+        np.testing.assert_allclose(v, want[k], rtol=1e-5, err_msg=k)
+
+
+XUNET = os.path.join(ROOT, "tests", "fixtures", "xunet_fakeworld.npz")
+BUILDINGS = dict(center_lon=21.0, center_lat=52.2, extent_deg=0.01,
+                 n_cars=150, n_buildings=120, seed=4)
+
+
+def _building_raster(tmp_path, side=512):
+    """The buildings' training world at 0.25 m/px around its centre."""
+    half = side * 0.125
+    bbox = (21.0 - half * M2LON, 52.2 - half * M2LAT, 21.0 + half * M2LON,
+            52.2 + half * M2LAT)
+    img = JF.FakeWorld(**BUILDINGS).render(bbox, side, side)
+    tif = str(tmp_path / "buildings.tif")
+    jax_write_geotiff(tif, img, (bbox[0], 0.25 * M2LON, 0.0, bbox[3], 0.0,
+                                 -0.25 * M2LAT), 4326)
+    return tif
+
+
+def test_automask_on_the_cpu_equals_jax_cli(tmp_path, capsys):
+    """``automask`` with ``--device cpu`` over a 512-px raster (2×2
+    windows, the verbs' bf16 XUnet) beside the JAX verb: instance counts
+    within one, instance masks at IoU >= 0.98; and the verb's GeoPackage
+    equals an in-process ``automask_geotiff`` of the same arguments."""
+    from aerial_image_recognition_tpu_torch.gio.geopackage import read_gpkg
+    from aerial_image_recognition_tpu_torch.gio.geotiff import read_geotiff
+    from aerial_image_recognition_tpu_torch.pipeline.automask import (
+        automask_geotiff)
+    tif = _building_raster(tmp_path)
+    args = [tif, "--params", XUNET, "--min-area", "100"]
+    out = {}
+    for pkg, main, extra in (("port", PC.main, ["--device", "cpu"]),
+                             ("jax", JC.main, [])):
+        assert main(["automask"] + args + [
+            "--out-mask", str(tmp_path / f"{pkg}.tif"),
+            "--out-polygons", str(tmp_path / f"{pkg}.gpkg")] + extra) == 0
+        out[pkg] = json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])["instances"]
+    assert out["jax"] >= 3 and abs(out["port"] - out["jax"]) <= 1
+    masks = [read_geotiff(str(tmp_path / f"{p}.tif")).data.reshape(512, 512)
+             > 0 for p in ("port", "jax")]
+    assert (masks[0] & masks[1]).sum() / (masks[0] | masks[1]).sum() >= 0.98
+    inst = automask_geotiff(tif, params=XUNET, min_area_px=100,
+                            output_polygons=str(tmp_path / "lib.gpkg"),
+                            device="cpu")
+    assert len(inst) == out["port"]
+    assert read_gpkg(str(tmp_path / "lib.gpkg")) == read_gpkg(
+        str(tmp_path / "port.gpkg"))
+
+
+def test_serve_segment_as_a_process(tmp_path):
+    """``serve --segment-params --device cpu`` answers ``/segment`` with the
+    mask of an in-process ``make_segment_fn`` over the same bf16 XUnet at
+    the same threshold, says so in ``/healthz``, and exits 0 on SIGINT."""
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        make_segment_fn)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    img = JF.FakeWorld(**BUILDINGS).render(
+        (21.0 - 32 * M2LON, 52.2 - 32 * M2LAT, 21.0 + 32 * M2LON,
+         52.2 + 32 * M2LAT), 256, 256)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    err = open(tmp_path / "serve.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aerial_image_recognition_tpu_torch", "serve",
+         "--port", "0", "--params", FIXTURE, "--batch", "1",
+         "--segment-params", XUNET, "--segment-batch", "2",
+         "--max-wait-ms", "5", "--device", "cpu"],
+        cwd=ROOT, env=dict(os.environ, **CHILD_THREADS),
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        line = json.loads(proc.stdout.readline())
+        with urllib.request.urlopen(line["serving"] + "/healthz",
+                                    timeout=60) as r:
+            assert json.load(r)["segment"] is True
+        req = urllib.request.Request(
+            f"{line['serving']}/segment?threshold=0.5",
+            data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.load(r)
+        mask = np.asarray(Image.open(io.BytesIO(
+            base64.b64decode(body["mask_png"])))) > 127
+        bundle = create_model("xunet_256", params_path=XUNET, device="cpu",
+                              fold_bn=True)
+        probs = make_segment_fn(bundle, DetectorConfig(
+            model_family="xunet"))(np.stack([img, img]))[0, ..., 0]
+        want = probs.numpy() >= 0.5
+        assert body["shape"] == [256, 256] and want.mean() >= 0.03
+        np.testing.assert_array_equal(mask, want)
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=120) == 0, (tmp_path / "serve.err") \
+            .read_text()[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+
+
+def test_calibrate_xunet_equals_jax(tmp_path, capsys):
+    """``calibrate --model xunet_256`` over two 256-px windows of the
+    buildings' world: the JAX verb's absmax at every ConvBN output within
+    rtol 1e-5 (BN folded here, not there)."""
+    tif = _building_raster(tmp_path)
+    out_p, out_j = str(tmp_path / "p.json"), str(tmp_path / "j.json")
+    args = [tif, "--model", "xunet_256", "--params", XUNET, "--window",
+            "256", "--max-windows", "2"]
+    assert PC.main(["calibrate"] + args + ["--out", out_p,
+                                           "--device", "cpu"]) == 0
+    assert JC.main(["calibrate"] + args + ["--out", out_j]) == 0
+    got, want = json.load(open(out_p)), json.load(open(out_j))
+    assert len(got) == 22 and set(got) <= set(want)
     for k, v in got.items():
         np.testing.assert_allclose(v, want[k], rtol=1e-5, err_msg=k)
 

@@ -198,11 +198,10 @@ def test_state_dict_shapes_equal_flax_init(name):
 
 
 def test_registry_matches_the_reference():
-    """Every detector the reference registers, with its family, classes
-    and input size; names resolve as there, the segmentation model is the
-    one refused by name."""
-    detectors = {k for k, v in JAX_REGISTRY.items() if v.family != "xunet"}
-    assert set(REGISTRY) == detectors
+    """Every model the reference registers (the detectors and the
+    segmentation model), with its family, classes and input size; names
+    resolve as there."""
+    assert set(REGISTRY) == set(JAX_REGISTRY)
     for name, spec in REGISTRY.items():
         ref = JAX_REGISTRY[name]
         assert (spec.family, spec.num_classes, spec.input_size,
@@ -211,7 +210,8 @@ def test_registry_matches_the_reference():
     for path in ("yolov8n.onnx", "models/YOLOv8x.onnx", "yolov8_tokyo",
                  "yolov8_tokyo_checkpoint.pt", "tokyo.onnx", "yolov8.onnx",
                  "yolov7_base", "car_aerial_detection_yolo7_ITCVD_deepness"
-                 ".onnx", "itcvd", "yolov7-w6.onnx"):
+                 ".onnx", "itcvd", "yolov7-w6.onnx", "xunet_256",
+                 "ramp_XUnet_256.onnx"):
         assert resolve_model_name(path) == jax_resolve(path), path
     for path in ("resnet.onnx", "detr"):
         with pytest.raises(KeyError):

@@ -185,9 +185,10 @@ def test_transcription_guard(both):
 
 def test_rejects_unsupported_families(both):
     """The counterpart of test_int8_rejects_unsupported_family: the
-    s2d_stem experiment keeps its message; the segmentation family says
-    which slice brings it. yolov7-base and yolov8 quantize
-    (tests/test_torch_families_int8.py)."""
+    s2d_stem experiment keeps its message; an xunet bundle is dispatched
+    to ``quantize_xunet`` as in the JAX package (the same class from the
+    same call; tests/test_torch_segment.py holds its qparams). yolov7-base
+    and yolov8 quantize (tests/test_torch_families_int8.py)."""
     import dataclasses
     pb = both["pb"]
 
@@ -196,9 +197,18 @@ def test_rejects_unsupported_families(both):
 
     with pytest.raises(NotImplementedError, match="s2d_stem experiment"):
         P.quantize_bundle(dataclasses.replace(pb, module=S2D()), [])
-    spec = dataclasses.replace(pb.spec, family="xunet")
-    with pytest.raises(NotImplementedError, match="slice"):
-        P.quantize_bundle(dataclasses.replace(pb, spec=spec), [])
+    from aerial_image_recognition_tpu.models.registry import (
+        REGISTRY as JAX_REGISTRY, ModelBundle as JaxModelBundle)
+    xb = create_model("xunet_256", dtype=torch.float32, device="cpu",
+                      fold_bn=True)
+    absmax = P.calibrate_absmax(xb, [np.zeros((1, 64, 64, 3), np.uint8)],
+                                model_size=64)
+    jx = J.quantize_bundle(JaxModelBundle(spec=JAX_REGISTRY["xunet_256"],
+                                          module=None,
+                                          params=xb.variables), [],
+                           absmax=absmax)
+    px = P.quantize_bundle(xb, [], absmax=absmax)
+    assert type(px).__name__ == type(jx).__name__ == "Int8XUnetBundle"
     for family, arch in (("yolov7", "base"), ("yolov8", "l")):
         assert P._family_meta(dataclasses.replace(pb.spec, family=family),
                               arch)["act"] == "silu"

@@ -9,6 +9,7 @@ unless given a device, and raise instead of falling back to the CPU.
 import ast
 import dataclasses
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -60,6 +61,9 @@ def test_import_check_covers_the_numpy_copies():
             "fetch/cache.py", "fetch/xyz.py", "fetch/wms.py",
             "fetch/wmts.py", "fetch/fake.py", "ingest/pipeline.py",
             "pipeline/detector.py"} <= names
+    # segmentation (the copies of mask_to_polygons and automask's numpy)
+    assert {"models/xunet.py", "pipeline/rasters.py",
+            "pipeline/automask.py", "pipeline/serve.py"} <= names
     # and the native sources it builds are the port's own copies
     assert {p.name for p in (PORT / "native").glob("*.cpp")} == {
         "fastgeo.cpp", "fastdecode.cpp"}
@@ -85,7 +89,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     from aerial_image_recognition_tpu_torch.models.registry import (
         create_model)
     from aerial_image_recognition_tpu_torch.pipeline import (
-        cli, rasters, simple)
+        automask, cli, rasters, simple)
     from aerial_image_recognition_tpu_torch.pipeline.inference import (
         build_detect_step)
     from aerial_image_recognition_tpu_torch.pipeline.predict import (
@@ -99,6 +103,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(rasters, "read_geotiff", no_input)
+    monkeypatch.setattr(automask, "read_geotiff", no_input)
     monkeypatch.setattr(simple, "XYZFetcher", no_input)
     tif = str(tmp_path / "in.tif")
     write_geotiff(tif, np.zeros((8, 8, 3), np.uint8),
@@ -106,12 +111,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     calls = [build_detect_step, create_model, DetectionServer,
              lambda: predict_images([tif]),
              lambda: rasters.detect_geotiff(tif),
+             lambda: rasters.segment_geotiff(tif),
+             lambda: automask.automask_geotiff(tif),
+             lambda: DetectionServer(
+                 detect_step=types.SimpleNamespace(batch=1, input_size=8),
+                 segment_params="xunet.npz"),
              lambda: simple.SimpleDetector(output_dir=str(tmp_path)),
              lambda: run_sweep(str(tmp_path), {"frame_path": "missing"},
                                tile_sizes=(64.0,))]
     for argv in (["detect", "--frame", "missing.geojson"],
                  ["sweep", "--frame", "missing.geojson"],
                  ["geotiff", tif], ["predict", tif], ["serve"],
+                 ["automask", tif],
                  ["calibrate", tif, "--out", str(tmp_path / "c.json")],
                  ["export", "missing.npz", str(tmp_path / "m.onnx")],
                  ["import-weights", "missing.onnx", "--out",
@@ -219,12 +230,16 @@ def test_unported_options_raise(tmp_path):
     hex_heatmap([{"lon": 21.0, "lat": 52.2, "confidence": 0.5}], 50.0,
                 output_geojson=heat)
     assert read_gpkg(heat)["layer"] == "hex_heatmap_output"
-    # the segmentation model is the only registry name still refused
+    # the segmentation model resolves and builds as in the JAX package
+    from aerial_image_recognition_tpu.models.registry import (
+        resolve_model_name as jax_resolve_model_name)
     for name in ("xunet_256", "ramp_XUnet_256.onnx"):
-        with pytest.raises(NotImplementedError, match="segmentation slice"):
-            create_model(name, device="cpu")
+        assert jax_resolve_model_name(name) == "xunet_256"
+        bundle = create_model(name, device="cpu", dtype=torch.float32)
+        assert bundle.spec.name == "xunet_256"
+        assert bundle.spec.family == "xunet"
     # the int8 branches that wait for their slice: the quad-stem entry (and
-    # with it the fully-int8 stems) of every detector family, and xunet
+    # with it the fully-int8 stems) of every detector family
     from aerial_image_recognition_tpu_torch.models.int8 import (
         quantize_bundle)
     for name in ("yolov7_itcvd", "yolov8n"):
@@ -237,10 +252,12 @@ def test_unported_options_raise(tmp_path):
         assert not hasattr(qb, "stems_int8") and "stems" not in qb.q
         with pytest.raises(NotImplementedError, match="quad"):
             qb.forward_s2d2(torch.zeros(1, 16, 16, 48, dtype=torch.uint8))
-    other = dataclasses.replace(
-        bundle, spec=dataclasses.replace(bundle.spec, family="xunet"))
-    with pytest.raises(NotImplementedError, match="slice"):
-        quantize_bundle(other, [])
+    # quantize_bundle dispatches an xunet bundle to quantize_xunet, as the
+    # JAX package's does
+    xunet = create_model("xunet_256", device="cpu", dtype=torch.float32)
+    qx = quantize_bundle(xunet, [np.zeros((1, 64, 64, 3), np.uint8)],
+                         model_size=64)
+    assert type(qx).__name__ == "Int8XUnetBundle"
 
 
 @pytest.mark.parametrize("flag", [2, True])
