@@ -16,8 +16,9 @@ the port's modules:
 ``export_torch_state`` is the inverse of the trunk mapping, and
 ``torch_state_from_variables`` of the whole import (the CLI's ``export``
 verb); ``validate_variable_shapes`` is the shape report ``import-weights``
-checks an imported tree with. The layer-index table for training freezes
-arrives with the training slice.
+checks an imported tree with; ``layer_index_prefixes`` maps the upstream
+yaml layer indices of a training freeze (``freeze=[0, 1, 2]``) to module
+paths.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -324,6 +325,39 @@ def yolov8_n_c2f(scale: str) -> Dict[str, int]:
     n3, n6 = _n(3, d), _n(6, d)
     return {"c2f1": n3, "c2f2": n6, "c2f3": n6, "c2f4": n3,
             "fpn4": n3, "fpn3": n3, "pan4": n3, "pan5": n3}
+
+
+def layer_index_prefixes(model_name: str) -> Dict[int, List[str]]:
+    """Upstream yaml layer index → the module-path prefixes of the flax
+    tree ('elan1/cv1', 'detect0', ...) — the ultralytics ``freeze=[0,1,2]``
+    addressing, through the same index tables the weight bridge uses.
+    Indices of parameterless layers (maxpool, upsample, concat) have no
+    entry."""
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        REGISTRY, resolve_model_name)
+    name = resolve_model_name(model_name)
+    family = REGISTRY[name].family
+    out: Dict[int, List[str]] = {}
+    if family == "yolov7":
+        table = _V7_BASE_CONVBN if name == "yolov7_base" else _V7_TINY_CONVBN
+        for idx, mod in table:
+            out.setdefault(idx, []).append(mod)
+        if name == "yolov7_base":
+            out[_V7_BASE_SPPCSPC_IDX] = ["sppcspc"]
+            for idx, mod in _V7_BASE_REPCONV:
+                out[idx] = [mod]
+            detect_idx = _V7_BASE_DETECT_IDX
+        else:
+            detect_idx = _V7_TINY_DETECT_IDX
+        out[detect_idx] = ["detect0", "detect1", "detect2"]
+        return out
+    if family == "yolov8":
+        for tp, mod in _v8_module_names({}):
+            out[int(tp.split(".")[1])] = [mod]
+        out[22] = ["detect"]
+        return out
+    raise KeyError(f"no upstream layer-index table for family {family!r} "
+                   f"({name})")
 
 
 def variables_from_torch_state(state_dict: Dict[str, np.ndarray],

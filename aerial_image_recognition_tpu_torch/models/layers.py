@@ -4,6 +4,11 @@ Counterpart of ``aerial_image_recognition_tpu/models/layers.py``: the same
 ConvBN block (SiLU, LeakyReLU(0.1), ReLU or none; with or without BN; the
 family's BN epsilon), pools and upsample, with parameter names that the
 weight bridge (``models/weights.py``) maps one to one from the flax tree.
+
+``BatchNorm`` is ``nn.BatchNorm2d`` for inference and flax's
+``nn.BatchNorm(momentum=0.97)`` for training (``set_bn_mode``): the trainer
+(``pipeline/train.py``) runs it in the reference's ``frozen`` or ``batch``
+mode.
 """
 
 from typing import Sequence, Union
@@ -20,6 +25,79 @@ ACTIVATIONS = {
     "relu": F.relu,
     "none": lambda x: x,
 }
+
+
+# flax's BatchNorm momentum: the weight of the OLD running average
+BN_MOMENTUM = 0.97
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with flax's training semantics, named like torch's.
+
+    ``mode`` None (the default) is ``nn.BatchNorm2d`` itself, in whatever
+    train/eval state the module is: the inference paths, unchanged. The
+    trainer sets one of flax's two modes on every BN (``set_bn_mode``):
+
+    * ``"frozen"`` — flax's ``use_running_average=True``: the running
+      statistics as a fixed affine, with trainable scale and bias;
+    * ``"batch"`` — flax's ``train=True``: the batch's own statistics,
+      computed in f32 over (N, H, W) with flax's fast variance
+      ``max(0, E[x²] − E[x]²)`` (biased).
+
+    Both normalize as flax does, ``(x − mean) · (rsqrt(var + eps) · scale)
+    + bias``. In ``batch`` mode the forward does NOT touch the running
+    buffers: it keeps the batch's statistics (detached) in ``batch_mean``
+    and ``batch_var``, once per forward — a recomputation under activation
+    checkpointing finds them set and leaves them — and the caller folds
+    them in, flax's way: ``ra = 0.97·ra + (1 − 0.97)·batch`` (the old
+    average weighted by the momentum, the biased variance). Clear them
+    with ``clear_batch_stats`` before each forward.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps)
+        self.mode = None
+        self.batch_mean = None
+        self.batch_var = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode is None:
+            return super().forward(x)
+        xf = x.float()
+        if self.mode == "batch":
+            mean = xf.mean(dim=(0, 2, 3))
+            # jnp.maximum: a tie's gradient is split, as flax's
+            var = torch.maximum((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                                torch.zeros((), device=xf.device))
+            if self.batch_mean is None:
+                self.batch_mean = mean.detach()
+                self.batch_var = var.detach()
+        elif self.mode == "frozen":
+            mean, var = self.running_mean, self.running_var
+        else:
+            raise ValueError(f"unknown BN mode {self.mode!r}")
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def set_bn_mode(module: nn.Module, mode) -> nn.Module:
+    """Set ``mode`` (None, "frozen" or "batch") on every ``BatchNorm`` of
+    ``module``; returns ``module``."""
+    if mode not in (None, "frozen", "batch"):
+        raise ValueError(f"unknown BN mode {mode!r}")
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mode = mode
+    return module
+
+
+def clear_batch_stats(module: nn.Module) -> None:
+    """Forget the batch statistics the last forward kept."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.batch_mean = m.batch_var = None
 
 
 def concat(xs: Tensors) -> torch.Tensor:
@@ -58,8 +136,7 @@ class ConvBN(nn.Module):
         self.act = act
         self.conv = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2,
                               bias=not use_bn)
-        self.bn = nn.BatchNorm2d(c_out, eps=bn_eps) if use_bn \
-            else nn.Identity()
+        self.bn = BatchNorm(c_out, eps=bn_eps) if use_bn else nn.Identity()
 
     def forward(self, x: Tensors) -> torch.Tensor:
         return ACTIVATIONS[self.act](self.bn(self.conv(concat(x))))

@@ -106,6 +106,22 @@ class ModelBundle:
         return decode_yolov7(outs, self.module.anchors,
                              self.spec.num_classes)
 
+    def trainable(self) -> nn.Module:
+        """A new unfused f32 copy of the model for training: built from
+        ``variables`` on the bundle's device (channels_last), in train
+        form — parameters that require grad, BN unfolded (``BatchNorm``,
+        whose training modes ``models/layers.set_bn_mode`` selects). The
+        bundle's own module is not touched, as training leaves the
+        reference's ``bundle.params`` alone."""
+        if self.variables is None:
+            raise ValueError("the bundle carries no flax-format variables "
+                             "to train from")
+        with torch.random.fork_rng(devices=[]):
+            module = self.spec.make_module()
+        load_flax_into(module, self.variables)
+        return module.float().to(device=self.device,
+                                 memory_format=torch.channels_last)
+
     def supports_s2d2(self) -> bool:
         """The quad-stem lowering is parked in the port: False for every
         family."""

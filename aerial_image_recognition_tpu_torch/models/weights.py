@@ -10,7 +10,9 @@ into a ``state_dict`` for the port's modules (``models/yolov7.YOLOv7``,
 ``models/yolov8.YOLOv8``), whose submodule names equal the flax scope
 names at any depth (``c2f1.m0.cv1``, ``detect.box0_out``). Only the leaf
 names and layouts differ; the table ``LEAF_MAP`` below is the whole
-mapping.
+mapping. ``state_dict_to_flax`` and ``params_to_flax`` go the other way,
+and ``grads_to_flax`` carries gradients across the same way, so that they
+can be compared with the reference's by flax path.
 """
 
 from collections.abc import Mapping
@@ -73,57 +75,99 @@ def _flatten(tree: Dict[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
+def torch_leaf_name(collection: str, path: Tuple[str, ...]
+                    ) -> Tuple[str, Optional[Callable]]:
+    """(torch state_dict name, flax → torch layout transform) of the flax
+    leaf ``collection/path``; raises on a leaf the table does not map."""
+    for n in (2, 1):
+        rule = LEAF_MAP.get((collection, tuple(path[-n:])))
+        if rule is not None and len(path) > n:
+            suffix, transform = rule
+            return ".".join(path[:-n]) + "." + suffix, transform
+    raise KeyError(f"no torch counterpart for flax leaf "
+                   f"{collection}/{'/'.join(path)}")
+
+
+_INVERSE = {suffix: (collection, path) for (collection, path),
+            (suffix, _) in LEAF_MAP.items()}
+
+
+def flax_leaf_path(name: str) -> Tuple[str, Tuple[str, ...]]:
+    """(collection, flax path) of the torch state_dict entry ``name``."""
+    parts = name.split(".")
+    n = 2 if ".".join(parts[-2:]) in _INVERSE else 1
+    suffix = ".".join(parts[-n:])
+    if suffix not in _INVERSE or len(parts) <= n:
+        raise KeyError(f"no flax counterpart for {name}")
+    collection, path = _INVERSE[suffix]
+    return collection, tuple(parts[:-n]) + path
+
+
+def _to_flax_layout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
+    if path[-2:] == ("conv", "kernel"):
+        return arr.transpose(2, 3, 1, 0)                      # OIHW → HWIO
+    if path[-1] == "kernel":
+        return arr.T[None, None]                              # [O,I] → 1×1 HWIO
+    return arr
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax variables → torch state_dict (f32 tensors on the CPU).
 
-    Leaves of the flax tree may be numpy or anything ``np.asarray`` takes.
-    Raises on any leaf the table does not map.
+    Leaves of the flax tree may be numpy, torch tensors or anything
+    ``np.asarray`` takes. Raises on any leaf the table does not map.
     """
     sd: Dict[str, torch.Tensor] = {}
     for collection, sub in tree.items():
         for path, leaf in _flatten(sub):
-            for n in (2, 1):
-                rule = LEAF_MAP.get((collection, path[-n:]))
-                if rule is not None and len(path) > n:
-                    break
-            else:
-                raise KeyError(f"no torch counterpart for flax leaf "
-                               f"{collection}/{'/'.join(path)}")
-            suffix, transform = rule
+            name, transform = torch_leaf_name(collection, path)
+            if isinstance(leaf, torch.Tensor):
+                leaf = leaf.detach().to("cpu", torch.float32).numpy()
             arr = np.array(leaf, dtype=np.float32)         # own copy
             if transform is not None:
                 arr = transform(arr)
-            name = ".".join(path[:-n]) + "." + suffix
             sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
 
 
-def params_to_flax(module: torch.nn.Module) -> Dict[str, Any]:
-    """The inverse bridge: an unfused module's parameters and BN statistics
-    → flax-format variables (f32 numpy copies, HWIO kernels). For models
-    built from random weights, whose only copy is the module."""
-    inverse = {suffix: (collection, path) for (collection, path),
-               (suffix, _) in LEAF_MAP.items()}
-    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
-    for name, t in module.state_dict().items():
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse bridge: torch-named tensors (a module's parameters and
+    BN statistics, or any subset of them, e.g. their gradients) →
+    flax-format variables (f32 numpy copies, HWIO kernels). BN's
+    ``num_batches_tracked`` counters are skipped."""
+    tree: Dict[str, Any] = {}
+    for name, t in sd.items():
         if name.endswith("num_batches_tracked"):
             continue
-        parts = name.split(".")
-        n = 2 if ".".join(parts[-2:]) in inverse else 1
-        suffix = ".".join(parts[-n:])
-        if suffix not in inverse or len(parts) <= n:
-            raise KeyError(f"no flax counterpart for {name}")
-        collection, path = inverse[suffix]
+        collection, path = flax_leaf_path(name)
         arr = t.detach().to("cpu", torch.float32).numpy().copy()
-        if path == ("conv", "kernel"):
-            arr = arr.transpose(2, 3, 1, 0)                   # OIHW → HWIO
-        elif path == ("kernel",):
-            arr = arr.T[None, None]                           # [O,I] → 1×1 HWIO
-        node = tree[collection]
-        for p in tuple(parts[:-n]) + path[:-1]:
+        node = tree.setdefault(collection, {})
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.ascontiguousarray(_to_flax_layout(path, arr))
     return tree
+
+
+def params_to_flax(module: torch.nn.Module) -> Dict[str, Any]:
+    """An unfused module's parameters and BN statistics → flax-format
+    variables (f32 numpy copies, HWIO kernels). For models built from
+    random weights, whose only copy is the module."""
+    return {"params": {}, "batch_stats": {},
+            **state_dict_to_flax(module.state_dict())}
+
+
+def grads_to_flax(grads) -> Dict[str, Any]:
+    """The grad bridge: gradients → a flax-format ``{"params": …}`` tree,
+    leaf for leaf comparable with ``jax.grad`` of the reference's loss.
+
+    ``grads`` is a module (its parameters' ``.grad``; parameters without
+    one are left out) or a mapping of torch parameter names to gradient
+    tensors (what ``pipeline.train`` computes). The layouts go through the
+    same transforms as the weights (OIHW → HWIO, Linear → 1×1 HWIO)."""
+    if isinstance(grads, torch.nn.Module):
+        grads = {n: p.grad for n, p in grads.named_parameters()
+                 if p.grad is not None}
+    return {"params": {}, **state_dict_to_flax(grads)}
 
 
 def load_flax_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:

@@ -4,9 +4,10 @@ Counterpart of ``aerial_image_recognition_tpu/ops/augment.py``: the
 original project's TTA ladder (brightness 1.4/1.6/1.8, gamma 1.5, three
 CLAHE parameterizations, per-variation confidence weights), generated on
 the device and stacked into the batch dimension (B·V images through one
-forward), then merged by weighted NMS. The reference's training-time
-``local_contrast`` approximant and its ``merge_tta_scores`` helper, which no
-detect path calls, come with the slice that first calls them.
+forward), then merged by weighted NMS. ``local_contrast`` is the
+reference's differentiable CLAHE approximant (``localcontrast_<clip>``,
+for training-time augmentation), ``shadow`` its shadow enhancement, and
+``merge_tta_scores`` its per-variation weighted max-merge of scores.
 
 Layout: images are NCHW, ``[B, 3, H, W]`` floats in 0..1 (the port's
 layout, usually a channels_last view of an NHWC buffer) — axis 1 is the
@@ -25,6 +26,7 @@ run in it, CLAHE computes in f32 and casts back.
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # (name, weight): confidence weights per variation, mirroring the
 # original project's table.
@@ -48,6 +50,41 @@ def gamma(x: torch.Tensor, g: float) -> torch.Tensor:
     return torch.clamp(x, 1e-6, 1.0) ** (1.0 / g)
 
 
+def local_contrast(x: torch.Tensor, clip: float = 2.0,
+                   grid: int = 8) -> torch.Tensor:
+    """CLAHE approximant: per-tile standardization of the luminance with
+    smooth statistics (tile means and deviations, resized bilinearly to
+    the image by ``jax.image.resize``'s weights: two f32 matrix products
+    with ``ops/preprocess._resize_matrix``), gain limited by ``clip``,
+    chroma ratios reapplied. x [B,3,H,W] float in 0..1."""
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        _resize_matrix)
+    h, w = x.shape[-2:]
+    lum = x.mean(dim=1, keepdim=True)                       # [B,1,H,W]
+    th, tw = h // grid, w // grid
+    cnt = float(th * tw)
+    mean = F.avg_pool2d(lum, (th, tw), (th, tw), divisor_override=1) / cnt
+    sq = F.avg_pool2d(lum * lum, (th, tw), (th, tw), divisor_override=1) \
+        / cnt
+    var = torch.clamp_min(sq - mean ** 2, 1e-6)
+
+    def resize(t):
+        ry = torch.from_numpy(_resize_matrix(t.shape[-2], h, "bilinear"))
+        rx = torch.from_numpy(_resize_matrix(t.shape[-1], w, "bilinear"))
+        ry, rx = ry.to(t.device), rx.to(t.device)
+        return torch.matmul(torch.matmul(ry, t.float()), rx.T).to(t.dtype)
+
+    if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("local_contrast's resize needs f32 matrix "
+                           "products at 'highest' precision (not TF32)")
+    mean_f = resize(mean)
+    std_f = resize(torch.sqrt(var))
+    gain = torch.clamp(0.2 / (std_f + 1e-4), 1.0 / clip, clip)
+    out = (lum - mean_f) * gain + mean_f
+    ratio = x / torch.clamp_min(lum, 1e-4)
+    return torch.clamp(out * ratio, 0.0, 1.0)
+
+
 def enhance_shadows(x: torch.Tensor) -> torch.Tensor:
     """Shadow enhancement: brightness 1.8 then contrast 1.2 around the
     per-image mean (over C, H and W)."""
@@ -58,22 +95,28 @@ def enhance_shadows(x: torch.Tensor) -> torch.Tensor:
 
 def _split(name: str) -> Tuple[str, float]:
     kind, _, val = name.partition("_")
-    if kind not in ("brightness", "gamma", "clahe") or not val:
+    if kind not in ("brightness", "gamma", "clahe", "localcontrast") \
+            or not val:
         raise KeyError(f"unknown TTA variation {name!r}")
     return kind, float(val)
 
 
 def apply_variation(x: torch.Tensor, name: str, *,
                     clahe_hist_subsample: int = 1) -> torch.Tensor:
-    """One variation of the ladder: 'original', 'brightness_<f>',
-    'gamma_<g>' or 'clahe_<clip>'."""
+    """One variation of the ladder: 'original', 'shadow',
+    'brightness_<f>', 'gamma_<g>', 'clahe_<clip>' or
+    'localcontrast_<clip>'."""
     if name == "original":
         return x
+    if name == "shadow":
+        return enhance_shadows(x)
     kind, v = _split(name)
     if kind == "brightness":
         return brightness(x, v)
     if kind == "gamma":
         return gamma(x, v)
+    if kind == "localcontrast":
+        return local_contrast(x, clip=v)
     # exact tile-histogram CLAHE on the LAB lightness channel;
     # clahe_hist_subsample > 1 estimates the per-tile histograms from a
     # stride-s lattice (1 = bit-exact)
@@ -108,3 +151,12 @@ def expand_tta(x: torch.Tensor,
     w = torch.tensor([wt for _, wt in variations], dtype=x.dtype,
                      device=x.device)
     return torch.cat(outs, dim=0), w
+
+
+def merge_tta_scores(scores: torch.Tensor, weights: torch.Tensor,
+                     batch: int) -> torch.Tensor:
+    """[B·V, A, nc] → [B, A, nc]: per-variation confidence weighting, then
+    the max across variations (variation-major order, as ``expand_tta``)."""
+    v = weights.shape[0]
+    s = scores.reshape(v, batch, *scores.shape[1:])
+    return torch.amax(s * weights[:, None, None, None], dim=0)

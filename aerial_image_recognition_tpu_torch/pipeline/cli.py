@@ -7,11 +7,12 @@ verb that builds a model. Without it the model runs on ``cuda``, and a
 machine without CUDA makes the verb exit non-zero before it reads or
 fetches anything; ``--device cpu`` runs on the CPU explicitly.
 
-Ported verbs: detect, sweep, doctor, geotiff, serve (with ``/segment``
-under ``--segment-params``), automask, predict, import-weights, export,
-calibrate. Parsed, then refused with NotImplementedError naming what
-brings them: train and val (the training slice), ``--data-parallel`` on
-any verb (the multi-GPU slice) and bench (the port's benchmark).
+Ported verbs: detect, sweep, doctor, train, geotiff, serve (with
+``/segment`` under ``--segment-params``), automask, predict, val,
+import-weights, export, calibrate. Parsed, then refused with
+NotImplementedError naming what brings them: ``--data-parallel`` on any
+verb (the multi-GPU slice; ``train`` takes the flag here too, where the
+reference's verb has none) and bench (the port's benchmark).
 
 Usage:
   python -m aerial_image_recognition_tpu_torch detect --frame warsaw.shp \\
@@ -115,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "(check_gpu.py parity)")
 
     pt = sub.add_parser("train", help="train a detector from COCO labels "
-                        "(arrives with the training slice)")
+                        "(01_train_tokyo.ipynb workflow)")
     pt.add_argument("--coco", required=True, help="COCO instances json")
     pt.add_argument("--images", required=True, help="image directory")
     pt.add_argument("--model", default="yolov8_tokyo")
@@ -153,6 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--ema", type=float, default=0.0, metavar="DECAY",
                     help="EMA weight averaging, e.g. 0.9999")
     pt.add_argument("--out", required=True, help="output checkpoint (.npz)")
+    pt.add_argument("--data-parallel", dest="data_parallel", nargs="?",
+                    const=True, type=int, default=None, metavar="N",
+                    help="shard the training batch over all (or N) cards "
+                         "(arrives with the multi-GPU slice)")
+    _add_device(pt)
 
     pg = sub.add_parser("geotiff", help="sliding-window detection over a "
                         "GeoTIFF (02_analyze_images workflow)")
@@ -222,7 +228,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(pp)
 
     pl = sub.add_parser("val", help="evaluate a checkpoint's mAP on a "
-                        "COCO-labeled set (arrives with the training slice)")
+                        "COCO-labeled set (notebook cell 22)")
     pl.add_argument("--coco", required=True)
     pl.add_argument("--images", required=True)
     pl.add_argument("--model", default="yolov8_tokyo")
@@ -230,6 +236,7 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--imgsz", type=int, default=640)
     pl.add_argument("--batch", type=int, default=8)
     pl.add_argument("--confidence", type=float, default=0.25)
+    _add_device(pl)
 
     pe = sub.add_parser("export", help="export a trained checkpoint as a "
                         "reference-format .onnx initializer blob (torch "
@@ -271,8 +278,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # what brings each verb or flag the port parses but does not run yet
 _LATER = {
-    "train": "the train verb arrives with the training slice of the port",
-    "val": "the val verb arrives with the training slice of the port",
     "bench": "the bench verb arrives with the port's own benchmark; until "
              "then chip_smoke.py measures the port on the card",
 }
@@ -281,6 +286,82 @@ _LATER = {
 def _f32_tree(tree):
     return {k: _f32_tree(v) if isinstance(v, dict)
             else np.asarray(v, np.float32) for k, v in tree.items()}
+
+
+def _coco_samples(args):
+    import dataclasses
+    import os
+
+    from aerial_image_recognition_tpu_torch.pipeline.data import (
+        TOKYO_CLASS_REMAP, coco_to_yolo)
+    remap = TOKYO_CLASS_REMAP if "tokyo" in args.model else None
+    samples = coco_to_yolo(args.coco, class_remap=remap)
+    return [dataclasses.replace(
+        s, image_path=os.path.join(args.images,
+                                   os.path.basename(s.image_path)))
+        for s in samples]
+
+
+def _train_or_val(args) -> int:
+    """The train and val verbs: the reference's, on ``--device``."""
+    import torch
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model, save_params)
+    from aerial_image_recognition_tpu_torch.pipeline.data import (
+        DetectionLoader, LoaderConfig, train_val_split)
+    from aerial_image_recognition_tpu_torch.pipeline.train import (
+        evaluate, fit)
+    from aerial_image_recognition_tpu_torch.runtime.device import (
+        resolve_device)
+    # without CUDA and without --device this raises before any read
+    device = resolve_device(args.device)
+    samples = _coco_samples(args)
+    vcfg = LoaderConfig(image_size=args.imgsz, batch_size=args.batch,
+                        mosaic=0.0, mixup=0.0, hsv=0.0)
+    if args.command == "val":
+        loader = DetectionLoader(samples, vcfg, train=False)
+        bundle = create_model(args.model, dtype=torch.float32,
+                              params_path=args.params, device=device)
+        metrics = evaluate(bundle, bundle.variables, loader,
+                           conf_threshold=args.confidence)
+        print(json.dumps({"model": args.model, "params": args.params,
+                          "n_images": len(samples), **metrics}))
+        return 0
+
+    train_s, val_s = train_val_split(samples, args.n_train)
+    lcfg = LoaderConfig(image_size=args.imgsz, batch_size=args.batch,
+                        copy_paste=args.copy_paste,
+                        fliplr=args.fliplr, flipud=args.flipud,
+                        close_mosaic=args.close_mosaic,
+                        scale=args.scale, translate=args.translate)
+    freeze = ([s.strip() for s in args.freeze.split(",") if s.strip()]
+              if args.freeze else None)
+    # checkpoints may carry bf16 inference weights: the reader widens them
+    # to f32, which the optimizer needs
+    bundle = create_model(args.model, dtype=torch.float32,
+                          params_path=args.params, device=device)
+    state = fit(bundle, DetectionLoader(train_s, lcfg),
+                epochs=args.epochs, lr=args.lr,
+                eval_loader=DetectionLoader(val_s, vcfg, train=False),
+                eval_every=max(1, args.epochs // 10),
+                bn_mode=args.bn_mode, lr_schedule=args.lr_schedule,
+                warmup_epochs=args.warmup_epochs, ema_decay=args.ema,
+                freeze=freeze, patience=args.patience or None)
+    history = state.pop("history")
+    # the weights to deploy: the best-fitness epoch when eval tracked one
+    # (ultralytics best.pt), else the final (EMA when enabled) weights
+    best = state.get("best")
+    if best is not None:
+        save_params({"params": best["params"],
+                     "batch_stats": best["batch_stats"]}, args.out)
+    else:
+        save_params({"params": state.get("ema_params", state["params"]),
+                     "batch_stats": state["batch_stats"]}, args.out)
+    out = {"checkpoint": args.out, "final": history[-1]}
+    if best is not None:
+        out["best"] = {"epoch": best["epoch"], "fitness": best["fitness"]}
+    print(json.dumps(out))
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -371,6 +452,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         write_minimal_onnx(args.out, tensors)
         print(json.dumps({"out": args.out, "tensors": len(tensors)}))
         return 0
+
+    if args.command in ("train", "val"):
+        return _train_or_val(args)
 
     if args.command == "doctor":
         from aerial_image_recognition_tpu_torch.runtime.doctor import (

@@ -14,7 +14,7 @@ Phases (any failure exits nonzero, and no result line is printed):
      class-agnostic and class-aware, score ties, all below the confidence
      threshold, tile-like rows that end early; K=40 < D, K=250, K=1024 with
      D=128, the city scan's B=64, K=1024, D=256 and predict's B=16, K=512,
-     D=128; and two rows outside
+     D=128, and evaluate's B=8 and B=3, K=512, D=128; and two rows outside
      the priority-order contract, which take
      the kernel's general path) with bit-identical picks, timed on the
      sweep, on a tile-like input and on the general path (device time of
@@ -137,10 +137,36 @@ Phases (any failure exits nonzero, and no result line is printed):
      0 after SIGINT; (f) ms per batch of 16 (bf16, int8; host and device
      input), tiles/s, GFLOP a tile and the share of its bf16 bound, peak
      memory, a profile of each.
+ 13. training, run last (``pipeline/train.py``, f32, cuDNN's TF32 off in
+     the trainer): (a) YOLOv7-tiny fine-tuned from the trained fixture at
+     640 px, batch 16, frozen BN, ``freeze=[0,1,2]``, lr 1e-4, on 64
+     rendered tiles at 0.5 m/px (a ``DetectionLoader`` with mosaic 0), two
+     epochs, evaluated after each on 16 held-out tiles in batches of 8:
+     one step on the card against the same step on the CPU (2 tiles; loss
+     within rtol 1e-4, every gradient leaf within 1e-3 of its largest
+     magnitude), finite losses, mAP50 no worse than before less 0.02,
+     frozen leaves bit-identical to the fixture's, one NMS launch an eval
+     batch, one epoch to a checkpoint plus a resumed epoch against the two
+     uninterrupted epochs (under ``torch.use_deterministic_algorithms``,
+     warn only: bit-exactness recorded, held within 2·lr a step and 1 % of
+     the elements beyond 1e-6); ms a step, images/s, the share of the f32
+     bound (3 × the forward's FLOPs), peak memory; (b) YOLOv8l at the
+     ``train`` verb's defaults (768 px, batch 8, batch BN), seeded weights
+     rescaled to unit variance: 2 + 10 timed steps, ``recalibrate_bn`` for
+     one pass, finite losses and statistics; one batch step of the trained
+     yolov8n at 96 px, running statistics card vs CPU within 1e-4 of their
+     largest magnitude; one remat step against the plain one (statistics
+     equal, params within 2·lr); (c) XUnet from its trained fixture, 256
+     px, batch 16, frozen BN, 8 steps with mask targets through
+     ``fit(eval_fn=mask IoU)`` on 16 held-out tiles: finite, IoU no worse
+     than before less 0.005; (d) the ``train`` verb (2 epochs, 16 of 24
+     JPEG tiles of a COCO json) and ``val`` on its checkpoint as counted
+     children: exit 0, their JSON, val's mAP50 equal to an in-process
+     ``evaluate`` of the checkpoint, one NMS launch an eval batch in each.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-9a, 9b, 9c, 9d, 11i, 12a–e) and read just after it, or read from the child
-that ran the path (11b–h, 12e); every kernel of a path must have launched in
-its window. The steps are profiled after every timed step (YOLOv8l's at
+9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c) and read just after it, or read from the
+child that ran the path (11b–h, 12e, 13d); every kernel of a path must have
+launched in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
 whether a profile earlier in the process moves later timings.
 
@@ -156,7 +182,12 @@ against its plain version and phase 11 (record in
 ``chiprun_out/chip_smoke_front_ends.json``);
 ``python3 chip_smoke.py --segment-only`` runs phases 1–2, the NMS and CLAHE
 kernels against their plain versions and phase 12 (record in
-``chiprun_out/chip_smoke_segment.json``).
+``chiprun_out/chip_smoke_segment.json``);
+``python3 chip_smoke.py --train-only`` runs phases 1–2, the NMS kernel
+against its plain version (evaluate's B=8 and ragged B=3, K=512, D=128
+among the cases) and phase 13 (record in
+``chiprun_out/chip_smoke_train.json``, the verbs' logs under
+``chiprun_out/training/``).
 """
 
 import io
@@ -323,6 +354,10 @@ NMS_CASES = [
     # predict's shape (phase 11f): 16 images a chunk, the default
     # pre_topk of 512 candidates, 128 slots, one class
     ("wide-k512-d128", "random", False, 16, 512, 128),
+    # the trainer's evaluate (phase 13): eval batches of 8 and a ragged
+    # tail, 512 candidates, 128 slots, class-aware
+    ("eval-b8-k512-d128", "random", True, 8, 512, 128),
+    ("eval-tail-b3-k512-d128", "random", True, 3, 512, 128),
 ]
 
 
@@ -974,14 +1009,20 @@ def recall(out, bounds, cars, radius_m: float = 2.0) -> float:
 def profile_step(torch, step, images, bounds, n: int = 3):
     """Device time by kernel over n steps with the batch on the card
     (torch.profiler), and the device's idle share of the wall time."""
+    return profile_calls(torch, lambda: step(images, bounds), n)
+
+
+def profile_calls(torch, fn, n: int = 3):
+    """Device time by kernel over n calls of fn() after one more
+    (torch.profiler), and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    step(images, bounds)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(images, bounds)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
     rows = []
@@ -3108,6 +3149,565 @@ def segmentation(torch, record, card, launches, open_window, close_window,
     return relu
 
 
+# ------------------------------------------------------------- phase 13
+
+TRAIN_B, TRAIN_TILES, TRAIN_EVAL_TILES = 16, 64, 16     # 13a
+TRAIN_EVAL_B = 8                                       # the eval batch
+V8L_B, V8L_SIZE = 8, 768                               # the train verb's
+VERB_TILES, VERB_TRAIN = 24, 16                        # 13d
+TRAIN_LR = 1e-4
+
+
+def tile_targets(bounds, cars, size: int, px_per_m: float = 2.0):
+    """render_tiles' cars as the loader's normalized targets: [N, 5] rows
+    (0, cx, cy, w, h) of the 4.5×2 m rectangles it drew, per tile."""
+    import numpy as np
+    m2lon = 1.0 / (111319.9 * math.cos(math.radians(52.2)))
+    m2lat = 1.0 / 111319.9
+    out = []
+    for (west, _south, _east, north), truth in zip(bounds, cars):
+        rows = []
+        for lon, lat in truth:
+            cx = (lon - float(west)) / m2lon
+            cy = (float(north) - lat) / m2lat
+            x1, x2 = int((cx - 2.25) * px_per_m), int((cx + 2.25) * px_per_m)
+            y1, y2 = int((cy - 1.0) * px_per_m), int((cy + 1.0) * px_per_m)
+            rows.append((0, (x1 + x2) / 2 / size, (y1 + y2) / 2 / size,
+                         (x2 - x1) / size, (y2 - y1) / size))
+        out.append(np.asarray(rows, np.float32).reshape(-1, 5))
+    return out
+
+
+def memory_loader(tiles, targets, batch: int, train: bool, **cfg):
+    """A DetectionLoader over tiles held in memory (``decode_fn``)."""
+    from aerial_image_recognition_tpu_torch.pipeline.data import (
+        DetectionLoader, LoaderConfig, Sample)
+    samples = [Sample(f"mem:{i}", t) for i, t in enumerate(targets)]
+    return DetectionLoader(
+        samples, LoaderConfig(image_size=tiles.shape[1], batch_size=batch,
+                              **cfg),
+        decode_fn=lambda path: tiles[int(path.split(":")[1])], train=train)
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def leaf_errors(got, want):
+    """{leaf: max |got − want| / max |want|} of two flax-format trees."""
+    import numpy as np
+    g, w = flat_tree(got), flat_tree(want)
+    if g.keys() != w.keys():
+        fail(f"trees differ in their leaves: {sorted(g.keys() ^ w.keys())[:4]}")
+    return {k: float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max()
+                     / max(float(np.abs(np.asarray(w[k])).max()), 1e-30))
+            for k in w}
+
+
+def timed_train_steps(torch, step, state, batch, n: int, warmup: int = 2):
+    """(state, ms a step by CUDA events over n steps after warmup, the
+    losses) of a train step on one batch held on the host."""
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, *batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = []
+    for _ in range(n):
+        state, m = step(state, *batch)
+        out.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    losses += [float(v) for v in out]
+    return state, start.elapsed_time(end) / n, losses
+
+
+def profile_train_steps(torch, step, state, batch, n: int = 2):
+    """profile_calls over n train steps on one batch held on the host."""
+    held = {"state": state}
+
+    def one():
+        held["state"], _ = step(held["state"], *batch)
+    return profile_calls(torch, one, n)
+
+
+def print_profile(label, prof, card, top: int = 6):
+    if "top" in prof:
+        print(f"{label}: device busy {prof['device_busy_ms_per_step']:.2f} "
+              f"of {prof['wall_ms_per_step_profiled']:.2f} ms a step, idle "
+              f"share {prof['idle_share']:.3f}, top: " + "; ".join(
+                  f"{r['ms_per_step']:.3f} ms {r['name'][:50]}"
+                  for r in prof["top"][:top]) + f" [{card}]", flush=True)
+
+
+def train_forward_flops(torch, step, state, images) -> float:
+    """Multiply-adds ×2 of one forward of the trainer's module on images
+    (forward hooks, as forward_flops)."""
+    from aerial_image_recognition_tpu_torch.models.layers import (
+        clear_batch_stats, set_bn_mode)
+    from aerial_image_recognition_tpu_torch.pipeline.train import (
+        _apply, _images_in)
+    set_bn_mode(step.module, step.bn_mode)
+    with torch.no_grad():
+        flops = forward_flops(torch, step.module, lambda: _apply(
+            step.module, state["params"], state["batch_stats"],
+            _images_in(images, "cuda")))
+    clear_batch_stats(step.module)
+    return flops
+
+
+def train_13a(torch, record, card, launches, open_window, close_window,
+              base):
+    """13a: YOLOv7-tiny from the trained fixture, fine-tuned at 640 px,
+    batch 16, f32, frozen BN, freeze 0,1,2, lr 1e-4, on 64 rendered tiles
+    at 0.5 m/px; evaluated on 16 held-out tiles in batches of 8."""
+    import shutil
+    import tempfile
+    import warnings
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        grads_to_flax, load_params)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    from aerial_image_recognition_tpu_torch.pipeline import train as T
+
+    rng = np.random.default_rng(13)
+    tiles, bounds, cars = render_tiles(rng, TRAIN_TILES + TRAIN_EVAL_TILES,
+                                       SIZE)
+    targets = tile_targets(bounds, cars, SIZE)
+    train_loader = memory_loader(tiles[:TRAIN_TILES], targets[:TRAIN_TILES],
+                                 TRAIN_B, True, mosaic=0.0, seed=0)
+    eval_loader = memory_loader(tiles[TRAIN_TILES:], targets[TRAIN_TILES:],
+                                TRAIN_EVAL_B, False, mosaic=0.0, mixup=0.0,
+                                hsv=0.0)
+    eval_batches = -(-TRAIN_EVAL_TILES // TRAIN_EVAL_B)
+    freeze = [0, 1, 2]
+    out = {"tiles": TRAIN_TILES, "eval_tiles": TRAIN_EVAL_TILES,
+           "size": SIZE, "batch": TRAIN_B, "lr": TRAIN_LR, "freeze": freeze,
+           "bn_mode": "frozen"}
+
+    # 1. one step on the card against the same step on the CPU, 2 tiles
+    pair = next(iter(memory_loader(tiles[:2], targets[:2], 2, False,
+                                   mosaic=0.0, mixup=0.0, hsv=0.0).epoch(0)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        b = create_model("yolov7_itcvd", dtype=torch.float32,
+                         params_path=FIXTURE, device=dev)
+        tx = T.make_optimizer(lr=TRAIN_LR)
+        step = T.make_train_step(b, tx, bn_mode="auto", freeze=freeze)
+        loss, _, g, _ = step.loss_and_grads(T.init_train_state(b, tx), *pair)
+        grads[dev] = (float(loss), grads_to_flax(g)["params"])
+    (cpu_loss, cpu_g), (card_loss, card_g) = grads["cpu"], grads["cuda"]
+    rel = leaf_errors(card_g, cpu_g)
+    out["card_vs_cpu"] = {
+        "loss_cpu": cpu_loss, "loss_card": card_loss,
+        "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+        "grad_max_rel_to_leaf_max": max(rel.values()),
+        "grad_worst_leaf": max(rel, key=rel.get), "leaves": len(rel)}
+    # f32 convolutions summed in another order (the CPU accumulates its
+    # reductions in f64, the card in f32); cuDNN's TF32 off in both steps
+    if out["card_vs_cpu"]["loss_rel"] > 1e-4 or max(rel.values()) > 1e-3:
+        fail(f"13a: the train step on the card differs from the CPU's: "
+             f"{out['card_vs_cpu']}")
+    del grads
+
+    # the main path: fit (two epochs, eval each epoch) under the counters
+    bundle = create_model("yolov7_itcvd", dtype=torch.float32,
+                          params_path=FIXTURE, device="cuda")
+    before = T.evaluate(bundle, bundle.variables, eval_loader)
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    logs = []
+    ck = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            open_window()
+            state = T.fit(bundle, train_loader, epochs=2, lr=TRAIN_LR,
+                          eval_loader=eval_loader, freeze=freeze,
+                          log_fn=logs.append)
+            torch.cuda.synchronize()
+            close_window("train_13a", ["nms_suppress"])
+            fit_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # resume: one epoch to a checkpoint, then a resumed second
+            one = T.fit(bundle, train_loader, epochs=1, lr=TRAIN_LR,
+                        freeze=freeze, ckpt_dir=ck, log_fn=logs.append)
+            two = T.fit(bundle, train_loader, epochs=2, lr=TRAIN_LR,
+                        freeze=freeze, ckpt_dir=ck, log_fn=logs.append)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(ck, ignore_errors=True)
+    nondeterministic = sorted({str(w.message)[:120] for w in caught
+                               if "deterministic" in str(w.message)})
+    hist = state["history"]
+    after = hist[-1]
+    losses = [r["loss"] for r in hist]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"13a: losses {losses}")
+    if after["mAP50"] < before["mAP50"] - 0.02:
+        fail(f"13a: mAP50 fell from {before['mAP50']:.4f} to "
+             f"{after['mAP50']:.4f}")
+    fixture = flat_tree(load_params(FIXTURE)["params"])
+    trained = flat_tree(state["params"])
+    frozen = [k for k in trained if k.split("/")[0] in ("stem0", "stem1")
+              or k.startswith("elan1/cv1/")]
+    if not frozen or any(not np.array_equal(trained[k], fixture[k])
+                         for k in frozen):
+        fail("13a: a frozen leaf moved")
+    if not any(not np.array_equal(trained[k], fixture[k]) for k in trained
+               if k not in frozen):
+        fail("13a: no trainable leaf moved")
+    n_nms = launches["train_13a"]["nms_suppress"]
+    if n_nms != 2 * eval_batches:
+        fail(f"13a: {n_nms} NMS launches for 2 evaluations of "
+             f"{eval_batches} batches")
+    per_epoch = TRAIN_TILES // TRAIN_B
+    if not any(f"resumed from epoch 0 (step {per_epoch})" in m
+               for m in logs):
+        fail(f"13a: the second fit did not resume: {logs[-3:]}")
+    # the resumed run against the uninterrupted one
+    steps = 2 * per_epoch
+    g, w = flat_tree(two["params"]), flat_tree(state["params"])
+    diff = np.concatenate([np.abs(g[k] - w[k]).ravel() for k in w])
+    resume = {"bit_exact": bool(diff.max() == 0),
+              "max_abs_diff": float(diff.max()),
+              "share_above_1e-6": float((diff > 1e-6).mean()),
+              "loss_epoch1": [two["history"][-1]["loss"], hist[-1]["loss"]],
+              "step": [int(two["step"]), int(state["step"])],
+              "nondeterministic_ops": nondeterministic}
+    # Adam moves a leaf by about lr a step whatever its gradient's size, so
+    # a noise-level gradient that flips sign moves it by 2·lr
+    if (resume["step"] != [steps, steps]
+            or resume["max_abs_diff"] > 2 * TRAIN_LR * steps + 1e-6
+            or resume["share_above_1e-6"] > 0.01
+            or abs(resume["loss_epoch1"][0] - resume["loss_epoch1"][1])
+            > 1e-3 * abs(resume["loss_epoch1"][1])):
+        fail(f"13a: the resumed run differs from the uninterrupted one: "
+             f"{resume}")
+
+    # time: steps on one batch, outside the deterministic mode
+    tx = T.make_optimizer(lr=TRAIN_LR, param_mask=T._freeze_mask(
+        bundle.variables["params"], T.resolve_freeze_prefixes(bundle,
+                                                              freeze)))
+    step = T.make_train_step(bundle, tx, freeze=freeze)
+    batch = next(iter(train_loader.epoch(0)))
+    s = T.init_train_state(bundle, tx)
+    flops = train_forward_flops(torch, step, s, batch[0])
+    torch.cuda.reset_peak_memory_stats()
+    s, ms, _ = timed_train_steps(torch, step, s, batch, 10)
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out["profile"] = profile_train_steps(torch, step, s, batch)
+    bound_ms = 3 * flops / F32_FLOPS * 1e3
+    out.update(
+        mAP50_before=before["mAP50"], mAP50_95_before=before["mAP50_95"],
+        mAP50_after=after["mAP50"], mAP50_95_after=after["mAP50_95"],
+        history=hist, fit_s=fit_s, fit_peak_mem_gb=peak_gb,
+        frozen_leaves_equal=len(frozen), nms_launches=n_nms,
+        eval_batches_per_eval=eval_batches, resume=resume,
+        step_ms=ms, images_per_s=TRAIN_B / ms * 1e3,
+        forward_gflop=flops / 1e9, bound_ms=bound_ms,
+        bound_share=bound_ms / ms, step_peak_mem_gb=step_peak_gb)
+    record["training"]["13a"] = out
+    print(f"13a yolov7-tiny fine-tune, {SIZE} px, batch {TRAIN_B}, f32, "
+          f"frozen BN, freeze 0,1,2: card vs CPU loss rel "
+          f"{out['card_vs_cpu']['loss_rel']:.2e}, grads within "
+          f"{out['card_vs_cpu']['grad_max_rel_to_leaf_max']:.2e} of their "
+          f"leaf's largest; losses {[round(v, 4) for v in losses]}; mAP50 "
+          f"{before['mAP50']:.4f} -> {after['mAP50']:.4f}; {n_nms} NMS "
+          f"launches in 2 evals; resume bit-exact {resume['bit_exact']} "
+          f"(max diff {resume['max_abs_diff']:.2e}); {ms:.2f} ms/step, "
+          f"{TRAIN_B / ms * 1e3:.1f} images/s, {bound_ms / ms:.3f} of the "
+          f"{bound_ms:.2f} ms f32 bound ({flops / 1e9:.1f} GFLOP a "
+          f"forward), peak {out['step_peak_mem_gb']:.2f} GB [{card}]",
+          flush=True)
+    print_profile("13a profile", out["profile"], card)
+
+
+class BatchLoader:
+    """A loader of fixed batches: ``epoch(i)`` yields them in order."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, _i):
+        yield from self.batches
+
+
+def train_13b(torch, record, card, open_window, close_window):
+    """13b: YOLOv8l at the train verb's defaults (768 px, batch 8, batch
+    BN), seeded unit-variance weights: timed steps, recalibration, flax BN
+    semantics card vs CPU on the trained nano, remat against plain."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.pipeline import train as T
+
+    rng = np.random.default_rng(14)
+    tiles, bounds, cars = render_tiles(rng, V8L_B, V8L_SIZE)
+    loader = memory_loader(tiles, tile_targets(bounds, cars, V8L_SIZE),
+                           V8L_B, False, mosaic=0.0, mixup=0.0, hsv=0.0)
+    batch = next(iter(loader.epoch(0)))
+    tree = unit_variance_tree(torch, "yolov8_tokyo", tiles[:, :SIZE, :SIZE])
+    bundle = create_model("yolov8_tokyo", dtype=torch.float32,
+                          variables=tree, device="cuda")
+    tx = T.make_optimizer(lr=TRAIN_LR)
+    step = T.make_train_step(bundle, tx)
+    if step.bn_mode != "batch":
+        fail(f"13b: yolov8 resolved to BN mode {step.bn_mode}")
+    s0 = T.init_train_state(bundle, tx)
+    flops = train_forward_flops(torch, step, s0, batch[0])
+    torch.cuda.reset_peak_memory_stats()
+    open_window()
+    s, ms, losses = timed_train_steps(torch, step, s0, batch, 10)
+    s = T.recalibrate_bn(bundle, s, BatchLoader([batch]), passes=1)
+    torch.cuda.synchronize()
+    close_window("train_13b", [])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats_finite = all(bool(torch.isfinite(v).all())
+                       for v in s["batch_stats"].values())
+    if not all(math.isfinite(v) for v in losses) or not stats_finite:
+        fail(f"13b: losses {losses}, running statistics finite "
+             f"{stats_finite}")
+    bound_ms = 3 * flops / F32_FLOPS * 1e3
+    prof = profile_train_steps(torch, step, s, batch)
+    del s
+
+    # remat: one step equal to the plain one, statistics updated once
+    plain, _ = step(s0, *batch)
+    remat, _ = T.make_train_step(bundle, tx, remat=True)(s0, *batch)
+    stats_equal = all(torch.equal(plain["batch_stats"][k],
+                                  remat["batch_stats"][k])
+                      for k in plain["batch_stats"])
+    pdiff = max(float((plain["params"][k] - remat["params"][k]).abs().max())
+                for k in plain["params"])
+    # the backward's atomics may flip a noise-level gradient's sign
+    if not stats_equal or pdiff > 2 * TRAIN_LR + 1e-6:
+        fail(f"13b: the remat step differs from the plain one: statistics "
+             f"equal {stats_equal}, params by {pdiff}")
+    del plain, remat, s0
+
+    # flax's BN on the card: one batch step of the trained nano at 96 px
+    nano = {}
+    small = render_centred_tiles(rng, 6, 2)[0]
+    tg = np.full((8, 4, 5), -1.0, np.float32)
+    tg[:6, 0] = (0, V8N_SIZE / 2, V8N_SIZE / 2, 45.0, 20.0)
+    for dev in ("cpu", "cuda"):
+        b = create_model("yolov8n", dtype=torch.float32,
+                         params_path=V8_FIXTURE, device=dev)
+        t = T.make_optimizer(lr=TRAIN_LR)
+        st, _ = T.make_train_step(b, t)(T.init_train_state(b, t), small, tg)
+        nano[dev] = T.state_to_flax(st)["batch_stats"]
+    bn_rel = leaf_errors(nano["cuda"], nano["cpu"])
+    if max(bn_rel.values()) > 1e-4:
+        fail(f"13b: the nano's running statistics on the card differ from "
+             f"the CPU's by {max(bn_rel.values())} of a leaf's largest")
+    out = {"size": V8L_SIZE, "batch": V8L_B, "bn_mode": "batch",
+           "weights": "seeded, unit variance", "timed_steps": 10,
+           "losses": losses, "step_ms": ms,
+           "images_per_s": V8L_B / ms * 1e3, "forward_gflop": flops / 1e9,
+           "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+           "peak_mem_gb": peak_gb, "running_stats_finite": stats_finite,
+           "remat_stats_equal": stats_equal, "remat_params_max_diff": pdiff,
+           "nano_bn_card_vs_cpu_max_rel": max(bn_rel.values()),
+           "profile": prof}
+    record["training"]["13b"] = out
+    print(f"13b yolov8l, {V8L_SIZE} px, batch {V8L_B}, f32, batch BN: "
+          f"{ms:.2f} ms/step, {V8L_B / ms * 1e3:.1f} images/s, "
+          f"{bound_ms / ms:.3f} of the {bound_ms:.1f} ms f32 bound "
+          f"({flops / 1e9:.1f} GFLOP a forward), peak {peak_gb:.2f} GB; "
+          f"losses {losses[0]:.3f} -> {losses[-1]:.3f}; recalibrated "
+          f"statistics finite; remat = plain (statistics equal, params "
+          f"within {pdiff:.1e}); trained nano's BN statistics card vs CPU "
+          f"within {max(bn_rel.values()):.1e} [{card}]", flush=True)
+    print_profile("13b profile", prof, card)
+
+
+def train_13c(torch, record, card, open_window, close_window):
+    """13c: XUnet from the trained fixture, 256 px, batch 16, frozen BN,
+    8 steps on its world's tiles with mask targets, fit(eval_fn=mask IoU)
+    on 16 held-out tiles."""
+    import dataclasses
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.fetch.fake import FakeWorld
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        preprocess_batch)
+    from aerial_image_recognition_tpu_torch.pipeline import train as T
+
+    world = FakeWorld(**SEG_WORLD)
+    tiles, masks, _ = seg_tiles(world, 2 * SEG_B, seed=7)
+    held, held_masks, _ = seg_tiles(world, SEG_B, seed=123)
+    loader = BatchLoader([(tiles[i:i + SEG_B],
+                           masks[i:i + SEG_B, ..., None].astype(np.float32))
+                          for i in range(0, len(tiles), SEG_B)])
+    bundle = create_model("xunet_256", dtype=torch.float32,
+                          params_path=XUNET_FIXTURE, device="cuda")
+
+    def mask_iou(b, state):
+        module = dataclasses.replace(b, variables={
+            "params": state["params"],
+            "batch_stats": state["batch_stats"]}).trainable().eval()
+        with torch.no_grad():
+            x = preprocess_batch(torch.from_numpy(held).cuda(),
+                                 out_size=SEG_SIZE, dtype=torch.bfloat16)
+            pred = (module(x.float()) > 0)[..., 0].cpu().numpy()
+        v = iou(pred, held_masks)
+        return {"mask_iou": v, "fitness": v}
+
+    before = mask_iou(bundle, bundle.variables)["mask_iou"]
+    open_window()
+    state = T.fit(bundle, loader, epochs=4, lr=TRAIN_LR, eval_fn=mask_iou,
+                  eval_every=4, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    close_window("train_13c", [])
+    after = state["history"][-1]["mask_iou"]
+    losses = [r["loss"] for r in state["history"]]
+    if not all(math.isfinite(v) for v in losses) \
+            or after < before - 0.005:
+        fail(f"13c: losses {losses}, mask IoU {before:.4f} -> {after:.4f}")
+    record["training"]["13c"] = {
+        "size": SEG_SIZE, "batch": SEG_B, "steps": int(state["step"]),
+        "bn_mode": "frozen", "losses": losses, "mask_iou_before": before,
+        "mask_iou_after": after}
+    print(f"13c xunet, {SEG_SIZE} px, batch {SEG_B}, frozen BN, "
+          f"{state['step']} steps: losses {[round(v, 4) for v in losses]}, "
+          f"mask IoU on 16 held-out tiles {before:.4f} -> {after:.4f} "
+          f"[{card}]", flush=True)
+
+
+def train_13d(torch, record, card, launches, base):
+    """13d: the train and val verbs as counted children, on a COCO json
+    and JPEG tiles rendered from the FakeWorld of 13a's generator."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.pipeline.data import (
+        DetectionLoader, LoaderConfig, coco_to_yolo)
+    from aerial_image_recognition_tpu_torch.pipeline.train import evaluate
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_verbs_")
+    try:
+        rng = np.random.default_rng(15)
+        tiles, bounds, cars = render_tiles(rng, VERB_TILES, SIZE)
+        images, anns = [], []
+        imdir = os.path.join(work, "images")
+        os.makedirs(imdir)
+        # the json beside the tiles, where coco_to_yolo looks for them
+        for i, (img, t) in enumerate(zip(tiles, tile_targets(bounds, cars,
+                                                             SIZE))):
+            Image.fromarray(img).save(os.path.join(imdir, f"t{i}.jpg"),
+                                      quality=95)
+            images.append({"id": i, "file_name": f"t{i}.jpg", "width": SIZE,
+                           "height": SIZE})
+            for _, cx, cy, w, h in t * SIZE:
+                anns.append({"id": len(anns), "image_id": i,
+                             "category_id": 0, "bbox": [
+                                 float(cx - w / 2), float(cy - h / 2),
+                                 float(w), float(h)]})
+        coco = os.path.join(imdir, "coco.json")
+        with open(coco, "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": 0, "name": "car"}]}, f)
+        out = os.path.join(work, "tuned.npz")
+        argv = ["train", "--coco", coco, "--images", imdir, "--model",
+                "yolov7_itcvd", "--params", FIXTURE, "--epochs", "2",
+                "--imgsz", str(SIZE), "--batch", "8", "--n-train",
+                str(VERB_TRAIN), "--freeze", "0,1,2", "--out", out]
+        proc, t_wall, t_counts = run_verb(base, "train", argv)
+        trained = last_json(proc.stdout)
+        vargv = ["val", "--coco", coco, "--images", imdir, "--model",
+                 "yolov7_itcvd", "--params", out, "--imgsz", str(SIZE),
+                 "--batch", "8"]
+        proc, v_wall, v_counts = run_verb(base, "val", vargv)
+        val = last_json(proc.stdout)
+        # one launch an eval batch: the train verb evaluates its held-out
+        # tiles after each of its 2 epochs, val all tiles once
+        child_launches(launches, "train_verb", t_counts, ["nms_suppress"])
+        child_launches(launches, "val_verb", v_counts, ["nms_suppress"])
+        want = (2 * -(-(VERB_TILES - VERB_TRAIN) // 8), -(-VERB_TILES // 8))
+        if (t_counts["nms_suppress"], v_counts["nms_suppress"]) != want:
+            fail(f"13d: NMS launches train {t_counts}, val {v_counts}, "
+                 f"expected {want}")
+        samples = coco_to_yolo(coco)
+        bundle = create_model("yolov7_itcvd", dtype=torch.float32,
+                              params_path=out, device="cuda")
+        here = evaluate(bundle, bundle.variables, DetectionLoader(
+            samples, LoaderConfig(image_size=SIZE, batch_size=8, mosaic=0.0,
+                                  mixup=0.0, hsv=0.0), train=False))
+        if val["n_images"] != VERB_TILES or abs(val["mAP50"]
+                                                - here["mAP50"]) > 1e-9:
+            fail(f"13d: val {val} against in-process {here}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["training"]["13d"] = {
+        "train": trained, "train_wall_s": t_wall, "train_launches": t_counts,
+        "val": val, "val_wall_s": v_wall, "val_launches": v_counts,
+        "in_process_mAP50": here["mAP50"]}
+    print(f"13d verbs: train {t_wall:.1f} s (final mAP50 "
+          f"{trained['final']['mAP50']:.4f}, best epoch "
+          f"{trained.get('best', {}).get('epoch')}), val {v_wall:.1f} s, "
+          f"mAP50 {val['mAP50']:.4f} = in process; NMS launches in the "
+          f"children {t_counts['nms_suppress']} / {v_counts['nms_suppress']}"
+          f" [{card}]", flush=True)
+
+
+def training(torch, record, card, launches, open_window, close_window):
+    """13. The training path on the card (13a–13d)."""
+    base = os.path.join(ROOT, "chiprun_out", "training")
+    os.makedirs(base, exist_ok=True)
+    record["training"] = {}
+    train_13a(torch, record, card, launches, open_window, close_window,
+              base)
+    train_13b(torch, record, card, open_window, close_window)
+    train_13c(torch, record, card, open_window, close_window)
+    train_13d(torch, record, card, launches, base)
+
+
+def train_only(torch, record, card) -> None:
+    """``--train-only``: the NMS kernel against its plain version
+    (``NMS_CASES``, evaluate's shapes among them), then phase 13. The
+    kernel line holds the NMS kernel."""
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    record["kernels"] = [check_nms_kernel(torch, record)]
+    print(f"nms_suppress: bit-identical to plain on "
+          f"{len(record['nms_cases'])} cases [{card}]", flush=True)
+    launches = {}
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+         "int8_epilogue": requantize}, launches)
+    training(torch, record, card, launches, open_window, close_window)
+    record["launches_by_path"] = launches
+    nms = record["kernels"][0]
+    nms["launches"] = sum(p.get("nms_suppress", 0)
+                          for p in launches.values())
+    nms["launches_by_path"] = {path: p.get("nms_suppress", 0)
+                               for path, p in launches.items()}
+
+
 def launch_window(wrappers, launches):
     """(open_window, close_window) over the kernels' launch counters:
     ``open_window()`` sets every wrapper's count to 0 just before a path;
@@ -3232,13 +3832,14 @@ def segment_only(torch, record, card) -> None:
 def main() -> None:
     modes = {"--scan-only": "chip_smoke_scan.json",
              "--front-ends-only": "chip_smoke_front_ends.json",
-             "--segment-only": "chip_smoke_segment.json"}
+             "--segment-only": "chip_smoke_segment.json",
+             "--train-only": "chip_smoke_train.json"}
     mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in modes:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
              "--scan-only for the city scan's phases alone, with "
-             "--front-ends-only for the CLI's or with --segment-only for "
-             "segmentation's")
+             "--front-ends-only for the CLI's, with --segment-only for "
+             "segmentation's or with --train-only for training's")
     try:
         import torch
     except ImportError as e:
@@ -3295,6 +3896,10 @@ def main() -> None:
         return
     if mode == "--segment-only":
         segment_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
+        return
+    if mode == "--train-only":
+        train_only(torch, record, card)
         finish(torch, record, name, modes[mode])
         return
 
@@ -3669,6 +4274,9 @@ def main() -> None:
     epilogue["xunet_relu"] = segmentation(
         torch, record, card, launches, open_window, close_window, images,
         bounds)
+
+    # 13. training on the card
+    training(torch, record, card, launches, open_window, close_window)
 
     for entry in (kernel, clahe, epilogue):
         entry["launches"] = sum(p.get(entry["name"], 0)

@@ -66,15 +66,49 @@ def test_variation_matches_jax(name):
         assert np.abs(want - x).max() > 0.01
 
 
-@pytest.mark.parametrize("name", ["solarize_2.0", "shadow", "clahe",
-                                  "localcontrast_2.0"])
+@pytest.mark.parametrize("name", ["solarize_2.0", "shadows", "clahe",
+                                  "localcontrast"])
 def test_unknown_variation_raises(name):
-    """Names outside the detect ladder raise, in a ladder too (the
-    reference's 'shadow' and 'localcontrast' variations are not ported)."""
+    """Names the reference does not know raise, in a ladder too (a kind
+    without its value among them)."""
     with pytest.raises(KeyError, match="unknown TTA variation"):
         P.apply_variation(_nchw(_images()), name)
     with pytest.raises(KeyError, match="unknown TTA variation"):
         P.expand_tta(_nchw(_images()), (("original", 1.0), (name, 0.5)))
+
+
+@pytest.mark.parametrize("name", ["shadow", "localcontrast_2.0",
+                                  "localcontrast_3.0"])
+def test_training_variations_match_jax(name):
+    """The reference's variations outside the detect ladder: its shadow
+    enhancement and its differentiable CLAHE approximant (f32 within
+    1e-5; the approximant's bilinear resize is two f32 matrix products
+    with jax.image.resize's weights)."""
+    x = _images(2)
+    want = np.asarray(J.apply_variation(jnp.asarray(x), name))
+    got = P.apply_variation(_nchw(x), name)
+    assert tuple(got.shape) == (B, 3, S, S) and got.dtype == torch.float32
+    _assert_close(name, _nhwc(got), want)
+    assert np.abs(want - x).max() > 0.01
+
+
+def test_local_contrast_ragged_grid_matches_jax():
+    """A 64×48 image: 8×6-pixel tiles."""
+    x = np.random.default_rng(4).uniform(0, 1, (B, 64, 48, 3)) \
+        .astype(np.float32)
+    want = np.asarray(J.local_contrast(jnp.asarray(x), clip=2.5))
+    got = P.local_contrast(_nchw(x), clip=2.5)
+    _assert_close("localcontrast", _nhwc(got), want)
+
+
+def test_merge_tta_scores_matches_jax():
+    rng = np.random.default_rng(5)
+    scores = rng.uniform(0, 1, (3 * B, 40, 2)).astype(np.float32)
+    w = np.float32([1.0, 0.9, 0.85])
+    want = np.asarray(J.merge_tta_scores(jnp.asarray(scores),
+                                         jnp.asarray(w), B))
+    got = P.merge_tta_scores(torch.from_numpy(scores), torch.from_numpy(w), B)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_enhance_shadows_mean_is_per_image():

@@ -1,6 +1,15 @@
 """The port's command line (``python -m aerial_image_recognition_tpu_torch``)
 against the JAX package's.
 
+``train`` and ``val`` (``--device cpu``) run the same argv as the JAX
+verbs on a COCO set of 12 FakeWorld tiles (96 px at the trained fixture's
+0.5 m/px, exact boxes), fine-tuning the trained fixture with
+``--freeze 0,1,2``: final loss within rtol 1e-3 and mAP50 within 0.02
+(two epochs of Adam, whose noise-level sign flips move a leaf by 2·lr a
+step), the checkpoints of both verbs load in both packages with the same
+keys and shapes, their params within 4·lr·steps, the frozen layers equal
+to the fixture's; ``val``'s metrics equal the JAX verb's within 1e-6.
+
 The parser: the same verbs, every one answering ``--help``, and
 ``_overrides`` giving the same config dict for the same argv; ``--device``
 (the port's one flag of its own) never lands in the config. Every verb the
@@ -121,11 +130,14 @@ def test_every_verb_answers_help(verb, capsys):
     jax_opts = {w for w in capsys.readouterr().out.split() if
                 w.startswith("--")}
     port_opts = {w for w in out.split() if w.startswith("--")}
-    # the same flags, and --device on the verbs that build a model
-    assert port_opts - {"--device", "--device DEVICE"} == jax_opts - {
-        "--device"}
-    builds = verb in ("detect", "sweep", "geotiff", "serve", "automask",
-                      "predict", "export", "import-weights", "calibrate")
+    # the same flags, and --device on the verbs that build a model; the
+    # port's train also takes --data-parallel, to refuse it
+    own = {"--device", "--device DEVICE"} | (
+        {"--data-parallel"} if verb == "train" else set())
+    assert port_opts - own == jax_opts - {"--device"}
+    builds = verb in ("detect", "sweep", "train", "geotiff", "serve",
+                      "automask", "predict", "val", "export",
+                      "import-weights", "calibrate")
     assert ("--device" in port_opts) == builds
 
 
@@ -193,14 +205,13 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["train", "--coco", "c.json", "--images", "im", "--out", "o.npz"],
-     "training slice"),
-    (["val", "--coco", "c.json", "--images", "im"], "training slice"),
     (["bench"], "benchmark"),
     (["detect", "--data-parallel", "--device", "cpu"], "multi-GPU slice"),
     (["sweep", "--data-parallel", "2"], "multi-GPU slice"),
     (["serve", "--data-parallel", "--device", "cpu"], "multi-GPU slice"),
-], ids=["train", "val", "bench", "detect-dp", "sweep-dp", "serve-dp"])
+    (["train", "--coco", "c.json", "--images", "im", "--out", "o.npz",
+      "--data-parallel", "2", "--device", "cpu"], "multi-GPU slice"),
+], ids=["bench", "detect-dp", "sweep-dp", "serve-dp", "train-dp"])
 def test_unported_verbs_and_flags_raise(argv, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         PC.main(argv)
@@ -662,3 +673,105 @@ def test_doctor_device_probe_times_out():
             get_device_name = staticmethod(lambda i: f"card{i}")
 
     assert doctor._devices_with_timeout(Healthy, 5.0) == ["card0", "card1"]
+
+
+# ---------------------------------------------------------- train, val
+
+@pytest.fixture(scope="module")
+def coco_set(tmp_path_factory):
+    """12 FakeWorld tiles of 96 px (48 m at 0.5 m/px) as PNGs and their
+    exact car boxes as a COCO json."""
+    from test_predict_val import WORLD as PRED_WORLD, _bbox, _gt_boxes_xyxy
+    base = tmp_path_factory.mktemp("coco")
+    imdir = base / "images"
+    imdir.mkdir()
+    rng = np.random.default_rng(11)
+    images, anns = [], []
+    for i in range(12):
+        lon, lat, _ = PRED_WORLD.cars[int(rng.integers(0, 400))]
+        bbox = _bbox(float(lon) + float(rng.uniform(-1e-4, 1e-4)),
+                     float(lat) + float(rng.uniform(-1e-4, 1e-4)))
+        Image.fromarray(PRED_WORLD.render(bbox, 96, 96)).save(
+            str(imdir / f"t{i}.png"))
+        images.append({"id": i, "file_name": f"t{i}.png", "width": 96,
+                       "height": 96})
+        for x1, y1, x2, y2 in _gt_boxes_xyxy(bbox, 96):
+            anns.append({"id": len(anns), "image_id": i, "category_id": 0,
+                         "bbox": [float(x1), float(y1), float(x2 - x1),
+                                  float(y2 - y1)]})
+    assert len(anns) >= 12
+    coco = str(base / "coco.json")
+    with open(coco, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 0, "name": "car"}]}, f)
+    return coco, str(imdir), base
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_train_and_val_on_the_cpu_equal_jax_cli(coco_set, capsys):
+    coco, imdir, base = coco_set
+    lr, epochs = 1e-4, 2
+    argv = ["train", "--coco", coco, "--images", imdir, "--model",
+            "yolov7_itcvd", "--params", FIXTURE, "--imgsz", "96", "--batch",
+            "4", "--epochs", str(epochs), "--n-train", "8", "--lr", str(lr),
+            "--freeze", "0,1,2"]
+    jout = str(base / "jax.npz")
+    pout = str(base / "port.npz")
+    assert JC.main(argv + ["--out", jout]) == 0
+    want = _last_json(capsys)
+    assert PC.main(argv + ["--out", pout, "--device", "cpu"]) == 0
+    got = _last_json(capsys)
+    assert got["checkpoint"] == pout
+    assert got["final"]["epoch"] == want["final"]["epoch"] == epochs - 1
+    np.testing.assert_allclose(got["final"]["loss"], want["final"]["loss"],
+                               rtol=1e-3)
+    assert abs(got["final"]["mAP50"] - want["final"]["mAP50"]) <= 0.02
+    assert got["final"]["mAP50"] >= 0.7
+    assert got["best"]["epoch"] == want["best"]["epoch"]
+    # each checkpoint loads in both packages: the same leaves and shapes
+    steps = epochs * 2
+    fixture = _flat(load_params(FIXTURE))
+    for path in (jout, pout):
+        a, b = _flat(load_params(path)), _flat(jax_load_params(path))
+        assert a.keys() == b.keys() == fixture.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], np.asarray(b[k], np.float32))
+    j, p = _flat(load_params(jout)), _flat(load_params(pout))
+    for k in j:
+        np.testing.assert_allclose(p[k], j[k], rtol=0,
+                                   atol=4 * lr * steps + 1e-6, err_msg=k)
+        if k.split("/")[1] in ("stem0", "stem1") or \
+                k.split("/")[1:3] == ["elan1", "cv1"]:
+            np.testing.assert_array_equal(p[k], fixture[k], err_msg=k)
+
+    # val of the port's checkpoint against the JAX verb's
+    vargv = ["val", "--coco", coco, "--images", imdir, "--model",
+             "yolov7_itcvd", "--params", pout, "--imgsz", "96", "--batch",
+             "4"]
+    assert JC.main(vargv) == 0
+    want = _last_json(capsys)
+    assert PC.main(vargv + ["--device", "cpu"]) == 0
+    got = _last_json(capsys)
+    assert got["n_images"] == want["n_images"] == 12
+    assert got.keys() == want.keys()
+    for k in ("mAP50", "mAP50_95", "AP50_class0"):
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+
+
+@pytest.mark.parametrize("verb", ["train", "val"])
+def test_train_and_val_without_a_device_exit_before_reading(verb,
+                                                            monkeypatch,
+                                                            tmp_path):
+    """Without --device and without CUDA the verb raises the device error
+    before it reads the COCO file (which does not exist here)."""
+    argv = [verb, "--coco", str(tmp_path / "missing.json"), "--images",
+            str(tmp_path)] + (["--out", str(tmp_path / "o.npz")]
+                              if verb == "train" else [])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PC.main(argv)
+    with pytest.raises(FileNotFoundError):
+        PC.main(argv + ["--device", "cpu"])

@@ -1,7 +1,7 @@
 """Guard tests for the port's rules.
 
 The port package and chip_smoke.py import torch, numpy and the standard
-library, never JAX, flax or the JAX package (whose name the port's shares as
+library, never JAX, flax, optax, orbax or the JAX package (whose name the port's shares as
 a prefix, hence the exact top-level comparison). Entry points run on CUDA
 unless given a device, and raise instead of falling back to the CPU.
 """
@@ -17,7 +17,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "aerial_image_recognition_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "aerial_image_recognition_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
+             "aerial_image_recognition_tpu"}
 
 
 def _port_sources():
@@ -64,6 +65,10 @@ def test_import_check_covers_the_numpy_copies():
     # segmentation (the copies of mask_to_polygons and automask's numpy)
     assert {"models/xunet.py", "pipeline/rasters.py",
             "pipeline/automask.py", "pipeline/serve.py"} <= names
+    # training: the trainer that replaces optax and orbax, the numpy data
+    # pipeline and metrics
+    assert {"ops/losses.py", "ops/metrics.py", "pipeline/data.py",
+            "pipeline/train.py", "runtime/train_ckpt.py"} <= names
     # and the native sources it builds are the port's own copies
     assert {p.name for p in (PORT / "native").glob("*.cpp")} == {
         "fastgeo.cpp", "fastdecode.cpp"}
@@ -126,7 +131,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
                  ["calibrate", tif, "--out", str(tmp_path / "c.json")],
                  ["export", "missing.npz", str(tmp_path / "m.onnx")],
                  ["import-weights", "missing.onnx", "--out",
-                  str(tmp_path / "w.npz")]):
+                  str(tmp_path / "w.npz")],
+                 ["train", "--coco", "missing.json", "--images",
+                  str(tmp_path), "--out", str(tmp_path / "t.npz")],
+                 ["val", "--coco", "missing.json", "--images",
+                  str(tmp_path)]):
         calls.append(lambda argv=argv: cli.main(argv))
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
