@@ -13,6 +13,11 @@ names and layouts differ; the table ``LEAF_MAP`` below is the whole
 mapping. ``state_dict_to_flax`` and ``params_to_flax`` go the other way,
 and ``grads_to_flax`` carries gradients across the same way, so that they
 can be compared with the reference's by flax path.
+
+``state_from_flax`` and ``state_to_flax`` carry a whole train state across:
+the trainer (``pipeline/train.py``) keeps flat dicts of torch-named tensors
+on its device; checkpoints, ``fit``'s result and a JAX train state are
+flax-format numpy trees.
 """
 
 from collections.abc import Mapping
@@ -179,3 +184,70 @@ def load_flax_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
     if missing or unexpected:
         raise KeyError(f"flax tree does not match the module: missing "
                        f"{missing[:8]}, unexpected {unexpected[:8]}")
+
+
+# ---------------------------------------------------------- train states
+
+def _place(t: torch.Tensor, device) -> torch.Tensor:
+    """f32 on ``device``; 4-d weights channels_last, as the trainer's
+    convolutions take them."""
+    t = t.to(device=device, dtype=torch.float32)
+    if t.dim() == 4:
+        t = t.contiguous(memory_format=torch.channels_last)
+    return t
+
+
+def _tree_to_torch(tree: Mapping, collection: str, device) -> Dict:
+    if not tree:
+        return {}
+    return {n: _place(t, device)
+            for n, t in params_from_flax({collection: tree}).items()}
+
+
+def _tree_to_flax(flat: Mapping, collection: str) -> Dict:
+    return state_dict_to_flax(flat).get(collection, {}) if flat else {}
+
+
+def state_to_flax(state: Dict) -> Dict:
+    """A trainer state → the reference's layout: flax-format numpy trees
+    (f32, HWIO kernels) for params, batch_stats, the adam moments and
+    ema_params; count and step as ints. Other keys (history, best) pass
+    through."""
+    out = dict(state)
+    for key, collection in (("params", "params"),
+                            ("batch_stats", "batch_stats"),
+                            ("ema_params", "params")):
+        if key in state:
+            out[key] = _tree_to_flax(state[key], collection)
+    if "opt_state" in state:
+        opt = state["opt_state"]
+        out["opt_state"] = {"count": int(opt["count"]),
+                            "mu": _tree_to_flax(opt["mu"], "params"),
+                            "nu": _tree_to_flax(opt["nu"], "params")}
+    if "step" in state:
+        out["step"] = int(state["step"])
+    return out
+
+
+def state_from_flax(state: Dict, device=None) -> Dict:
+    """The inverse of ``state_to_flax``: flax-format trees (numpy, or a
+    JAX train state carried across as numpy — params, batch_stats, adam
+    ``count``/``mu``/``nu`` over the trainable leaves, step, ema_params;
+    or a bundle's ``variables``) → the trainer's flat torch-named tensors
+    on ``device`` (default: the CPU)."""
+    device = torch.device(device or "cpu")
+    out = dict(state)
+    for key, collection in (("params", "params"),
+                            ("batch_stats", "batch_stats"),
+                            ("ema_params", "params")):
+        if key in state:
+            out[key] = _tree_to_torch(state[key], collection, device)
+    if "opt_state" in state:
+        opt = state["opt_state"]
+        out["opt_state"] = {
+            "count": int(opt["count"]),
+            "mu": _tree_to_torch(opt["mu"], "params", device),
+            "nu": _tree_to_torch(opt["nu"], "params", device)}
+    if "step" in state:
+        out["step"] = int(state["step"])
+    return out

@@ -10,9 +10,10 @@ fetches anything; ``--device cpu`` runs on the CPU explicitly.
 Ported verbs: detect, sweep, doctor, train, geotiff, serve (with
 ``/segment`` under ``--segment-params``), automask, predict, val,
 import-weights, export, calibrate. Parsed, then refused with
-NotImplementedError naming what brings them: ``--data-parallel`` on any
-verb (the multi-GPU slice; ``train`` takes the flag here too, where the
-reference's verb has none) and bench (the port's benchmark).
+NotImplementedError naming what brings them: ``--data-parallel`` on
+detect, sweep and serve (the multi-GPU slice) and bench (the port's
+benchmark). ``train`` has no ``--data-parallel``, as the reference's verb
+has none: argparse refuses it.
 
 Usage:
   python -m aerial_image_recognition_tpu_torch detect --frame warsaw.shp \\
@@ -154,10 +155,6 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--ema", type=float, default=0.0, metavar="DECAY",
                     help="EMA weight averaging, e.g. 0.9999")
     pt.add_argument("--out", required=True, help="output checkpoint (.npz)")
-    pt.add_argument("--data-parallel", dest="data_parallel", nargs="?",
-                    const=True, type=int, default=None, metavar="N",
-                    help="shard the training batch over all (or N) cards "
-                         "(arrives with the multi-GPU slice)")
     _add_device(pt)
 
     pg = sub.add_parser("geotiff", help="sliding-window detection over a "
@@ -307,6 +304,8 @@ def _train_or_val(args) -> int:
     import torch
     from aerial_image_recognition_tpu_torch.models.registry import (
         create_model, save_params)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        state_from_flax)
     from aerial_image_recognition_tpu_torch.pipeline.data import (
         DetectionLoader, LoaderConfig, train_val_split)
     from aerial_image_recognition_tpu_torch.pipeline.train import (
@@ -322,8 +321,9 @@ def _train_or_val(args) -> int:
         loader = DetectionLoader(samples, vcfg, train=False)
         bundle = create_model(args.model, dtype=torch.float32,
                               params_path=args.params, device=device)
-        metrics = evaluate(bundle, bundle.variables, loader,
-                           conf_threshold=args.confidence)
+        metrics = evaluate(bundle,
+                           state_from_flax(bundle.variables, device),
+                           loader, conf_threshold=args.confidence)
         print(json.dumps({"model": args.model, "params": args.params,
                           "n_images": len(samples), **metrics}))
         return 0

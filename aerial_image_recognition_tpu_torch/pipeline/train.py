@@ -23,13 +23,16 @@ same semantics:
 * The schedules (``warmup_cosine_decay_schedule`` and the two
   ``join_schedules`` forms), as f32 functions of the update count.
 
-The train state is a dict like the reference's. Inside the trainer its
-trees are flat dicts of tensors on the model's device, keyed by the torch
-module's names (``stem0.conv.weight``); ``state_to_flax`` and
-``state_from_flax`` carry a state across as flax-format numpy trees (the
-reference's paths and layouts), which is what ``fit`` returns, what the
-checkpoints hold (``runtime/train_ckpt.py``) and what ``evaluate`` and
-``recalibrate_bn`` also accept.
+The train state is a dict like the reference's. Its trees are flat dicts
+of tensors on the model's device, keyed by the torch module's names
+(``stem0.conv.weight``): ``init_train_state``, the step, ``recalibrate_bn``
+and ``evaluate`` take and return that format. Flax-format numpy trees (the
+reference's paths and layouts) appear only at the edges, through
+``models/weights.state_from_flax`` and ``state_to_flax``: ``fit``'s result,
+the state an ``eval_fn`` gets and the checkpoints
+(``runtime/train_ckpt.py``). ``_freeze_mask`` reads the flax paths of
+``bundle.variables["params"]``, as the reference's does, and keys its mask
+by the trainer's names, as the optimizer's ``param_mask``.
 
 The forward runs ``torch.func.functional_call`` over one unfused f32 copy of
 the model per bundle (``ModelBundle.trainable``), on inputs rounded to bf16
@@ -54,7 +57,8 @@ from aerial_image_recognition_tpu_torch.models.layers import (
     BN_MOMENTUM, BatchNorm, clear_batch_stats, set_bn_mode)
 from aerial_image_recognition_tpu_torch.models.registry import ModelBundle
 from aerial_image_recognition_tpu_torch.models.weights import (
-    _flatten, flax_leaf_path, params_from_flax, state_dict_to_flax)
+    _flatten, flax_leaf_path, state_from_flax, state_to_flax,
+    torch_leaf_name)
 from aerial_image_recognition_tpu_torch.ops.losses import (
     xunet_loss, yolov7_loss, yolov8_loss)
 from aerial_image_recognition_tpu_torch.ops.preprocess import (
@@ -97,72 +101,43 @@ def resolve_freeze_prefixes(bundle: ModelBundle, freeze) -> tuple:
     return tuple(prefixes)
 
 
-def _is_nested(tree) -> bool:
-    """A flax-format tree (nested dicts) rather than a flat dict of
-    torch-named tensors."""
-    return any(isinstance(v, Mapping) for v in tree.values())
-
-
-def _paths(tree):
-    """(key, flax path parts) of every leaf: nested trees by their own
-    path, flat torch-named dicts through the weight bridge's names."""
-    if _is_nested(tree):
-        for path, _ in _flatten(tree):
-            yield path, list(path)
-    else:
-        for name in tree:
-            yield name, list(flax_leaf_path(name)[1])
-
-
 def _frozen(parts, pref) -> bool:
     return any(parts[:len(p)] == p for p in pref)
 
 
-def _freeze_mask(params, prefixes) -> Any:
-    """Tree of bools matching ``params`` (flax-format or flat torch-named):
-    True = trainable. A leaf is frozen when its path starts with any
-    prefix. Raises when a prefix matches nothing: a typo must not silently
-    train the layer the user believes is frozen."""
+def _freeze_mask(params, prefixes) -> Dict[str, bool]:
+    """{trainer name: True = trainable} over the leaves of the flax-format
+    ``params`` (e.g. ``bundle.variables["params"]``). A leaf is frozen when
+    its flax path starts with any prefix. Raises when a prefix matches
+    nothing: a typo must not silently train the layer the user believes is
+    frozen."""
     pref = [p.split("/") for p in prefixes]
     hits = [0] * len(pref)
     flat = {}
-    for key, parts in _paths(params):
+    for path, _ in _flatten(params):
         frozen = False
         for i, p in enumerate(pref):
-            if parts[:len(p)] == p:
+            if list(path[:len(p)]) == p:
                 hits[i] += 1
                 frozen = True
-        flat[key] = not frozen
+        flat[torch_leaf_name("params", path)[0]] = not frozen
     missing = [prefixes[i] for i, h in enumerate(hits) if h == 0]
     if missing:
         raise ValueError(
             f"freeze prefixes matched no parameters: {missing} — check "
             "them against the model's module paths (e.g. 'stem0', "
             "'elan1/cv1')")
-    return _unflatten(flat) if _is_nested(params) else flat
-
-
-def _unflatten(flat: Dict) -> Dict:
-    tree: Dict = {}
-    for path, v in flat.items():
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = v
-    return tree
+    return flat
 
 
 def _restore_frozen_stats(old_stats, new_stats, prefixes):
     """batch-mode BN in frozen layers must not update its running
-    statistics either: their leaves come from ``old_stats``. Both trees in
-    the same format (flax-format or flat torch-named)."""
+    statistics either: their leaves come from ``old_stats`` (the trainer's
+    flat torch-named statistics)."""
     pref = [p.split("/") for p in prefixes]
-    if _is_nested(new_stats):
-        old = dict(_flatten(old_stats))
-        return _unflatten({path: old[path] if _frozen(list(path), pref)
-                           else leaf for path, leaf in _flatten(new_stats)})
-    return {name: old_stats[name] if _frozen(parts, pref) else new_stats[name]
-            for name, parts in _paths(new_stats)}
+    return {name: old_stats[name]
+            if _frozen(list(flax_leaf_path(name)[1]), pref)
+            else new_stats[name] for name in new_stats}
 
 
 # ------------------------------------------------------------ optimizer
@@ -227,7 +202,8 @@ class AdamW:
     ``multi_transform`` with ``set_to_zero`` for frozen leaves when a mask
     is given.
 
-    ``schedule`` is a float (constant) or a function of the update count.
+    ``schedule`` is a float (constant) or a function of the update count;
+    ``param_mask`` is keyed like the params (``_freeze_mask``).
     ``init(params)`` → opt state ``{"count": 0, "mu": …, "nu": …}`` over the
     trainable names; ``update(params, grads, opt_state)`` → (new params,
     new opt state), out of place, frozen leaves passed through."""
@@ -248,11 +224,7 @@ class AdamW:
     def trainable_names(self, params: Mapping[str, torch.Tensor]):
         if self.param_mask is None:
             return list(params)
-        mask = self.param_mask
-        if _is_nested(mask):
-            mask = {name: _get(mask, parts)
-                    for name, parts in _paths(params)}
-        return [n for n in params if mask[n]]
+        return [n for n in params if self.param_mask[n]]
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
         names = self.trainable_names(params)
@@ -298,12 +270,6 @@ class AdamW:
                      "nu": dict(zip(names, nu))}
 
 
-def _get(tree, parts):
-    for p in parts:
-        tree = tree[p]
-    return tree
-
-
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 5e-4,
                    total_steps: Optional[int] = None,
                    warmup_steps: int = 0, schedule: str = "constant",
@@ -311,8 +277,8 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 5e-4,
                    param_mask: Any = None) -> AdamW:
     """lr0 = 1e-4 (the reference's training config). schedule: 'constant',
     'cosine' or 'linear' — a warmup ramp into a decay toward
-    lr·final_lr_frac; both decays need total_steps. param_mask: a
-    ``_freeze_mask`` tree (True = trainable)."""
+    lr·final_lr_frac; both decays need total_steps. param_mask:
+    ``_freeze_mask``'s {name: True = trainable}."""
     if schedule == "constant" and warmup_steps:
         lr = join_schedules(
             [linear_schedule(0.0, lr, max(warmup_steps, 1)),
@@ -360,72 +326,6 @@ def _train_module(bundle: ModelBundle) -> torch.nn.Module:
         module = bundle.trainable().requires_grad_(False).eval()
         bundle.__dict__["_train_module"] = module
     return module
-
-
-def _place(t: torch.Tensor, device) -> torch.Tensor:
-    t = t.to(device=device, dtype=torch.float32)
-    if t.dim() == 4:
-        t = t.contiguous(memory_format=torch.channels_last)
-    return t
-
-
-def _tree_to_torch(tree: Mapping, collection: str, device) -> Dict:
-    if not tree:
-        return {}
-    return {n: _place(t, device)
-            for n, t in params_from_flax({collection: tree}).items()}
-
-
-def _tree_to_flax(flat: Mapping, collection: str) -> Dict:
-    return state_dict_to_flax(flat).get(collection, {}) if flat else {}
-
-
-def state_to_flax(state: Dict) -> Dict:
-    """A trainer state → the reference's layout: flax-format numpy trees
-    (f32, HWIO kernels) for params, batch_stats, the adam moments and
-    ema_params; count and step as ints. Other keys (history, best) pass
-    through; a state already in that format is returned as it is."""
-    if not state.get("params") or _is_nested(state["params"]):
-        return dict(state)
-    out = dict(state)
-    out["params"] = _tree_to_flax(state["params"], "params")
-    out["batch_stats"] = _tree_to_flax(state.get("batch_stats", {}),
-                                       "batch_stats")
-    if "opt_state" in state:
-        opt = state["opt_state"]
-        out["opt_state"] = {"count": int(opt["count"]),
-                            "mu": _tree_to_flax(opt["mu"], "params"),
-                            "nu": _tree_to_flax(opt["nu"], "params")}
-    if "ema_params" in state:
-        out["ema_params"] = _tree_to_flax(state["ema_params"], "params")
-    out["step"] = int(state.get("step", 0))
-    return out
-
-
-def state_from_flax(state: Dict, device=None) -> Dict:
-    """The inverse of ``state_to_flax``: flax-format trees (numpy, or a
-    JAX train state carried across as numpy — params, batch_stats, adam
-    ``count``/``mu``/``nu`` over the trainable leaves, step, ema_params)
-    → the trainer's flat torch-named tensors on ``device`` (default: the
-    CPU). A state already in the trainer's format passes through."""
-    device = torch.device(device or "cpu")
-    if not state.get("params") or not _is_nested(state["params"]):
-        return dict(state)
-    out = dict(state)
-    out["params"] = _tree_to_torch(state["params"], "params", device)
-    out["batch_stats"] = _tree_to_torch(state.get("batch_stats", {}),
-                                        "batch_stats", device)
-    if "opt_state" in state:
-        opt = state["opt_state"]
-        out["opt_state"] = {
-            "count": int(opt["count"]),
-            "mu": _tree_to_torch(opt["mu"], "params", device),
-            "nu": _tree_to_torch(opt["nu"], "params", device)}
-    if "ema_params" in state:
-        out["ema_params"] = _tree_to_torch(state["ema_params"], "params",
-                                           device)
-    out["step"] = int(state.get("step", 0))
-    return out
 
 
 def init_train_state(bundle: ModelBundle, tx: AdamW,
@@ -615,16 +515,10 @@ def make_train_step(bundle: ModelBundle, tx: AdamW,
 
 # ------------------------------------------------------- BN, evaluation
 
-def _torch_trees(bundle: ModelBundle, state: Dict):
-    """(params to use — EMA when tracked —, batch_stats) of a state in
-    either format, as the trainer's tensors on the bundle's device."""
-    params = state.get("ema_params", state["params"])
-    stats = state.get("batch_stats", {})
-    if _is_nested(params):
-        params = _tree_to_torch(params, "params", bundle.device)
-    if stats and _is_nested(stats):
-        stats = _tree_to_torch(stats, "batch_stats", bundle.device)
-    return params, stats
+def _weights(state: Dict):
+    """(params to use — EMA when tracked —, batch_stats) of a state."""
+    return (state.get("ema_params", state["params"]),
+            state.get("batch_stats", {}))
 
 
 @torch.no_grad()
@@ -634,12 +528,13 @@ def recalibrate_bn(bundle: ModelBundle, state: Dict, loader,
     batch-mode forwards (statistics updating, parameters untouched) over
     ``loader.epoch(10_000 + p)`` for p < passes. Uses ``ema_params`` when
     the state has them. Frozen layers keep their original statistics.
-    Returns the state with new ``batch_stats`` in the format it came in;
-    a no-op for models without batch_stats."""
+    Returns the state with new ``batch_stats``; a no-op for models without
+    batch_stats. ``state`` is the trainer's (``state_from_flax`` carries
+    flax-format variables across)."""
     if not state.get("batch_stats"):
         return state
     module = _train_module(bundle)
-    params, bs = _torch_trees(bundle, state)
+    params, bs = _weights(state)
     start = bs
     set_bn_mode(module, "batch")
     with _f32_convs():
@@ -651,8 +546,6 @@ def recalibrate_bn(bundle: ModelBundle, state: Dict, loader,
     clear_batch_stats(module)
     if freeze_prefixes:
         bs = _restore_frozen_stats(start, bs, freeze_prefixes)
-    if _is_nested(state["batch_stats"]):
-        bs = _tree_to_flax(bs, "batch_stats")
     return dict(state, batch_stats=bs)
 
 
@@ -662,15 +555,15 @@ def evaluate(bundle: ModelBundle, state: Dict, loader,
     """mAP over a validation loader (``ops/metrics.evaluate_detections``)
     after ``batched_nms`` at ``conf_threshold``, IoU 0.45, 512 candidates
     and 128 slots, class-aware; on the card the suppression is the NMS
-    kernel. ``state`` is a trainer state or flax-format variables
-    (``{"params", "batch_stats"}``, e.g. ``bundle.variables``); EMA weights
-    are used when present."""
+    kernel. ``state`` is the trainer's (for a bundle's own weights:
+    ``state_from_flax(bundle.variables, bundle.device)``); EMA weights are
+    used when present."""
     from aerial_image_recognition_tpu_torch.ops.metrics import (
         evaluate_detections)
     from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
 
     module = _train_module(bundle)
-    params, stats = _torch_trees(bundle, state)
+    params, stats = _weights(state)
     nc = bundle.spec.num_classes
     set_bn_mode(module, "frozen")
     preds, gts = [], []
@@ -815,12 +708,10 @@ def fit(bundle: ModelBundle, loader, *, epochs: int = 1,
             elif best is None or row["fitness"] >= best["fitness"]:
                 if best is None or row["fitness"] > best["fitness"]:
                     best_epoch = epoch     # patience counts improvements
-                best = {"params": _tree_to_flax(
-                            state.get("ema_params", state["params"]),
-                            "params"),
-                        "batch_stats": _tree_to_flax(state["batch_stats"],
-                                                  "batch_stats"),
-                        "epoch": epoch, "fitness": row["fitness"]}
+                params, stats = _weights(state)
+                best = dict(state_to_flax({"params": params,
+                                           "batch_stats": stats}),
+                            epoch=epoch, fitness=row["fitness"])
             # early stop only right after an eval
             stop_early = (patience is not None and patience > 0
                           and best is not None

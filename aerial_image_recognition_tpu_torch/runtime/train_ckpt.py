@@ -4,15 +4,19 @@ Counterpart of ``aerial_image_recognition_tpu/runtime/train_ckpt.py``, with
 its signatures. The reference writes each ``epoch_N`` directory with orbax;
 the port may not depend on orbax, so it writes one flat npz there,
 ``train_state.npz``, keyed by flax paths in the reference's layout
-(``state_to_flax``): ``params/…``, ``batch_stats/…``, ``opt_state/mu/…``,
-``opt_state/nu/…``, ``opt_state/count``, ``step`` and ``ema_params/…``. A
-round trip is exact, and ``pipeline.train.fit`` resumes from it.
+(``models/weights.state_to_flax``): ``params/…``, ``batch_stats/…``,
+``opt_state/mu/…``, ``opt_state/nu/…``, ``opt_state/count``, ``step`` and
+``ema_params/…``. A round trip is exact, and ``pipeline.train.fit``
+resumes from it.
 """
 
 import os
 from typing import Dict
 
 import numpy as np
+
+from aerial_image_recognition_tpu_torch.models.weights import (
+    state_from_flax, state_to_flax)
 
 FILENAME = "train_state.npz"
 _SKIP = ("history", "best")
@@ -27,10 +31,8 @@ def _flat(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 
 def save_train_state(state: Dict, path: str) -> None:
-    """Write ``state`` (the trainer's or the reference's format) into the
-    directory ``path``, replacing what was there."""
-    from aerial_image_recognition_tpu_torch.pipeline.train import (
-        state_to_flax)
+    """Write the trainer's ``state`` into the directory ``path``,
+    replacing what was there."""
     flat: Dict[str, np.ndarray] = {}
     _flat({k: v for k, v in state_to_flax(state).items()
            if k not in _SKIP}, "", flat)
@@ -43,12 +45,10 @@ def save_train_state(state: Dict, path: str) -> None:
 
 
 def load_train_state(path: str, template: Dict) -> Dict:
-    """template: a state with the right structure (e.g. a fresh
-    ``init_train_state``); the restored state comes back in the template's
-    format, on its device. Raises ``KeyError`` when the checkpoint lacks a
-    part of the template (e.g. ``ema_params``)."""
-    from aerial_image_recognition_tpu_torch.pipeline.train import (
-        _is_nested, state_from_flax)
+    """template: a trainer state with the right structure (e.g. a fresh
+    ``init_train_state``); the restored state comes back in the trainer's
+    format, on the template's device. Raises ``KeyError`` when the
+    checkpoint lacks a part of the template (e.g. ``ema_params``)."""
     tree: Dict = {}
     with np.load(os.path.join(os.path.abspath(path), FILENAME)) as data:
         for key, value in data.items():
@@ -61,10 +61,5 @@ def load_train_state(path: str, template: Dict) -> Dict:
     if missing:
         raise KeyError(f"train checkpoint {path!r} has no {missing}")
     out = {k: tree[k] for k in template if k not in _SKIP}
-    out["step"] = int(out["step"])
-    if "opt_state" in out:
-        out["opt_state"]["count"] = int(out["opt_state"]["count"])
-    if template.get("params") and not _is_nested(template["params"]):
-        device = next(iter(template["params"].values())).device
-        return state_from_flax(out, device)
-    return out
+    device = next(iter(template["params"].values())).device
+    return state_from_flax(out, device)

@@ -13,9 +13,11 @@ to the fixture's; ``val``'s metrics equal the JAX verb's within 1e-6.
 The parser: the same verbs, every one answering ``--help``, and
 ``_overrides`` giving the same config dict for the same argv; ``--device``
 (the port's one flag of its own) never lands in the config. Every verb the
-port has not ported yet, and ``--data-parallel``, raises
-NotImplementedError naming what brings it; without ``--device`` and without
-CUDA a verb that builds a model exits non-zero before it fetches anything.
+port has not ported yet, and ``--data-parallel`` on detect, sweep and
+serve, raises NotImplementedError naming what brings it (``train`` has no
+such flag in either package: argparse refuses it); without ``--device``
+and without CUDA a verb that builds a model exits non-zero before it
+fetches anything.
 
 Each ported verb runs on the CPU with ``--device cpu``. ``detect`` over
 each package's fake XYZ server (640-px windows at zoom 18, so the JAX step
@@ -130,11 +132,9 @@ def test_every_verb_answers_help(verb, capsys):
     jax_opts = {w for w in capsys.readouterr().out.split() if
                 w.startswith("--")}
     port_opts = {w for w in out.split() if w.startswith("--")}
-    # the same flags, and --device on the verbs that build a model; the
-    # port's train also takes --data-parallel, to refuse it
-    own = {"--device", "--device DEVICE"} | (
-        {"--data-parallel"} if verb == "train" else set())
-    assert port_opts - own == jax_opts - {"--device"}
+    # the same flags, and --device on the verbs that build a model
+    assert port_opts - {"--device", "--device DEVICE"} == jax_opts - {
+        "--device"}
     builds = verb in ("detect", "sweep", "train", "geotiff", "serve",
                       "automask", "predict", "val", "export",
                       "import-weights", "calibrate")
@@ -209,12 +209,25 @@ def _flat(tree, prefix=""):
     (["detect", "--data-parallel", "--device", "cpu"], "multi-GPU slice"),
     (["sweep", "--data-parallel", "2"], "multi-GPU slice"),
     (["serve", "--data-parallel", "--device", "cpu"], "multi-GPU slice"),
-    (["train", "--coco", "c.json", "--images", "im", "--out", "o.npz",
-      "--data-parallel", "2", "--device", "cpu"], "multi-GPU slice"),
-], ids=["bench", "detect-dp", "sweep-dp", "serve-dp", "train-dp"])
+], ids=["bench", "detect-dp", "sweep-dp", "serve-dp"])
 def test_unported_verbs_and_flags_raise(argv, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         PC.main(argv)
+
+
+def test_train_refuses_data_parallel_as_jax(capsys):
+    """``train`` has no ``--data-parallel`` in either package: argparse
+    refuses it (exit 2) before anything is read. Data-parallel training
+    is refused in the library too (``fit``/``make_train_step`` with
+    ``mesh``, ``tests/test_torch_train.py::test_mesh_is_refused``)."""
+    argv = ["train", "--coco", "c.json", "--images", "im", "--out",
+            "o.npz", "--data-parallel", "2"]
+    for main in (PC.main, JC.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+        assert "unrecognized arguments: --data-parallel 2" \
+            in capsys.readouterr().err
 
 
 # --------------------------------------------------------------- detect

@@ -51,7 +51,7 @@ from aerial_image_recognition_tpu.models.registry import (
 from aerial_image_recognition_tpu.pipeline import train as JT
 from aerial_image_recognition_tpu_torch.models.registry import create_model
 from aerial_image_recognition_tpu_torch.models.weights import (
-    _flatten, grads_to_flax)
+    _flatten, flax_leaf_path, grads_to_flax)
 from aerial_image_recognition_tpu_torch.pipeline import train as PT
 from aerial_image_recognition_tpu_torch.runtime.train_ckpt import (
     load_train_state, save_train_state)
@@ -339,14 +339,15 @@ def test_freeze_mask_and_typo(bundles):
     prefixes = ("stem0", "elan1/cv1", "detect2")
     want = JT._freeze_mask(jb.params["params"], prefixes)
     got = PT._freeze_mask(pb.variables["params"], prefixes)
-    assert _flat(got) == {k: bool(v) for k, v in _flat(_np(want)).items()}
-    assert not got["stem0"]["conv"]["kernel"] and got["stem1"]["bn"]["bias"]
-    # the same mask over the trainer's own (torch-named) params
-    flat = PT._freeze_mask(PT.init_train_state(
-        pb, PT.make_optimizer())["params"], prefixes)
-    assert not flat["stem0.conv.weight"] and flat["stem1.bn.bias"]
-    assert sum(not v for v in flat.values()) \
-        == sum(not v for v in _flat(got).values())
+    # keyed by the trainer's names: the same mask by flax path
+    by_path = {"/".join(flax_leaf_path(n)[1]): v for n, v in got.items()}
+    assert by_path == {k: bool(v) for k, v in _flat(_np(want)).items()}
+    assert not got["stem0.conv.weight"] and got["stem1.bn.bias"]
+    # the optimizer trains exactly the trainer's leaves it marks trainable
+    params = PT.init_train_state(pb, PT.make_optimizer())["params"]
+    assert params.keys() == got.keys()
+    names = PT.make_optimizer(param_mask=got).trainable_names(params)
+    assert names == [n for n in params if got[n]]
     for mod in (JT, PT):
         with pytest.raises(ValueError, match="matched no parameters"):
             mod._freeze_mask(pb.variables["params"], ("stem0", "elan9"))
@@ -358,15 +359,14 @@ def test_restore_frozen_stats_equals_jax(bundles):
     new = jax.tree_util.tree_map(lambda a: a + 1.0, old)
     prefixes = ("stem1", "elan1/cv2")
     want = _flat(_np(JT._restore_frozen_stats(old, new, prefixes)))
-    got = _flat(PT._restore_frozen_stats(old, new, prefixes))
+    # the port's takes the trainer's flat torch-named statistics
+    t_old = PT.state_from_flax({"batch_stats": old})["batch_stats"]
+    t_new = PT.state_from_flax({"batch_stats": new})["batch_stats"]
+    mixed = PT._restore_frozen_stats(t_old, t_new, prefixes)
+    got = _flat(PT.state_to_flax({"batch_stats": mixed})["batch_stats"])
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
-    # and over the trainer's flat torch-named statistics
-    t_old = PT.state_from_flax({"params": _np(jb.params["params"]),
-                                "batch_stats": old})["batch_stats"]
-    t_new = {k: v + 1.0 for k, v in t_old.items()}
-    mixed = PT._restore_frozen_stats(t_old, t_new, prefixes)
     assert mixed["stem1.bn.running_mean"] is t_old["stem1.bn.running_mean"]
     assert mixed["stem0.bn.running_var"] is t_new["stem0.bn.running_var"]
 
@@ -403,9 +403,10 @@ def test_recalibrate_bn_equals_jax(bundles, batch):
     prefixes = ("stem0", "elan1")
     want = JT.recalibrate_bn(jb, dict(jb.params), Loader(), passes=2,
                              freeze_prefixes=prefixes)
-    got = PT.recalibrate_bn(pb, dict(pb.variables), Loader(), passes=2,
-                            freeze_prefixes=prefixes)
-    w, g = _flat(_np(want["batch_stats"])), _flat(got["batch_stats"])
+    got = PT.recalibrate_bn(pb, PT.state_from_flax(pb.variables), Loader(),
+                            passes=2, freeze_prefixes=prefixes)
+    w = _flat(_np(want["batch_stats"]))
+    g = _flat(PT.state_to_flax(got)["batch_stats"])
     assert g.keys() == w.keys()
     fixture = _flat(pb.variables["batch_stats"])
     for k in w:
@@ -415,8 +416,8 @@ def test_recalibrate_bn_equals_jax(bundles, batch):
             np.testing.assert_array_equal(g[k], fixture[k])
     assert not np.array_equal(g["elan2/out/bn/mean"],
                               fixture["elan2/out/bn/mean"])
-    # on the trainer's own state the same statistics come back, EMA
-    # weights preferred when present
+    # a trainer state with EMA weights recalibrates with them: the same
+    # statistics come back though its params are zeroed
     tx = PT.make_optimizer()
     s = PT.init_train_state(pb, tx, ema_decay=0.5)
     s["params"] = {k: v * 0 for k, v in s["params"].items()}

@@ -195,7 +195,8 @@ def test_evaluate_equals_jax_on_the_trained_fixture(world_set):
                             PD.LoaderConfig(**cfg), train=False)
     assert [len(i) for i, _ in pl.epoch(0)] == [4, 4, 2]
     want = JT.evaluate(jb, jb.params, jl, conf_threshold=0.25)
-    got = PT.evaluate(pb, pb.variables, pl, conf_threshold=0.25)
+    got = PT.evaluate(pb, PT.state_from_flax(pb.variables), pl,
+                      conf_threshold=0.25)
     assert got.keys() == want.keys()
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
