@@ -23,8 +23,10 @@ detection server, for every detector family the reference registers
   fetch     WMS/XYZ/WMTS tile acquisition with retries, an asyncio facade,
             a fake tile server
   ingest    host batches and the pinned upload ring feeding the card
-  post      georeferencing (device lon/lat, host f64 records), dedup,
-            results, heatmap
+  post      georeferencing (device lon/lat, host f64 records), dedup
+            (host grid; the fixed-slot device scan), results, heatmap
+  parallel  meshes of devices (data parallelism over tiles), AOI stripes
+            and the halo-exchange dedup, torch.distributed processes
   runtime   config, device choice, checkpoints, observability, doctor
   pipeline  build_detect_step / DetectStep, CarDetector, SimpleDetector,
             the GeoTIFF and image-file workflows, the resolution sweep,

@@ -157,26 +157,36 @@ class ThreadedPrefetcher:
 class _UploadRing:
     """Pinned host buffers and device buffers for a CUDA step, ``slots`` of
     each, allocated at the first batch's shape and reused for the scan,
-    with a dedicated copy stream and one staging thread.
+    with a dedicated copy stream on each device and one staging thread.
+
+    ``shards`` is ``((device, first row, end row), …)``: one entry for a
+    single-device step, the step's ``input_shardings`` for a data-parallel
+    one, whose rows then go straight from the pinned buffer to their
+    shard's device on that device's copy stream (one H2D copy per shard,
+    nothing resharded after the upload) and reach the step as lists of
+    per-shard tensors.
 
     ``upload`` hands batch N+1 to the staging thread, which copies it into
     its slot's pinned buffer (torch's copy releases the interpreter lock,
     so this runs beside the main thread's dispatch of step N) and issues
-    the H2D copy on the copy stream. Ordering, per slot: the host buffer is
-    rewritten only once the event of its previous H2D copy has completed
-    (the staging thread waits); the device buffer is overwritten only once
-    the step that read it has finished (the copy stream waits on the event
-    ``release`` was given, recorded on the compute stream after that
-    step); the step runs only after its own copy's event (``run`` waits for
-    the staging of its slot, then the compute stream waits on the event).
-    No host sync is added to the step's path. ``stage_s`` is the staging
-    thread's busy time.
+    the H2D copies on the copy streams. Ordering, per slot: the host buffer
+    is rewritten only once the events of its previous H2D copies have
+    completed (the staging thread waits); a device buffer is overwritten
+    only once the step that read it has finished (its copy stream waits on
+    the event ``release`` was given for that device, recorded on the
+    device's compute stream after that step); the step runs only after its
+    own copies' events (``run`` waits for the staging of its slot, then
+    each compute stream waits on its event). No host sync is added to the
+    step's path. ``stage_s`` is the staging thread's busy time.
     """
 
-    def __init__(self, device: torch.device, slots: int):
-        self.device = device
+    def __init__(self, shards, slots: int, sharded: bool):
+        self.shards = tuple(shards)
+        self.sharded = sharded
         self.slots = slots
-        self.copy_stream = torch.cuda.Stream(device)
+        self.copy_streams = {d: torch.cuda.Stream(d)
+                             for d in dict.fromkeys(
+                                 d for d, _, _ in self.shards)}
         self.stage_s = 0.0
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="upload-ring")
@@ -184,22 +194,29 @@ class _UploadRing:
         self._shapes = None
         self._next = 0
         self._staged: List[Optional[Future]] = [None] * slots
-        self._copied: List[Optional[torch.cuda.Event]] = [None] * slots
-        self._released: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._copied: List[Optional[list]] = [None] * slots
+        self._released: List[Optional[dict]] = [None] * slots
 
     def _allocate(self, images: np.ndarray, bounds: np.ndarray):
+        """Per slot: (pinned images, pinned bounds, device images, device
+        bounds), the device pair a list of per-shard tensors when
+        sharded."""
         self._shapes = (images.shape, bounds.shape)
         self._bufs = []
         for _ in range(self.slots):
+            dev = [(torch.empty(images[lo:hi].shape, dtype=torch.uint8,
+                                device=d),
+                    torch.empty(bounds[lo:hi].shape, dtype=torch.float32,
+                                device=d))
+                   for d, lo, hi in self.shards]
+            dev_img, dev_bnd = (list(t) for t in zip(*dev))
             self._bufs.append((
                 torch.empty(images.shape, dtype=torch.uint8,
                             pin_memory=True),
                 torch.empty(bounds.shape, dtype=torch.float32,
                             pin_memory=True),
-                torch.empty(images.shape, dtype=torch.uint8,
-                            device=self.device),
-                torch.empty(bounds.shape, dtype=torch.float32,
-                            device=self.device)))
+                dev_img if self.sharded else dev_img[0],
+                dev_bnd if self.sharded else dev_bnd[0]))
 
     def upload(self, b: TileBatch) -> int:
         """Start staging batch ``b`` into the next slot; returns the slot.
@@ -223,43 +240,52 @@ class _UploadRing:
     def _stage(self, k: int, images: np.ndarray, bounds: np.ndarray):
         t0 = time.perf_counter()
         host_img, host_bnd, dev_img, dev_bnd = self._bufs[k]
-        if self._copied[k] is not None:
-            self._copied[k].synchronize()      # its last H2D has read it
+        for ev in self._copied[k] or ():
+            ev.synchronize()                   # its last H2D has read it
         # torch's CPU copy runs on the intra-op threads; np.copyto would
         # take one core for a 79 MB batch
         host_img.copy_(torch.from_numpy(np.ascontiguousarray(images))
                        if images.flags.writeable
                        else torch.tensor(images))
         host_bnd.copy_(torch.from_numpy(bounds.copy()))
-        with torch.cuda.stream(self.copy_stream):
-            if self._released[k] is not None:
-                self.copy_stream.wait_event(self._released[k])
-            dev_img.copy_(host_img, non_blocking=True)
-            dev_bnd.copy_(host_bnd, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.copy_stream)
-        self._copied[k] = done
+        copied = []
+        if not self.sharded:
+            dev_img, dev_bnd = [dev_img], [dev_bnd]
+        for (d, lo, hi), img, bnd in zip(self.shards, dev_img, dev_bnd):
+            stream = self.copy_streams[d]
+            with torch.cuda.stream(stream):
+                if self._released[k] is not None:
+                    stream.wait_event(self._released[k][d])
+                img.copy_(host_img[lo:hi], non_blocking=True)
+                bnd.copy_(host_bnd[lo:hi], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            copied.append(done)
+        self._copied[k] = copied
         self.stage_s += time.perf_counter() - t0
 
     def run(self, k: int, step):
         """Run ``step`` on slot ``k``'s device buffers, on the current
-        (compute) stream, after that slot's copy."""
+        (compute) streams, after that slot's copies."""
         self._staged[k].result()               # raises what staging raised
         self._staged[k] = None
-        torch.cuda.current_stream(self.device).wait_event(self._copied[k])
+        for (d, _, _), ev in zip(self.shards, self._copied[k]):
+            torch.cuda.current_stream(d).wait_event(ev)
         _, _, dev_img, dev_bnd = self._bufs[k]
         return step(dev_img, dev_bnd)
 
-    def release(self, k: int, done: "torch.cuda.Event"):
-        """``done`` is recorded on the compute stream after the step that
-        read slot ``k``: the slot's next H2D copy waits for it."""
+    def release(self, k: int, done: dict):
+        """``done`` maps each device to an event recorded on its compute
+        stream after the step that read slot ``k``: the slot's next H2D
+        copies wait for them."""
         self._released[k] = done
 
     def close(self):
         """Finish the staging thread and wait for every issued copy
         (buffers may be freed after)."""
         self._pool.shutdown(wait=True)
-        self.copy_stream.synchronize()
+        for stream in self.copy_streams.values():
+            stream.synchronize()
 
 
 def run_pipeline(batches: Iterable[TileBatch],
@@ -276,11 +302,13 @@ def run_pipeline(batches: Iterable[TileBatch],
     are already queued.
 
     The upload target is ``step.device`` (a plain callable without one
-    gets CPU tensors). For a CUDA step the upload is a ring of ``depth+1``
-    pinned host / device buffer pairs on a dedicated copy stream
-    (``_UploadRing``): batch N+1 is copied into its pinned slot on the
-    ring's staging thread and issued as an H2D copy while batch N is
-    dispatched and computes, and the step receives device tensors. ``prefetch_device=False`` hands the host arrays to the step
+    gets CPU tensors); a data-parallel step's ``input_shardings`` send each
+    shard's rows to its own device. For a CUDA step the upload is a ring
+    of ``depth+1`` pinned host / device buffer pairs on a dedicated copy
+    stream per device (``_UploadRing``): batch N+1 is copied into its
+    pinned slot on the ring's staging thread and issued as an H2D copy
+    while batch N is dispatched and computes, and the step receives device
+    tensors. ``prefetch_device=False`` hands the host arrays to the step
     as they are (its own per-call upload then runs). For a CUDA step,
     ``on_result`` runs with a readback stream as the current stream, which
     first waits for an event recorded after that batch's step: its copies
@@ -306,15 +334,19 @@ def run_pipeline(batches: Iterable[TileBatch],
     device = torch.device(device) if device is not None \
         else torch.device("cpu")
     cuda = device.type == "cuda"
-    ring = _UploadRing(device, depth + 1) if prefetch_device and cuda \
-        else None
+    shardings = getattr(step, "input_shardings", None)
+    shards = shardings or ((device, 0, None),)
+    ring = _UploadRing(shards, depth + 1, sharded=shardings is not None) \
+        if prefetch_device and cuda else None
     readback = torch.cuda.Stream(device) if cuda else None
 
     def upload(b: TileBatch):
         t0 = time.perf_counter()
         if ring is not None:
             return ring.upload(b)              # timed on the ring's thread
-        if prefetch_device:
+        if prefetch_device and shardings is not None:
+            d = step.place(b.images, b.bounds)
+        elif prefetch_device:
             d = (torch.from_numpy(np.ascontiguousarray(b.images))
                  .to(device),
                  torch.from_numpy(np.asarray(b.bounds, np.float32))
@@ -328,11 +360,13 @@ def run_pipeline(batches: Iterable[TileBatch],
         out = ring.run(d, step) if ring is not None else step(*d)
         if not cuda:
             return out, None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(device))
+        dones = {}
+        for dev in dict.fromkeys([device] + [s[0] for s in shards]):
+            dones[dev] = torch.cuda.Event()
+            dones[dev].record(torch.cuda.current_stream(dev))
         if ring is not None:
-            ring.release(d, done)
-        return out, done
+            ring.release(d, dones)
+        return out, dones[device]
 
     def drain(b: TileBatch, o: tuple, done):
         if done is None:

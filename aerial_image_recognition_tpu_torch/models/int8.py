@@ -783,6 +783,20 @@ class Int8Bundle:
     def supports_s2d2(self) -> bool:
         return False
 
+    def to(self, device) -> "Int8Bundle":
+        """A replica on ``device`` (a data-parallel shard's) carrying only
+        what the int8 graph reads: a copy of the stems and heads, and the
+        qparams made there from the host mirror, as ``from_q`` makes them;
+        the host mirror is shared."""
+        import copy
+        device = torch.device(device)
+        hq = self.params["q"]
+        dq = {"convs": _device_convs(hq["convs"], device),
+              "p2_scale": _f32_on(hq["p2_scale"], device),
+              "out_scales": list(self.q["out_scales"])}
+        return replace(self, module=copy.deepcopy(self.module).to(device),
+                       device=device, q=dq)
+
     def _p2_quantize(self, p2: torch.Tensor) -> torch.Tensor:
         """P2 [B,C,H,W] float → int8 codes [B,H,W,C]; a true division by
         the 0-dim scale tensor (never a reciprocal multiplication)."""

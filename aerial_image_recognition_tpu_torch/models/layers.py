@@ -52,11 +52,21 @@ class BatchNorm(nn.BatchNorm2d):
     them in, flax's way: ``ra = 0.97·ra + (1 − 0.97)·batch`` (the old
     average weighted by the momentum, the biased variance). Clear them
     with ``clear_batch_stats`` before each forward.
+
+    ``sync`` (None, or set by the data-parallel train step on each shard's
+    copy): a callable ``(sums [2,C], count) → (global sums, global
+    count)`` that adds per-channel sums over every shard,
+    differentiably, so that ``batch`` mode takes its statistics over the
+    global batch, as the reference's single program over a mesh does. The
+    shards send n·mean and M2 + n·mean² (M2 their sums of squared
+    deviations), met in f64: the same statistics, without the fast
+    variance's cancellation over the shards' f32 sums.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps)
         self.mode = None
+        self.sync = None
         self.batch_mean = None
         self.batch_var = None
 
@@ -65,10 +75,27 @@ class BatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.float()
         if self.mode == "batch":
-            mean = xf.mean(dim=(0, 2, 3))
+            if self.sync is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                sq = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                # each shard's mean and sum of squared deviations (f32, no
+                # cancellation), met in f64 as n·m and M2 + n·m² (Chan's
+                # pairwise combination): the fast variance over shards'
+                # f32 sums would add their rounding to E[x²] − E[x]²
+                n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+                m = xf.mean(dim=(0, 2, 3))
+                d = xf - m[:, None, None]
+                m2 = (d * d).sum(dim=(0, 2, 3))
+                md = m.double()
+                sums, count = self.sync(torch.stack(
+                    [md * n, m2.double() + n * md * md]), n)
+                mean, sq = sums[0] / count, sums[1] / count
             # jnp.maximum: a tie's gradient is split, as flax's
-            var = torch.maximum((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                                torch.zeros((), device=xf.device))
+            var = torch.maximum(sq - mean * mean,
+                                torch.zeros((), dtype=sq.dtype,
+                                            device=xf.device))
+            mean, var = mean.float(), var.float()
             if self.batch_mean is None:
                 self.batch_mean = mean.detach()
                 self.batch_var = var.detach()

@@ -8,8 +8,9 @@ segmentation model ``xunet_256`` (XUnet, nc=1, 256 px), whose ``forward``
 returns mask logits.
 """
 
+import copy
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -106,20 +107,27 @@ class ModelBundle:
         return decode_yolov7(outs, self.module.anchors,
                              self.spec.num_classes)
 
-    def trainable(self) -> nn.Module:
+    def to(self, device) -> "ModelBundle":
+        """A replica on ``device`` (a data-parallel shard's): a copy of the
+        module there; the host ``variables`` are shared."""
+        device = torch.device(device)
+        return replace(self, module=copy.deepcopy(self.module).to(device),
+                       device=device)
+
+    def trainable(self, device=None) -> nn.Module:
         """A new unfused f32 copy of the model for training: built from
-        ``variables`` on the bundle's device (channels_last), in train
-        form — parameters that require grad, BN unfolded (``BatchNorm``,
-        whose training modes ``models/layers.set_bn_mode`` selects). The
-        bundle's own module is not touched, as training leaves the
-        reference's ``bundle.params`` alone."""
+        ``variables`` on ``device`` (default: the bundle's; channels_last),
+        in train form — parameters that require grad, BN unfolded
+        (``BatchNorm``, whose training modes ``models/layers.set_bn_mode``
+        selects). The bundle's own module is not touched, as training
+        leaves the reference's ``bundle.params`` alone."""
         if self.variables is None:
             raise ValueError("the bundle carries no flax-format variables "
                              "to train from")
         with torch.random.fork_rng(devices=[]):
             module = self.spec.make_module()
         load_flax_into(module, self.variables)
-        return module.float().to(device=self.device,
+        return module.float().to(device=device or self.device,
                                  memory_format=torch.channels_last)
 
     def supports_s2d2(self) -> bool:

@@ -9,11 +9,12 @@ fetches anything; ``--device cpu`` runs on the CPU explicitly.
 
 Ported verbs: detect, sweep, doctor, train, geotiff, serve (with
 ``/segment`` under ``--segment-params``), automask, predict, val,
-import-weights, export, calibrate. Parsed, then refused with
-NotImplementedError naming what brings them: ``--data-parallel`` on
-detect, sweep and serve (the multi-GPU slice) and bench (the port's
-benchmark). ``train`` has no ``--data-parallel``, as the reference's verb
-has none: argparse refuses it.
+import-weights, export, calibrate; ``--data-parallel [N]`` on detect,
+sweep and serve shards the device batch over every (or N) card, or over N
+CPU shards with ``--device cpu``. Parsed, then refused with
+NotImplementedError naming what brings it: bench (the port's benchmark).
+``train`` has no ``--data-parallel``, as the reference's verb has none:
+argparse refuses it.
 
 Usage:
   python -m aerial_image_recognition_tpu_torch detect --frame warsaw.shp \\
@@ -73,7 +74,7 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--data-parallel", dest="data_parallel", nargs="?",
                    const=True, type=int, default=None, metavar="N",
                    help="shard the device batch over all (or N) cards "
-                        "(arrives with the multi-GPU slice)")
+                        "(N CPU shards with --device cpu)")
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="int8-PTQ the detector trunk (models/int8.py). "
                         "Without --quantize-calib it self-calibrates on "
@@ -182,7 +183,7 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--data-parallel", dest="data_parallel", nargs="?",
                     const=True, type=int, default=None, metavar="N",
                     help="shard the serving batch over all (or N) cards "
-                         "(arrives with the multi-GPU slice)")
+                         "(N CPU shards with --device cpu)")
     pv.add_argument("--quantize", choices=["int8"], default=None)
     pv.add_argument("--quantize-calib", dest="quantize_calib", default=None)
     pv.add_argument("--segment-params", dest="segment_params", default=None,
@@ -368,11 +369,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command in _LATER:
         raise NotImplementedError(_LATER[args.command])
-    if getattr(args, "data_parallel", None) and args.command != "serve":
-        # the server refuses the flag itself, before it builds its step
-        raise NotImplementedError(
-            f"--data-parallel {args.data_parallel}: data-parallel scans "
-            "arrive with the multi-GPU slice")
 
     if args.command == "calibrate":
         import torch

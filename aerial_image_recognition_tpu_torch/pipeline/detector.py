@@ -312,16 +312,16 @@ class CarDetector:
     # ---------------------------------------------------------- helpers
 
     def _make_mesh(self):
-        """Data-parallel inference mesh when configured: None when
-        ``extra.data_parallel`` is unset or falsy; otherwise
-        NotImplementedError, since the data-parallel step arrives with the
-        multi-GPU slice (as ``build_detect_step(mesh=)`` says)."""
-        flag = self.config.extra.get("data_parallel")
-        if not flag:
-            return None
-        raise NotImplementedError(
-            f"data_parallel={flag!r}: data-parallel scans arrive with the "
-            "multi-GPU slice")
+        """Data-parallel inference mesh when configured.
+
+        ``data_parallel: True`` shards the device batch over every visible
+        card; an int limits the mesh to that many (``mesh_from_flag``).
+        With ``device="cpu"`` the mesh is that many shards of the CPU. The
+        reference is single-GPU by construction (gpu_handler.py:42)."""
+        from aerial_image_recognition_tpu_torch.parallel.mesh import (
+            mesh_from_flag)
+        return mesh_from_flag(self.config.extra.get("data_parallel"),
+                              self._device)
 
     def _step_config(self):
         """Detection-step config with slot counts scaled to the tile

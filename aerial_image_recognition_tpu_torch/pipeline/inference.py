@@ -18,6 +18,12 @@ function over device tensors. ``DetectStep`` keeps the surface that
 ``pack_images``, ``bundle.spec.class_names``), so either package's callers
 can drive it.
 
+With a ``mesh`` (``parallel/mesh.Mesh``) the step is data-parallel: one
+replica of the bundle per device of the mesh, the batch split on dim 0,
+each shard running the whole per-tile program on its device, NMS kernel
+included, and the outputs gathered in shard order on the mesh's first
+device.
+
 ``extra.quantize = "int8"`` runs the trunk quantized (``models/int8.py``):
 with a saved calibration (``quantize_calib``) from the first call, without
 one through ``SelfQuantizingStep``, which calibrates on the scan's own
@@ -40,7 +46,8 @@ from aerial_image_recognition_tpu_torch.ops.preprocess import (
     matmul_resize_float, preprocess_batch)
 from aerial_image_recognition_tpu_torch.post.georef import lonlat, to_numpy
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
-from aerial_image_recognition_tpu_torch.runtime.device import resolve_device
+from aerial_image_recognition_tpu_torch.runtime.device import (
+    canonical, on_device, resolve_device)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _CLAHE_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
@@ -63,16 +70,35 @@ def _upload(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return x.to(device, dtype, non_blocking=True)
 
 
+def _gather(outs, device: torch.device):
+    """Per-shard outputs (Detections, lon, lat) → one output concatenated on
+    dim 0 on ``device``, in shard order. A copy from another card waits
+    for that card's stream (PyTorch orders cross-device copies)."""
+    def cat(ts):
+        return torch.cat([t.to(device, non_blocking=True) for t in ts])
+    det = type(outs[0][0])(*(cat(f) for f in zip(*(o[0] for o in outs))))
+    return det, cat([o[1] for o in outs]), cat([o[2] for o in outs])
+
+
 @dataclass
 class DetectStep:
-    """The detection step + its host-side metadata."""
+    """The detection step + its host-side metadata.
+
+    Data-parallel (built with a mesh): ``input_shardings`` holds each
+    local shard's (device, first row, end row) and ``shard_fns`` its
+    detect function, over its device's replica of the bundle; ``bundle``
+    is the first device's replica. The ingest ring reads
+    ``input_shardings`` to upload each shard's rows straight to its
+    device; the step also takes a whole host batch, or a batch on one
+    device, and splits it. Single device: both None."""
     bundle: ModelBundle
     fn: Callable  # (images_u8 [B,S,S,3], bounds [B,4] f32) on device
     batch: int
     input_size: int          # source pixels per tile edge entering the step
     model_size: int = 640    # network input edge (pixel frame of det.boxes)
-    input_shardings: Optional[tuple] = None   # single device: always None
+    input_shardings: Optional[tuple] = None   # ((device, lo, hi), …) or None
     input_layout: str = "hwc"                 # [B,S,S,3] uint8 batches
+    shard_fns: Optional[tuple] = None         # one detect fn per shard
 
     @property
     def device(self) -> torch.device:
@@ -81,10 +107,34 @@ class DetectStep:
     def __call__(self, images_u8, bounds):
         """images_u8 [B,S,S,3] uint8, bounds [B,4] (w,s,e,n) →
         (Detections, lon [B,D], lat [B,D]) as tensors on the step's
-        device. Returns once the work is queued, not done."""
-        images = _upload(self.pack_images(images_u8), self.device,
-                         torch.uint8)
-        return self.fn(images, _upload(bounds, self.device, torch.float32))
+        device. Returns once the work is queued, not done. A
+        data-parallel step also takes lists of per-shard tensors, each
+        already on its shard's device (what the upload ring hands it)."""
+        images, bounds = self.place(images_u8, bounds)
+        if self.input_shardings is None:
+            return self.fn(images, bounds)
+        outs = []
+        for (d, _, _), fn, im, bd in zip(self.input_shardings,
+                                         self.shard_fns, images, bounds):
+            with on_device(d):
+                outs.append(fn(im, bd))
+        return _gather(outs, self.device)
+
+    def place(self, images_u8, bounds):
+        """A host or device batch → the step's device inputs: tensors on
+        its device or, data-parallel, lists of each shard's rows on its
+        device (lists of per-shard tensors pass through)."""
+        if self.input_shardings is None:
+            return (_upload(self.pack_images(images_u8), self.device,
+                            torch.uint8),
+                    _upload(bounds, self.device, torch.float32))
+        if isinstance(images_u8, (list, tuple)):
+            return list(images_u8), list(bounds)
+        images_u8 = self.pack_images(images_u8)
+        return ([_upload(images_u8[lo:hi], d, torch.uint8)
+                 for d, lo, hi in self.input_shardings],
+                [_upload(bounds[lo:hi], d, torch.float32)
+                 for d, lo, hi in self.input_shardings])
 
     def pack_images(self, images_u8):
         """This step takes [B,S,S,3] batches as they are."""
@@ -250,13 +300,16 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     returns a ``SelfQuantizingStep``, which self-calibrates on the scan's
     own first batches behind a parity gate with automatic fallback to the
     float step. A pre-built ``Int8Bundle`` may be passed as ``bundle``.
-    ``mesh`` data parallelism raises NotImplementedError naming its slice.
+
+    ``mesh`` (``parallel/mesh.Mesh``): the data-parallel step over the
+    mesh's local devices (``device`` defaults to the mesh's first); the
+    batch must divide evenly over them (ValueError naming the mesh).
+    Turnkey int8 keeps the mesh through its rebuild.
     """
+    if mesh is not None and device is None:
+        device = mesh.devices[0]
     device = resolve_device(device)
     cfg = cfg or DetectorConfig()
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel steps arrive with the multi-GPU slice")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
     if bundle is None:
@@ -267,7 +320,7 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
         raise ValueError(f"bundle lives on {bundle.device}, step asked for "
                          f"{device}")
     kwargs = dict(batch=batch, src_size=src_size, crop_size=crop_size,
-                  model_size=model_size)
+                  model_size=model_size, mesh=mesh)
     if cfg.extra.get("quantize") == "int8":
         from aerial_image_recognition_tpu_torch.models.int8 import (
             Int8Bundle, load_absmax, quantize_bundle)
@@ -286,18 +339,39 @@ def _compile_detect_step(bundle, cfg: DetectorConfig, *,
                          batch: Optional[int] = None,
                          src_size: Optional[int] = None,
                          crop_size: Optional[int] = None,
-                         model_size: Optional[int] = None) -> DetectStep:
+                         model_size: Optional[int] = None,
+                         mesh=None) -> DetectStep:
     """A DetectStep for an already-resolved bundle (the shared tail of
     ``build_detect_step`` and the int8 self-calibration rebuild). Nothing
-    is compiled: PyTorch runs eagerly."""
+    is compiled: PyTorch runs eagerly. With a mesh, the bundle is
+    replicated to each distinct device of it (``bundle.to``; shards on one
+    device share its replica)."""
     model_size = model_size or bundle.spec.input_size
-    return DetectStep(bundle=bundle,
-                      fn=make_detect_fn(bundle, cfg, src_size=src_size,
-                                        crop_size=crop_size,
-                                        model_size=model_size),
-                      batch=batch or cfg.device_batch,
+    eff_batch = batch or cfg.device_batch
+    fn_kw = dict(src_size=src_size, crop_size=crop_size,
+                 model_size=model_size)
+    shardings = shard_fns = None
+    if mesh is None:
+        fn = make_detect_fn(bundle, cfg, **fn_kw)
+    else:
+        n = mesh.local_size
+        if eff_batch % n:
+            raise ValueError(
+                f"device_batch {eff_batch} must divide evenly over the "
+                f"{n}-device '{mesh.axis_name}' mesh axis (set device_batch "
+                f"to a multiple of {n})")
+        shardings = mesh.rows(eff_batch)
+        fns = {}
+        for d in mesh.distinct_devices:
+            replica = bundle if canonical(bundle.device) == canonical(d) \
+                else bundle.to(d)
+            fns[d] = (replica, make_detect_fn(replica, cfg, **fn_kw))
+        bundle, fn = fns[mesh.devices[0]]
+        shard_fns = tuple(fns[d][1] for d in mesh.devices)
+    return DetectStep(bundle=bundle, fn=fn, batch=eff_batch,
                       input_size=src_size or model_size,
-                      model_size=model_size)
+                      model_size=model_size, input_shardings=shardings,
+                      shard_fns=shard_fns)
 
 
 def detection_sets_agree(out_a, out_b, *, min_match_frac: float = 0.9,
@@ -390,11 +464,13 @@ class SelfQuantizingStep:
     ``.fallback_reason``.
 
     A collected batch is copied to the host once, from whatever arrived
-    (numpy or a device tensor), before the step runs; other batches cost no
-    copy. The reference batch is kept as a device copy of the tensors the
-    float step ran on (the caller may reuse its buffers, as
-    ``run_pipeline``'s upload ring does) and replayed through the int8 step
-    from there.
+    (numpy, a device tensor or a data-parallel step's per-shard tensors),
+    before the step runs; other batches cost no copy. The reference batch
+    is kept as a device copy of the tensors the float step ran on (the
+    caller may reuse its buffers, as ``run_pipeline``'s upload ring does)
+    and replayed through the int8 step from there. Under a mesh the
+    calibration reads the whole (sharded) batch, and the int8 rebuild keeps
+    the mesh: every shard then runs the epilogue kernel.
     """
 
     def __init__(self, base: DetectStep, cfg: DetectorConfig, kwargs: dict):
@@ -457,20 +533,28 @@ class SelfQuantizingStep:
     def pack_images(self, images_u8):
         return self._active.pack_images(images_u8)
 
+    def place(self, images_u8, bounds):
+        return self._active.place(images_u8, bounds)
+
     @staticmethod
     def _host_copy(images) -> np.ndarray:
+        if isinstance(images, (list, tuple)):       # per-shard tensors
+            return np.concatenate([SelfQuantizingStep._host_copy(t)
+                                   for t in images])
         if isinstance(images, torch.Tensor):
             return images.detach().to("cpu", torch.uint8).numpy().copy()
         return np.array(images, dtype=np.uint8)
+
+    @staticmethod
+    def _clone(x):
+        return [t.clone() for t in x] if isinstance(x, list) else x.clone()
 
     def __call__(self, images, bounds):
         if self.quantize_state != "calibrating":
             return self._active(images, bounds)
         collect = len(self._collected) < self._target
         host = self._host_copy(images) if collect else None
-        dev_images = _upload(self._base.pack_images(images), self.device,
-                             torch.uint8)
-        dev_bounds = _upload(bounds, self.device, torch.float32)
+        dev_images, dev_bounds = self._base.place(images, bounds)
         out = self._base(dev_images, dev_bounds)
         self._seen += 1
         # non-vacuous gate: a parity reference must carry detections
@@ -478,7 +562,8 @@ class SelfQuantizingStep:
         if ndet >= self._min_det and self._ref is None:
             # copies: a caller may reuse its device buffers for later
             # batches (run_pipeline's upload ring does) before the replay
-            self._ref = (dev_images.clone(), dev_bounds.clone(), out)
+            self._ref = (self._clone(dev_images), self._clone(dev_bounds),
+                         out)
             if not collect:
                 # the reference batch joins the calibration set so absmax
                 # sees detection-bearing content even when the first

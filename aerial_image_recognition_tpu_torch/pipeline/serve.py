@@ -196,9 +196,9 @@ class DetectionServer:
 
     detect_step: a built step (any object with the DetectStep surface);
     without one, ``build_detect_step`` builds it from ``config`` on
-    ``device`` (default ``cuda``; raises without CUDA). A truthy
-    ``config["data_parallel"]`` raises NotImplementedError before any step
-    is built: data-parallel serving arrives with the multi-GPU slice.
+    ``device`` (default ``cuda``; raises without CUDA), data-parallel over
+    ``config["data_parallel"]`` cards (``parallel/mesh.mesh_from_flag``:
+    True means every card; with ``device="cpu"``, that many CPU shards).
 
     The segment plane: ``segment_fn`` (uint8 [B,S,S,3] → probabilities
     [B,S,S,1], carrying its weights, as ``make_segment_fn`` makes it) for
@@ -214,18 +214,16 @@ class DetectionServer:
                  segment_batch: int = 16, segment_size: int = 256,
                  device: Optional[Union[str, torch.device]] = None):
         self.config = DetectorConfig().merged(config or {})
-        flag = self.config.extra.get("data_parallel")
-        if flag:
-            # the reference shards the serving batch over a device mesh
-            # here; the port's data-parallel step is not there yet
-            raise NotImplementedError(
-                f"data_parallel={flag!r}: data-parallel serving arrives with "
-                "the multi-GPU slice")
         if detect_step is None:
+            from aerial_image_recognition_tpu_torch.parallel.mesh import (
+                mesh_from_flag)
             from aerial_image_recognition_tpu_torch.pipeline.inference import (
                 build_detect_step)
             detect_step = build_detect_step(
-                self.config, batch=self.config.device_batch, device=device)
+                self.config, batch=self.config.device_batch,
+                mesh=mesh_from_flag(self.config.extra.get("data_parallel"),
+                                    device),
+                device=device)
         self.step = detect_step
         self.max_wait_s = max_wait_ms / 1000.0
         self._stop = threading.Event()

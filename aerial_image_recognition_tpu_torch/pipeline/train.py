@@ -38,12 +38,26 @@ The forward runs ``torch.func.functional_call`` over one unfused f32 copy of
 the model per bundle (``ModelBundle.trainable``), on inputs rounded to bf16
 by ``preprocess_batch`` exactly as the reference's. cuDNN's TF32 is off for
 the trainer's convolutions (restored afterwards): the reference trains in
-f32. Data-parallel training (``mesh``) arrives with the multi-GPU slice.
+f32.
+
+Data-parallel training (``mesh``, a ``parallel/mesh.Mesh``) computes what
+the reference's ``jit`` over a mesh computes: the single-device step on the
+global batch. Each local shard runs the forward on its rows on its device,
+over its own copy of the module; the head outputs are gathered in shard
+order (process-major across processes) and the loss is taken over the
+global batch; ``batch``-mode BatchNorm takes its statistics, and its
+running update, over the global batch (``_ShardSync``: in-process shards
+run their forwards in lockstep threads and add their per-channel sums
+through autograd; processes add them with a differentiable ``all_reduce``);
+the gradients are summed over shards and processes, and one AdamW update
+leaves identical parameters everywhere. Across processes the step uses
+``all_reduce`` alone (gloo takes it for CUDA tensors too).
 """
 
 import math
 import os
 import re
+import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional
@@ -63,10 +77,8 @@ from aerial_image_recognition_tpu_torch.ops.losses import (
     xunet_loss, yolov7_loss, yolov8_loss)
 from aerial_image_recognition_tpu_torch.ops.preprocess import (
     preprocess_batch)
-
-_MESH = ("data-parallel training (mesh=...) arrives with the multi-GPU "
-         "slice of the port")
-
+from aerial_image_recognition_tpu_torch.runtime.device import (
+    canonical, on_device)
 
 @dataclass
 class TrainState:
@@ -413,7 +425,7 @@ class TrainStep:
 
     def __init__(self, bundle: ModelBundle, tx: AdamW, loss_kwargs=None,
                  bn_mode: str = "auto", remat: bool = False,
-                 ema_decay: float = 0.0, freeze=None):
+                 ema_decay: float = 0.0, freeze=None, mesh=None):
         self.bundle = bundle
         self.tx = tx
         self.loss_kwargs = loss_kwargs or {}
@@ -422,6 +434,18 @@ class TrainStep:
         self.ema_decay = ema_decay
         self.freeze_prefixes = resolve_freeze_prefixes(bundle, freeze)
         self.module = _train_module(bundle)
+        self.mesh = mesh
+        if mesh is not None:
+            if canonical(mesh.devices[0]) != canonical(bundle.device):
+                raise ValueError(
+                    f"the mesh's first device {mesh.devices[0]} must hold "
+                    f"the train state (the bundle is on {bundle.device})")
+            # shard 0 trains on the bundle's own module; each other shard
+            # on its own copy (functional_call swaps a module's tensors,
+            # and a BatchNorm keeps its batch statistics)
+            self.shard_modules = [self.module] + [
+                bundle.trainable(d).requires_grad_(False).eval()
+                for d in mesh.devices[1:]]
 
     def _loss(self, outs, targets):
         spec, lk = self.bundle.spec, self.loss_kwargs
@@ -436,7 +460,11 @@ class TrainStep:
 
     def loss_and_grads(self, state: Dict, images_u8, targets, names=None):
         """(loss, metrics, grads {name: tensor}, new batch_stats) for the
-        leaves ``names`` (default: every parameter)."""
+        leaves ``names`` (default: every parameter). Under a mesh,
+        ``images_u8``/``targets`` are this process's rows of the global
+        batch."""
+        if self.mesh is not None:
+            return self._loss_and_grads_dp(state, images_u8, targets, names)
         module, dev = self.module, self.bundle.device
         names = list(state["params"]) if names is None else names
         leaves = {n: t.detach().requires_grad_(n in names)
@@ -455,6 +483,87 @@ class TrainStep:
         if self.bn_mode == "batch":
             new_bs = _fold_batch_stats(module, new_bs)
         clear_batch_stats(module)
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        return loss.detach(), metrics, dict(zip(names, grads)), new_bs
+
+    def _loss_and_grads_dp(self, state: Dict, images_u8, targets, names):
+        mesh, primary = self.mesh, self.bundle.device
+        names = list(state["params"]) if names is None else names
+        group = mesh.group if mesh.process_count > 1 else None
+        rows = mesh.rows(images_u8.shape[0])
+        # per distinct device: the leaves the shards there differentiate
+        # (shards on one device share them, and autograd adds their
+        # gradients) and the running statistics
+        leaves, stats = {}, {}
+        for d in mesh.distinct_devices:
+            leaves[d] = {n: t.detach().to(d).requires_grad_(n in names)
+                         for n, t in state["params"].items()}
+            stats[d] = {n: t.to(d) for n, t in state["batch_stats"].items()}
+        flat = [leaves[d][n] for d in mesh.distinct_devices for n in names]
+        synced = self.bn_mode == "batch" and mesh.size > 1
+        for m in self.shard_modules:
+            set_bn_mode(m, self.bn_mode)
+            clear_batch_stats(m)
+
+        def run_all(tensors):
+            """Every shard's forward (in lockstep when BN is synchronized,
+            with a fresh ``_ShardSync``), over the leaves ``tensors`` (in
+            ``flat``'s order)."""
+            given = dict(zip(map(id, flat), tensors))
+            use = {d: {n: given.get(id(t), t) for n, t in lv.items()}
+                   for d, lv in leaves.items()}
+            sync = _ShardSync(mesh.devices, group) if synced else None
+            for k, m in enumerate(self.shard_modules):
+                _set_bn_sync(m, None if sync is None else sync.hook(k))
+            grad = torch.is_grad_enabled()      # thread-local: carried
+
+            def forward(k):
+                d, lo, hi = rows[k]
+                with on_device(d), torch.set_grad_enabled(grad):
+                    return _apply(self.shard_modules[k], use[d], stats[d],
+                                  _images_in(images_u8[lo:hi], d))
+            return _run_shards(forward, len(rows), lockstep=synced,
+                               sync=sync)
+
+        # the TF32 switch is process-wide: set once, around every shard
+        try:
+            with _f32_convs():
+                if self.remat:
+                    shape = []
+                    outs = _RematShards.apply(run_all, shape, *flat)
+                    outs = _unflatten_outs(outs, shape)
+                else:
+                    outs = run_all(flat)
+                g_outs = _gather_outs(outs, primary, group)
+                g_targets = torch.as_tensor(targets, dtype=torch.float32) \
+                    .to(primary)
+                if group is not None:
+                    g_targets = _GatherRows.apply(g_targets, group)
+                loss, metrics = self._loss(g_outs, g_targets)
+                got = torch.autograd.grad(loss, flat, materialize_grads=True)
+        finally:
+            for m in self.shard_modules:
+                _set_bn_sync(m, None)
+        # the gradient of the global loss: the sum over devices, then over
+        # processes (one flat buffer, one all_reduce)
+        per = len(names)
+        grads = list(got[:per])
+        for j in range(1, len(mesh.distinct_devices)):
+            part = got[j * per:(j + 1) * per]
+            grads = [g + p.to(primary) for g, p in zip(grads, part)]
+        if group is not None:
+            import torch.distributed as dist
+            buf = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(buf, group=group)
+            grads = [c.view_as(g) for c, g in zip(
+                buf.split([g.numel() for g in grads]), grads)]
+        new_bs = state["batch_stats"]
+        if self.bn_mode == "batch":
+            # every shard holds the global statistics: fold shard 0's
+            new_bs = _fold_batch_stats(self.shard_modules[0], new_bs)
+        for m in self.shard_modules:
+            clear_batch_stats(m)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
         return loss.detach(), metrics, dict(zip(names, grads)), new_bs
@@ -506,11 +615,226 @@ def make_train_step(bundle: ModelBundle, tx: AdamW,
     keep an EMA of the params in ``state["ema_params"]``. freeze: as
     ``resolve_freeze_prefixes``; frozen layers' running statistics are put
     back after a batch-mode step (the optimizer's mask is ``tx``'s).
+
+    mesh: a ``parallel/mesh.Mesh`` whose first device holds the bundle
+    (and the state): the data-parallel step of the module docstring, equal
+    to this step on the global batch. The local batch must divide evenly
+    over the mesh's local devices; across processes every process passes
+    its own rows (process-major) and gets the same new state. remat
+    under a mesh checkpoints every shard's forward at once and recomputes
+    them in lockstep (``_RematShards``). ``axis_name`` is the reference's;
+    the mesh carries its own.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     return TrainStep(bundle, tx, loss_kwargs=loss_kwargs, bn_mode=bn_mode,
-                     remat=remat, ema_decay=ema_decay, freeze=freeze)
+                     remat=remat, ema_decay=ema_decay, freeze=freeze,
+                     mesh=mesh)
+
+
+# ------------------------------------------------------ data parallelism
+
+def _set_bn_sync(module: torch.nn.Module, sync) -> None:
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = sync
+
+
+class _AllReduce(torch.autograd.Function):
+    """Differentiable sum over the processes: the gradient of a sum that
+    every process uses is the sum of their gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Each process's rows → the global rows in process order, on every
+    process: an ``all_reduce`` of a zero buffer that holds this process's
+    rows at its offset (exact: the other terms are zeros). Every process
+    then computes the same loss, so the gradient of its own rows is its
+    slice of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        b = x.shape[0]
+        ctx.rows = (r * b, (r + 1) * b)
+        buf = x.new_zeros((n * b,) + tuple(x.shape[1:]))
+        buf[r * b:(r + 1) * b] = x
+        dist.all_reduce(buf, group=group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.rows
+        return g[lo:hi], None
+
+
+def _gather_outs(outs, device: torch.device, group):
+    """Per-shard head outputs (a tensor or a list of tensors each) → the
+    global batch's, concatenated in shard order on ``device``, then over
+    the processes."""
+    def cat(ts):
+        t = torch.cat([x.to(device) for x in ts])
+        return t if group is None else _GatherRows.apply(t, group)
+    if isinstance(outs[0], torch.Tensor):
+        return cat(outs)
+    return type(outs[0])(cat(parts) for parts in zip(*outs))
+
+
+class _ShardSync:
+    """Adds ``batch``-mode BatchNorm's per-channel sums over every shard of
+    the mesh, in the order the layers run. In-process shards meet at a
+    barrier in each layer (their forwards run in lockstep threads) and
+    each adds every shard's sums on its own device, in shard order, through
+    autograd (so the gradient reaches every shard); across processes shard
+    0 adds the process totals with a differentiable ``all_reduce`` while
+    the other local shards wait for it. Every process has the same number
+    of rows, so the global count is the local one times the process
+    count."""
+
+    def __init__(self, devices, group):
+        self.devices = list(devices)
+        self.group = group
+        n = len(self.devices)
+        self.barrier = threading.Barrier(n) if n > 1 else None
+        self.rounds = []
+        self.lock = threading.Lock()
+        self.calls = [0] * n
+
+    def abort(self):
+        if self.barrier is not None:
+            self.barrier.abort()
+
+    def hook(self, k: int):
+        return lambda sums, count: self(k, sums, count)
+
+    def __call__(self, k: int, sums, count: int):
+        r = self.calls[k]
+        self.calls[k] += 1
+        n = len(self.devices)
+        with self.lock:
+            while len(self.rounds) <= r:
+                self.rounds.append({"sums": [None] * n, "total": None})
+            rnd = self.rounds[r]
+        rnd["sums"][k] = sums
+        if self.barrier is not None:
+            self.barrier.wait()
+        dev = self.devices[k]
+        total = rnd["sums"][0].to(dev)
+        for other in rnd["sums"][1:]:
+            total = total + other.to(dev)
+        count = count * n
+        if self.group is None:
+            return total, count
+        import torch.distributed as dist
+        count = count * dist.get_world_size(self.group)
+        if k == 0:
+            rnd["total"] = _AllReduce.apply(total, self.group)
+        if self.barrier is not None:
+            self.barrier.wait()
+        return rnd["total"].to(dev), count
+
+
+def _flatten_outs(outs):
+    """Per-shard outputs (a tensor or a list of tensors each) → (flat
+    tensors, the count per shard, or None for a lone tensor)."""
+    flat, shape = [], []
+    for o in outs:
+        if isinstance(o, torch.Tensor):
+            flat.append(o)
+            shape.append(None)
+        else:
+            flat.extend(o)
+            shape.append(len(o))
+    return flat, shape
+
+
+def _unflatten_outs(flat, shape):
+    outs, i = [], 0
+    for n in shape:
+        if n is None:
+            outs.append(flat[i])
+            i += 1
+        else:
+            outs.append(list(flat[i:i + n]))
+            i += n
+    return outs
+
+
+class _RematShards(torch.autograd.Function):
+    """Activation checkpointing over every shard's forward at once:
+    ``run(leaves)`` runs them keeping no activations; the backward runs
+    them again, in lockstep as the first time (a synchronized BatchNorm
+    meets the other shards and processes in the recomputation too, and
+    keeps the statistics of the first forward), then differentiates the
+    recomputed outputs. ``shape`` (a list) receives the outputs' layout."""
+
+    @staticmethod
+    def forward(ctx, run, shape, *leaves):
+        ctx.run = run
+        ctx.save_for_backward(*leaves)
+        flat, layout = _flatten_outs(run(leaves))
+        shape.extend(layout)
+        return tuple(flat)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        leaves = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            flat, _ = _flatten_outs(ctx.run(leaves))
+        pairs = [(o, g) for o, g in zip(flat, grads)
+                 if g is not None and o.requires_grad]
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+        return (None, None) + tuple(next(got) if t.requires_grad else None
+                                    for t in leaves)
+
+
+def _run_shards(fn, n: int, lockstep: bool, sync=None):
+    """[fn(k) for k < n]: in one thread per shard when the shards must run
+    in lockstep (a synchronized BatchNorm), else one after another. A
+    shard that fails breaks the others' barrier, and its error is
+    raised."""
+    if not lockstep or n == 1:
+        return [fn(k) for k in range(n)]
+    outs, errors = [None] * n, [None] * n
+
+    def run(k):
+        try:
+            outs[k] = fn(k)
+        except BaseException as e:          # re-raised on the caller
+            errors[k] = e
+            sync.abort()
+
+    threads = [threading.Thread(target=run, args=(k,), name=f"shard-{k}")
+               for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None and not isinstance(e, threading.BrokenBarrierError):
+            raise e
+    for e in errors:
+        if e is not None:
+            raise e
+    return outs
 
 
 # ------------------------------------------------------- BN, evaluation
@@ -622,9 +946,12 @@ def fit(bundle: ModelBundle, loader, *, epochs: int = 1,
     trees: ``registry.save_params({"params": …, "batch_stats": …})`` writes
     the checkpoint the JAX CLI writes), with ``best`` (params, batch_stats,
     epoch, fitness) when an eval produced a fitness, and ``history``.
+
+    mesh: the data-parallel step (``make_train_step``) over the mesh; each
+    loader batch is this process's rows of the global batch. Evaluation
+    and recalibration run on the bundle's device, as the reference's run
+    on its replicated state.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     if getattr(getattr(loader, "cfg", None), "close_mosaic", 0):
         loader.total_epochs = epochs
     param_mask = None
@@ -649,9 +976,9 @@ def fit(bundle: ModelBundle, loader, *, epochs: int = 1,
             warmup_steps=int(round(warmup_epochs * steps_per_epoch)),
             final_lr_frac=final_lr_frac, param_mask=param_mask)
     bn_mode = resolve_bn_mode(bundle, bn_mode)
-    step_fn = make_train_step(bundle, tx, bn_mode=bn_mode, remat=remat,
-                              loss_kwargs=loss_kwargs, ema_decay=ema_decay,
-                              freeze=freeze_prefixes)
+    step_fn = make_train_step(bundle, tx, mesh=mesh, bn_mode=bn_mode,
+                              remat=remat, loss_kwargs=loss_kwargs,
+                              ema_decay=ema_decay, freeze=freeze_prefixes)
     state = init_train_state(bundle, tx, ema_decay=ema_decay)
     start_epoch = 0
     if ckpt_dir:

@@ -1,8 +1,9 @@
 """Cross-tile detection dedup: confidence-greedy metric radius suppression.
 
-A copy of the host half of ``aerial_image_recognition_tpu/post/dedup.py``
-(``dedup_device``, the fixed-slot device scan whose only caller is the
-striped multi-chip scan, arrives with the multi-GPU slice).
+Counterpart of ``aerial_image_recognition_tpu/post/dedup.py``: the host
+half is a copy; ``dedup_device``, the fixed-slot greedy scan the striped
+halo dedup runs on each shard's device (``parallel/stripes.py``), is plain
+PyTorch, as the reference's is a ``lax.scan`` and not a Pallas kernel.
 
 Semantics match the reference's R-tree NMS exactly
 (simple_detector.py:540-596 and _script/utils.py:212-274): project to the
@@ -19,6 +20,7 @@ loop otherwise; the two give the same mask.
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from aerial_image_recognition_tpu_torch.geo.tmerc import tm_forward, utm_params_for
 
@@ -98,3 +100,42 @@ def nms_geographic(detections: List[dict],
     nms_geographic (car_detection_on_wms.py:49-75 / xyz_handler.py:250-273),
     minus its hardcoded UTM 32611: the zone follows the data."""
     return dedup_records(detections, distance_threshold)
+
+
+def dedup_device(x: torch.Tensor, y: torch.Tensor, conf: torch.Tensor,
+                 radius_m: float, max_keep: int, tie_id=None):
+    """Fixed-slot dedup on the tensors' device: local-meter coords [N] f32,
+    conf [N] f32 (−inf for invalid slots) → (idx [max_keep] int64,
+    keep_conf [max_keep] f32, valid mask).
+
+    Greedy highest-confidence-first over ``max_keep`` rounds, as the
+    reference's ``lax.scan``: each round picks the best available slot and
+    suppresses every slot within ``radius_m`` of it (itself included).
+    Ties go to the first maximum; with ``tie_id`` (int32 [N]) to the lowest
+    id among the slots at the round's maximum, which the striped dedup
+    needs so that every shard resolves an exact tie the same way. A round
+    that finds only −inf returns conf −inf (index 0, or the lowest id, as
+    the reference's). Distances are elementwise f32 with no matrix product,
+    so TF32 cannot touch them. One round is a handful of small kernels: a
+    Python loop over rounds, no host sync inside it.
+    """
+    r2 = radius_m * radius_m
+    avail = conf
+    big = None if tie_id is None else torch.full_like(tie_id, 2**31 - 1)
+    idx, kept = [], []
+    for _ in range(max_keep):
+        c = avail.max()
+        if tie_id is None:
+            i = torch.argmax(avail)
+        else:
+            i = torch.argmin(torch.where(avail == c, tie_id, big))
+        j = i.reshape(1)                  # index_select: no host sync
+        d2 = (x - x.index_select(0, j)) ** 2 \
+            + (y - y.index_select(0, j)) ** 2
+        avail = torch.where(d2 <= r2, float("-inf"), avail)
+        idx.append(i)
+        kept.append(c)
+    idx = torch.stack(idx) if idx else torch.zeros(0, dtype=torch.int64,
+                                                   device=conf.device)
+    kept = torch.stack(kept) if kept else conf.new_zeros(0)
+    return idx, kept, torch.isfinite(kept) & (kept > float("-inf"))

@@ -5,6 +5,7 @@ machine without CUDA raises instead of falling back to the CPU: a scan that
 silently ran on the host would look correct and be a hundred times slower.
 """
 
+from contextlib import nullcontext
 from typing import Optional, Union
 
 import torch
@@ -24,3 +25,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     return device
+
+
+def canonical(device) -> torch.device:
+    """``cuda`` alone → the current card's index, so that devices compare
+    equal when they name the same card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def on_device(device: torch.device):
+    """The context that makes ``device`` the current card (a no-op for
+    the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else nullcontext()

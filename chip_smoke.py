@@ -107,8 +107,7 @@ Phases (any failure exits nonzero, and no result line is printed):
      rest; (f) ``predict`` on a
      48 m square rendered at four pixel sizes (PNG, JPEG, ragged) with
      ``--imgsz 96 --annotate``; (g) ``serve``: JPEG POSTs answered with
-     class names, SIGINT ends it with exit 0, ``serve --data-parallel``
-     exits non-zero with the server's refusal; (h) ``sweep`` of two tile
+     class names, SIGINT ends it with exit 0; (h) ``sweep`` of two tile
      sizes with no entry in error; (i) ``SimpleDetector.run`` in this
      process over the fake XYZ server with the trained yolov8n (64 m
      windows at zoom 20, resized 699 → 640 on the card) at recall@3m ≥
@@ -166,10 +165,28 @@ Phases (any failure exits nonzero, and no result line is printed):
      JPEG tiles of a COCO json) and ``val`` on its checkpoint as counted
      children: exit 0, their JSON, val's mAP50 equal to an in-process
      ``evaluate`` of the checkpoint, one NMS launch an eval batch in each.
+ 14. multi-GPU, run last (``multi_gpu``; the card count is printed): (a)
+     the data-parallel detect step at phase 4's width over ``make_mesh()``
+     and over two shards of one card, against the single-device step; NMS
+     launches = shards × steps, ms and host syncs a step; turnkey int8
+     under each mesh reaching ``int8``, 53 epilogue launches a shard a
+     step; (b) the upload ring over the two-shard step, a ``CarDetector``
+     scan with ``data_parallel: true`` of 10b's world bit-equal to a
+     single-device scan, and the two-shard step's raw records of 11b's AOI;
+     (c) ``detect --data-parallel`` and ``serve --data-parallel`` as
+     counted children against the same runs in this process; (d)
+     ``halo_dedup_host`` at ``k_slots`` 4096 on (b)'s raw records equal to
+     ``dedup_host``; (e) a world of one on NCCL, then two processes sharing
+     the card over gloo (one process per card on NCCL with two cards or
+     more), 13a's fine-tune as a data-parallel train step: bit-equal
+     across processes, within 2·lr a step of one process; (f) YOLOv8l's
+     train step (768 px, batch 8, batch BN) over two shards of one card
+     against one device; (g) spatial inference, the trunk's rows over each
+     mesh, against the unsharded detect function.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c) and read just after it, or read from the
-child that ran the path (11b–h, 12e, 13d); every kernel of a path must have
-launched in its window. The steps are profiled after every timed step (YOLOv8l's at
+9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after it, or read
+from the child that ran the path (11b–h, 12e, 13d, 14c); every kernel of a
+path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
 whether a profile earlier in the process moves later timings.
 
@@ -190,7 +207,11 @@ kernels against their plain versions and phase 12 (record in
 against its plain version (evaluate's B=8 and ragged B=3, K=512, D=128
 among the cases) and phase 13 (record in
 ``chiprun_out/chip_smoke_train.json``, the verbs' logs under
-``chiprun_out/training/``).
+``chiprun_out/training/``);
+``python3 chip_smoke.py --parallel-only`` runs phases 1–2, the NMS and
+int8 epilogue kernels against their plain versions and phase 14 (record in
+``chiprun_out/chip_smoke_parallel.json``, scans and child logs under
+``chiprun_out/multi_gpu/``).
 """
 
 import contextlib
@@ -1651,8 +1672,7 @@ def front_ends(torch, record, card, launches, open_window, close_window):
     verb's defaults (seeded yolov8_tokyo, window 1200, stride 600, batch
     16), timed per window batch in this process; (f) ``predict`` on ragged
     PNG/JPEG crops at the fixture's scale (imgsz 96) with ``--annotate``;
-    (g) ``serve``: JPEG POSTs, SIGINT, exit 0, and ``serve
-    --data-parallel`` refused; (h) ``sweep`` over two tile sizes; (i)
+    (g) ``serve``: JPEG POSTs, SIGINT, exit 0; (h) ``sweep`` over two tile sizes; (i)
     ``SimpleDetector.run`` in this process over the fake XYZ server with
     the trained yolov8n (64 m windows at zoom 20 resized to its 0.1 m/px
     at 640 px). Each child's kernel launches go on its own path."""
@@ -1873,7 +1893,7 @@ def front_ends(torch, record, card, launches, open_window, close_window):
         # (f) predict on ragged crops at the fixture's scale
         rec["predict"] = fe_predict(world, base, card, child_path)
 
-        # (g) serve, and serve --data-parallel refused
+        # (g) serve
         rec["serve"] = fe_serve(world, base, card, child_path)
 
         # (h) sweep over two tile sizes of (b)'s AOI
@@ -2119,8 +2139,8 @@ def serve_child(base, name, argv, use):
 
 def fe_serve(world, base, card, child_path):
     """(g): ``serve`` as a child: its address line, JPEG tiles POSTed
-    (records with class names), SIGINT, exit 0; then ``serve
-    --data-parallel`` exits non-zero with the server's refusal."""
+    (records with class names), SIGINT, exit 0 (``serve --data-parallel``
+    is phase 14c)."""
     import numpy as np
     n = 8
     images, bounds = [], []
@@ -2148,22 +2168,12 @@ def fe_serve(world, base, card, child_path):
             fail(f"serve request {k}: {status} {str(body)[:300]}")
     if rc != 0:
         fail(f"serve: exit {rc} after SIGINT")
-    proc_dp, _, _ = run_verb(base, "serve_data_parallel",
-                             ["serve", "--data-parallel"], counted=False,
-                             ok=False, timeout=300)
-    if proc_dp.returncode == 0 or "data-parallel serving arrives with the " \
-            "multi-GPU slice" not in proc_dp.stderr:
-        fail(f"serve --data-parallel: exit {proc_dp.returncode}, "
-             f"{proc_dp.stderr[-500:]}")
     counts_seen = [body["count"] for _, body in replies]
     print(f"front ends (g) serve: {line}, {n} JPEG POSTs answered in "
           f"{post_s:.2f} s with {sum(counts_seen)} records (class 'car'), "
-          f"SIGINT → exit 0, launches {counts}; serve --data-parallel → "
-          f"exit {proc_dp.returncode} with the server's refusal [{card}]",
-          flush=True)
+          f"SIGINT → exit 0, launches {counts} [{card}]", flush=True)
     return {"address": line, "requests": n, "counts": counts_seen,
-            "post_s": post_s, "exit_after_sigint": rc, "launches": counts,
-            "data_parallel_exit": proc_dp.returncode}
+            "post_s": post_s, "exit_after_sigint": rc, "launches": counts}
 
 
 def fe_simple(torch, world, srv, base, card, open_window, close_window):
@@ -3735,6 +3745,693 @@ def training(torch, record, card, launches, open_window, close_window):
     train_13d(torch, record, card, launches, base)
 
 
+# ------------------------------------------------------------- phase 14
+
+DP_TIMED = 10                    # timed steps of each data-parallel step
+DIST_STEPS, DIST_B = 3, 16       # 14e: 13a's fine-tune, global batch
+# 14a: a shard of 32 rows may take another cuDNN algorithm (and another
+# bf16 rounding) than the batch of 64, so a near-threshold score may
+# cross the threshold: the DP step's detections are held to the
+# single-device step's by detection_sets_agree at 0.98 of the larger set
+# and a mean |Δscore| of 0.01 (the bf16-vs-f32 gate of phase 4 is 0.9
+# and 0.05); exact equality is recorded beside it
+DP_MATCH, DP_SCORE = 0.98, 0.01
+
+DIST_CHILD = f"""
+import json, os, sys
+sys.path.insert(0, {ROOT!r})
+import numpy as np, torch
+import chip_smoke as cs
+from {PORT}.parallel import distributed as D
+from {PORT}.parallel.mesh import Mesh
+coord, rank, world, backend, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+ctx = D.initialize(coord, world, rank, backend=backend)
+dev = torch.device("cuda", torch.cuda.current_device()) \\
+    if backend == "nccl" else torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+D.process_allgather(np.zeros(1, np.int32))
+mesh = Mesh([dev], group=torch.distributed.group.WORLD)
+params, losses, ms = cs.dist_train(torch, mesh, dev, rank, world)
+sums = D.process_allgather(np.asarray([float(np.abs(v).sum())
+                                       for v in params.values()]))
+np.savez(out, **params)
+print(json.dumps({{"rank": ctx.process_index, "world": ctx.process_count,
+                  "backend": torch.distributed.get_backend(),
+                  "device": str(dev), "global_devices": ctx.global_devices,
+                  "losses": losses, "step_ms": ms,
+                  "sums_equal": bool((sums == sums[0]).all())}}), flush=True)
+D.shutdown()
+"""
+
+
+def dist_batches(n: int = DIST_STEPS):
+    """13a's fine-tune data, the first ``n`` global batches of 16."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    tiles, bounds, cars = render_tiles(rng, TRAIN_TILES, SIZE)
+    loader = memory_loader(tiles, tile_targets(bounds, cars, SIZE),
+                           DIST_B, True, mosaic=0.0, seed=0)
+    out = []
+    for batch in loader.epoch(0):
+        out.append(batch)
+        if len(out) == n:
+            return out
+    fail(f"14e: only {len(out)} batches")
+
+
+def dist_train(torch, mesh, dev, rank: int, world: int):
+    """14e's run: 13a's YOLOv7-tiny fine-tune (frozen BN, freeze 0,1,2,
+    lr 1e-4), ``DIST_STEPS`` steps, each process on its rows of every
+    global batch. Returns (trained params as numpy, losses, ms a step
+    after the first)."""
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.pipeline import train as T
+    b = create_model("yolov7_itcvd", dtype=torch.float32,
+                     params_path=FIXTURE, device=dev)
+    mask = T._freeze_mask(b.variables["params"],
+                          T.resolve_freeze_prefixes(b, [0, 1, 2]))
+    tx = T.make_optimizer(lr=TRAIN_LR, param_mask=mask)
+    step = T.make_train_step(b, tx, mesh=mesh, bn_mode="frozen",
+                             freeze=[0, 1, 2])
+    state = T.init_train_state(b, tx)
+    per = DIST_B // world
+    losses = []
+    for k, (images, targets) in enumerate(dist_batches()):
+        if k == 1:                     # time the steps after the first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        rows = slice(rank * per, (rank + 1) * per)
+        state, m = step(state, images[rows], targets[rows])
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (DIST_STEPS - 1) * 1e3
+    return ({k: v.cpu().numpy() for k, v in state["params"].items()},
+            losses, ms)
+
+
+def params_within(got, want, steps: int):
+    """(max |Δ|, fraction beyond 1e-6) of two params dicts; fails unless
+    every element is within 2·lr a step (Adam's sign flips, 13a's rule)."""
+    import numpy as np
+    worst, far, total = 0.0, 0, 0
+    for k, w in want.items():
+        d = np.abs(np.asarray(got[k], np.float64) - np.asarray(w, np.float64))
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-6).sum())
+        total += d.size
+    if worst > 2 * TRAIN_LR * steps * (1 + 1e-3):
+        fail(f"params differ by {worst} (limit 2·lr a step)")
+    return worst, far / total
+
+
+def records_of(base, name):
+    """(lon, lat, confidence) rows of a scan's results, sorted."""
+    recs, _ = scan_records(os.path.join(base, name))
+    return recs
+
+
+def multi_gpu(torch, record, card, launches, open_window, close_window):
+    """14. Multi-GPU on the card: (a) the data-parallel detect step
+    (YOLOv7-tiny, trained fixture, 640 px, batch 64, bf16) over
+    ``make_mesh()`` (every card) and over two shards of one card
+    (``Mesh([cuda:0, cuda:0])``): detections against the single-device
+    step (``DP_MATCH``, ``DP_SCORE``), NMS launches = shards × steps, ms a
+    step and host syncs a step; turnkey int8 under each mesh must reach
+    ``int8``, every shard running the epilogue kernel; (b) the upload ring
+    over the two-shard step (detections equal, tolerance 0, to the step
+    called per batch), and ``CarDetector`` scans of phase 10b's FakeWorld:
+    ``data_parallel: true`` (bit-equal to a single-device scan's records)
+    and, over 11b's AOI, the two-shard step injected with the dedup off
+    (its records deduped matching the single-device scan's at
+    ``DP_MATCH`` within 0.5 m); (c) ``detect --data-parallel`` and
+    ``serve --data-parallel`` as counted children, equal to the same run
+    in this process (the scan bit-equal; the served records within 1e-7°
+    and 1e-3 of confidence, as concurrent requests may batch otherwise);
+    (d) ``halo_dedup_host`` on the card at ``k_slots`` 4096 over (b)'s raw
+    records of 11b's AOI, equal to ``dedup_host``, timed; (e) torch.distributed: a world of one on NCCL,
+    then two processes sharing the card over gloo (or, with two cards or
+    more, one process per card on NCCL), running 13a's fine-tune as a
+    data-parallel train step for ``DIST_STEPS`` steps: parameters
+    bit-equal between the processes and within 2·lr a step of one process
+    on the global batch; (f) the in-process data-parallel train step over
+    two shards of one card for YOLOv8l at the train verb's defaults (768
+    px, batch 8, ``batch`` BN; seeded unit-variance weights): loss, every
+    gradient leaf and the running statistics against the single-device
+    step at 13a's card bars (loss rtol 1e-4, ``TRAIN_GRAD_LIMIT``), its
+    BN statistics taken as the shards take them (the plain step's flax
+    fast variance cancels on this model; its difference is recorded), and
+    remat over the two shards against the step without it (loss and
+    statistics within 1e-6, gradients within ``TRAIN_GRAD_LIMIT``), each
+    step timed; (g) spatial inference (``make_spatial_detect``: the
+    trunk's rows over each mesh, halos gathered from the neighbouring
+    shards) on phase 4's batch against the unsharded detect function
+    (``DP_MATCH``, ``DP_SCORE``), timed."""
+    import shutil
+    import socket
+    import tempfile
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.fetch.fake import (
+        FakeTileServer, FakeWorld)
+    from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    from aerial_image_recognition_tpu_torch.parallel.mesh import (
+        Mesh, make_mesh)
+    from aerial_image_recognition_tpu_torch.parallel.stripes import (
+        halo_dedup_host)
+    from aerial_image_recognition_tpu_torch.pipeline.cli import (
+        _overrides, build_parser)
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step, detection_sets_agree)
+    from aerial_image_recognition_tpu_torch.pipeline.serve import (
+        DetectionServer)
+    from aerial_image_recognition_tpu_torch.post.dedup import dedup_host
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    base = os.path.join(ROOT, "chiprun_out", "multi_gpu")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    n_cards = torch.cuda.device_count()
+    rec = record["multi_gpu"] = {"cards": n_cards, "card": card}
+    print(f"14. multi-GPU: {n_cards} card(s) visible [{card}]", flush=True)
+    meshes = {"cards": make_mesh(),
+              "two_shards_one_card": Mesh(["cuda:0", "cuda:0"])}
+    rng = np.random.default_rng(1)
+    images, bounds, cars = render_tiles(rng, B, SIZE)
+    cfg = dict(params_path=FIXTURE, device_batch=B, dtype="bfloat16")
+
+    # (a) the DP detect step against the single-device step
+    single = build_detect_step(DetectorConfig.from_dict(cfg))
+    dev_images = torch.from_numpy(images).cuda()
+    dev_bounds = torch.from_numpy(bounds).cuda()
+    ref, single_ms = timed_steps(torch, single, images, bounds, DP_TIMED)
+    _, single_dev_ms = timed_steps(torch, single, dev_images, dev_bounds,
+                                   DP_TIMED)
+    single_syncs = host_syncs_in_one_step(torch, single, dev_images,
+                                          dev_bounds)
+    rec["14a"] = {"single": {"step_ms_host_input": single_ms,
+                             "step_ms_device_input": single_dev_ms,
+                             "host_syncs": len(single_syncs)}}
+    dp_steps = {}
+    for label, mesh in meshes.items():
+        shards = mesh.local_size
+        step = build_detect_step(DetectorConfig.from_dict(cfg), mesh=mesh)
+        dp_steps[label] = step
+        if [d for d, _, _ in step.input_shardings] != list(mesh.devices):
+            fail(f"14a {label}: shardings {step.input_shardings}")
+        parts = step.place(images, bounds)
+        path = f"dp_{label}"
+        open_window()
+        out, ms = timed_steps(torch, step, images, bounds, DP_TIMED)
+        _, dev_ms = timed_steps(torch, step, *parts, DP_TIMED)
+        close_window(path, ["nms_suppress"])
+        steps_run = 2 * (DP_TIMED + 1)
+        if launches[path]["nms_suppress"] != shards * steps_run:
+            fail(f"14a {label}: {launches[path]['nms_suppress']} NMS "
+                 f"launches in {steps_run} steps of {shards} shards")
+        syncs = host_syncs_in_one_step(torch, step, *parts)
+        check_output(torch, f"14a {label}", out)
+        ok, agree = detection_sets_agree(out, ref, min_match_frac=DP_MATCH,
+                                         max_mean_score_delta=DP_SCORE)
+        if not ok:
+            fail(f"14a {label}: against the single-device step {agree}")
+        rec["14a"][label] = {
+            "devices": [str(d) for d in mesh.devices], "shards": shards,
+            "step_ms_host_input": ms, "step_ms_device_input": dev_ms,
+            "tiles_per_s_host_input": B / ms * 1e3,
+            "slower_than_single_device_input": dev_ms / single_dev_ms,
+            "nms_launches": launches[path]["nms_suppress"],
+            "host_syncs": len(syncs), "host_sync_messages": syncs[:4],
+            "agree_single": agree,
+            "equal_single": same_detections(torch, out, ref)}
+        print(f"14a {label} ({shards} shard(s) on {mesh.devices}): "
+              f"{ms:.2f} ms a step (host input), {dev_ms:.2f} with the "
+              f"shards' rows on their devices, against {single_ms:.2f} / "
+              f"{single_dev_ms:.2f} for one device; {len(syncs)} host "
+              f"syncs a step (one device: {len(single_syncs)}); "
+              f"{launches[path]['nms_suppress']} NMS launches in "
+              f"{steps_run} steps; against one device {agree}, equal "
+              f"{rec['14a'][label]['equal_single']} [{card}]", flush=True)
+
+        # turnkey int8 under the mesh
+        q = build_detect_step(DetectorConfig.from_dict(
+            dict(cfg, quantize="int8")), mesh=mesh)
+        qpath = f"dp_int8_{label}"
+        open_window()
+        states = []
+        for _ in range(2):
+            states.append(q.quantize_state)
+            q(images, bounds)
+        states.append(q.quantize_state)
+        if states != ["calibrating", "calibrating", "int8"]:
+            fail(f"14a int8 {label}: states {states}, "
+                 f"{q.fallback_reason}")
+        before = requantize.launches
+        q_out, q_ms = timed_steps(torch, q, images, bounds, DP_TIMED)
+        close_window(qpath, ["nms_suppress", "int8_epilogue"])
+        per_step = (requantize.launches - before) / (DP_TIMED + 1)
+        if per_step != TRUNK_CONVS * shards \
+                or q.input_shardings != step.input_shardings:
+            fail(f"14a int8 {label}: {per_step} epilogue launches a step "
+                 f"over {shards} shards, shardings {q.input_shardings}")
+        ok_q, agree_q = detection_sets_agree(ref, q_out)
+        if not ok_q:
+            fail(f"14a int8 {label}: against the bf16 step {agree_q}")
+        rec["14a"][label]["int8"] = {
+            "states": states, "parity": q.parity, "step_ms_host_input": q_ms,
+            "epilogue_launches_a_step": per_step,
+            "nms_launches": launches[qpath]["nms_suppress"],
+            "agree_bf16_single": agree_q}
+        print(f"14a int8 {label}: states {states}, {q_ms:.2f} ms a step, "
+              f"{per_step:.0f} epilogue launches a step ({TRUNK_CONVS} × "
+              f"{shards}), against the bf16 step {agree_q} [{card}]",
+              flush=True)
+        del q
+
+    # (b) the ring over the two-shard step, then scans of 10b's world
+    from aerial_image_recognition_tpu_torch.ingest.pipeline import (
+        TileBatch, run_pipeline)
+    two = dp_steps["two_shards_one_card"]
+    batches = [TileBatch(np.arange(B) + k * B, np.roll(images, k, axis=0),
+                         np.roll(bounds, k, axis=0), B) for k in range(4)]
+    want = [readback(two(b.images, b.bounds)) for b in batches]
+    got = []
+    open_window()
+    stats = run_pipeline(iter(batches), two,
+                         lambda b, o: got.append(readback(o)))
+    close_window("dp_ring", ["nms_suppress"])
+    if stats["batches"] != 4 or any(
+            not all(np.array_equal(x, y) for x, y in zip(g, w))
+            for g, w in zip(got, want)):
+        fail("14b: the ring's detections differ from the step's")
+    world = FakeWorld(**SCAN_WORLD)
+    srv = FakeTileServer(world)
+    srv.start()
+    w, s, e, n = SCAN_AOI
+    frame = aoi_frame(os.path.join(base, "aoi.geojson"), SCAN_AOI)
+    scan_cfg = {
+        "frame_path": frame, "use_xyz": False,
+        "wms_url": srv.base_url + "/wms", "wms_layer": "fake",
+        "wms_size": (SIZE, SIZE), "tile_size_meters": SCAN_TILE_M,
+        "tile_overlap": SCAN_OVERLAP, "confidence_threshold": 0.4,
+        "duplicate_distance": 2.0, "checkpoint_interval": 10**9,
+        "params_path": FIXTURE, "dtype": "bfloat16", "device_batch": B,
+        "batch_size": B, "num_workers": 16, "submit_spacing": 0.0}
+    fe_frame = aoi_frame(os.path.join(base, "fe_aoi.geojson"), FE_AOI)
+    scans = {}
+    # the single-device scan of 10b's world: 10b's own, where it ran
+    single_dir = os.path.join(ROOT, "chiprun_out", "scan") \
+        if "scan" in record else os.path.join(base, "single")
+    try:
+        for name, extra, step in (
+                ("single", {}, None),
+                ("dp_cards", {"data_parallel": True}, None),
+                ("fe_single", {"frame_path": fe_frame}, None),
+                ("fe_two_shards_raw", {"frame_path": fe_frame,
+                                       "duplicate_distance": 0.0}, two)):
+            if name == "single" and "scan" in record:
+                scans[name] = {"tiles": record["scan"]["tiles"],
+                               "wall_s": record["scan"]["wall_s"],
+                               "records": record["scan"]["detections"],
+                               "shardings": None, "from": "10b"}
+                continue
+            det = CarDetector(os.path.join(base, name),
+                              dict(scan_cfg, **extra), detect_step=step)
+            open_window()
+            t0 = time.perf_counter()
+            out = det.detect(force_restart=True)
+            wall = time.perf_counter() - t0
+            close_window(f"scan_{name}", ["nms_suppress"])
+            scans[name] = {"tiles": out["tiles"], "wall_s": wall,
+                           "records": out["detections"],
+                           "shardings": None if det.last_step.input_shardings
+                           is None else len(det.last_step.input_shardings)}
+    finally:
+        srv.stop()
+    r_single, _ = scan_records(single_dir)
+    r_dp = records_of(base, "dp_cards")
+    if scans["dp_cards"]["shardings"] != n_cards \
+            or not np.array_equal(r_single, r_dp):
+        fail(f"14b: data_parallel scan over {scans['dp_cards']} differs "
+             f"from the single-device scan")
+    # 11b's AOI: its raw records fit one 4096-slot stripe (10b's AOI
+    # gives ~9000, more than the two stripes of two shards hold)
+    fe_single = records_of(base, "fe_single")
+    raw = records_of(base, "fe_two_shards_raw")
+    keep = dedup_host(raw[:, 0], raw[:, 1], raw[:, 2], 2.0)
+    deduped = raw[keep]
+    matched = matched_within(fe_single, deduped, 0.5)
+    if matched < DP_MATCH or abs(len(deduped) - len(fe_single)) \
+            > (1 - DP_MATCH) * len(fe_single):
+        fail(f"14b: the two-shard scan's {len(deduped)} deduped records "
+             f"match {matched:.3f} of the single scan's {len(fe_single)}")
+    rec["14b"] = {"ring_batches": stats["batches"], "scans": scans,
+                  "dp_cards_equal_single": True,
+                  "two_shards_matched_single_0_5m": matched}
+    print(f"14b: ring over the two-shard step: {stats['batches']} batches "
+          f"equal to the step; scans of {scans['single']['tiles']} tiles: "
+          f"single {scans['single']['wall_s']:.2f} s, data_parallel "
+          f"({n_cards} card(s)) {scans['dp_cards']['wall_s']:.2f} s, "
+          f"records bit-equal ({len(r_single)}); 11b's AOI "
+          f"({scans['fe_single']['tiles']} tiles) on two shards of one "
+          f"card {scans['fe_two_shards_raw']['wall_s']:.2f} s, {len(raw)} "
+          f"raw records, deduped {len(deduped)} matching {matched:.4f} of "
+          f"the single scan's {len(fe_single)} within 0.5 m [{card}]",
+          flush=True)
+
+    # (d) the halo dedup over the two-shard scan's raw records
+    d_rec = {}
+    for label, mesh in meshes.items():
+        halo_dedup_host(raw[:2, 0], raw[:2, 1], raw[:2, 2], SCAN_AOI, mesh,
+                        radius_m=2.0, k_slots=8)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        klon, klat, kconf = halo_dedup_host(
+            raw[:, 0], raw[:, 1], raw[:, 2], SCAN_AOI, mesh, radius_m=2.0,
+            k_slots=4096)
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(kconf) != len(deduped) or not np.allclose(
+                np.sort(kconf), np.sort(deduped[:, 2]), rtol=1e-6, atol=0):
+            fail(f"14d {label}: halo dedup kept {len(kconf)}, dedup_host "
+                 f"{len(deduped)}")
+        d_rec[label] = {"ms": ms, "kept": len(kconf), "input": len(raw),
+                        "rounds_per_shard": 3 * 4096,
+                        "shards": mesh.local_size}
+        print(f"14d halo_dedup_host on {label} ({mesh.local_size} "
+              f"shard(s)), k_slots 4096: {len(raw)} records → "
+              f"{len(kconf)} kept, equal to dedup_host, {ms:.1f} ms "
+              f"[{card}]", flush=True)
+    rec["14d"] = d_rec
+
+    # (c) detect and serve with --data-parallel as children
+    srv = FakeTileServer(world)
+    srv.start()
+    try:
+        argv = ["detect", "--base-dir", os.path.join(base, "cli_detect"),
+                "--force-restart", "--data-parallel", "--frame", fe_frame,
+                "--tile-size-meters", "320", "--tile-overlap", "0.25",
+                "--params", FIXTURE, "--device-batch", str(B),
+                "--batch-size", str(B), "--num-workers", "16",
+                "--confidence-threshold", "0.4", "--duplicate-distance",
+                "2.0", "--wms-url", srv.base_url + "/wms", "--wms-layer",
+                "fake"]
+        proc, wall, counts = run_verb(base, "detect_dp", argv)
+        child_launches(launches, "cli_detect_dp", counts, ["nms_suppress"])
+        ns = build_parser().parse_args(argv)
+        CarDetector(os.path.join(base, "cli_detect_in_process"),
+                    _overrides(ns)).detect(force_restart=True)
+        got_c = records_of(base, "cli_detect")
+        want_c = records_of(base, "cli_detect_in_process")
+        if len(got_c) == 0 or not np.array_equal(got_c, want_c):
+            fail(f"14c detect --data-parallel: {got_c.shape} records, "
+                 f"{want_c.shape} in process, not equal")
+    finally:
+        srv.stop()
+    tiles_s = [world.render((SCAN_WORLD["center_lon"] + (k - 4) * 330 * M2LON
+                             - 160 * M2LON, 52.2 - 160 * M2LAT,
+                             SCAN_WORLD["center_lon"] + (k - 4) * 330 * M2LON
+                             + 160 * M2LON, 52.2 + 160 * M2LAT), SIZE, SIZE)
+               for k in range(8)]
+    bnds_s = np.asarray([(SCAN_WORLD["center_lon"] + (k - 4) * 330 * M2LON
+                          - 160 * M2LON, 52.2 - 160 * M2LAT,
+                          SCAN_WORLD["center_lon"] + (k - 4) * 330 * M2LON
+                          + 160 * M2LON, 52.2 + 160 * M2LAT)
+                         for k in range(8)])
+
+    def use(line):
+        return post_jpegs(line["serving"], tiles_s, bnds_s, 8)
+
+    line, replies, rc, s_counts = serve_child(
+        base, "serve_dp", ["serve", "--port", "0", "--params", FIXTURE,
+                           "--batch", "8", "--max-wait-ms", "20",
+                           "--data-parallel"], use)
+    child_launches(launches, "cli_serve_dp", s_counts, ["nms_suppress"])
+    in_proc = DetectionServer({"params_path": FIXTURE, "device_batch": 8,
+                               "confidence_threshold": 0.3,
+                               "data_parallel": True},
+                              max_wait_ms=20.0).start()
+    try:
+        want_s = post_jpegs(in_proc.url, tiles_s, bnds_s, 8)
+    finally:
+        in_proc.stop()
+    key = [sorted((d["lon"], d["lat"], d["confidence"])
+                  for d in body["detections"]) for _, body in replies]
+    key_w = [sorted((d["lon"], d["lat"], d["confidence"])
+                    for d in body["detections"]) for _, body in want_s]
+    # concurrent requests may batch differently in the two servers: a
+    # tile's records are held within 1e-7° and 1e-3 of confidence, and
+    # exact equality is recorded
+    close = all(len(a) == len(b) and (not a or bool((np.abs(
+        np.asarray(a) - np.asarray(b)).max(axis=0)
+        <= [1e-7, 1e-7, 1e-3]).all())) for a, b in zip(key, key_w))
+    if rc != 0 or not close or not any(key):
+        fail(f"14c serve --data-parallel: exit {rc}, replies close to the "
+             f"in-process server's {close}")
+    rec["14c"] = {"detect_wall_s": wall, "detect_records": len(got_c),
+                  "serve_equal_in_process": key == key_w,
+                  "detect_launches": counts, "serve_address": line,
+                  "serve_counts": [b["count"] for _, b in replies],
+                  "serve_launches": s_counts}
+    print(f"14c: detect --data-parallel ({wall:.1f} s, {len(got_c)} "
+          f"records, launches {counts}) and serve --data-parallel (8 JPEG "
+          f"POSTs, exit {rc} after SIGINT, launches {s_counts}) equal to "
+          f"the same runs in this process [{card}]", flush=True)
+
+    # (e) torch.distributed
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        single_params, single_losses, single_ms = dist_train(
+            torch, None, torch.device("cuda", 0), 0, 1)
+        e_rec = {"single": {"losses": single_losses, "step_ms": single_ms}}
+        runs = [("nccl_world_of_one", "nccl", 1)]
+        if n_cards >= 2:
+            runs.append(("nccl_two_cards", "nccl", 2))
+        else:
+            runs.append(("gloo_two_processes_one_card", "gloo", 2))
+        for label, backend, world_n in runs:
+            coord = f"127.0.0.1:{free_port()}"
+            outs = [os.path.join(tmp, f"{label}_{r}.npz")
+                    for r in range(world_n)]
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", DIST_CHILD, coord, str(r),
+                 str(world_n), backend, outs[r]], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(world_n)]
+            t0 = time.perf_counter()
+            reports = []
+            try:
+                for p in procs:
+                    so, se = p.communicate(timeout=600)
+                    if p.returncode != 0:
+                        fail(f"14e {label}: exit {p.returncode}: "
+                             f"{se[-1500:]}")
+                    reports.append(json.loads(so.strip().splitlines()[-1]))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            params = [dict(np.load(o)) for o in outs]
+            for other in params[1:]:
+                for k, v in params[0].items():
+                    if not np.array_equal(v, other[k]):
+                        fail(f"14e {label}: processes differ at {k}")
+            worst, far = params_within(params[0], single_params,
+                                       DIST_STEPS)
+            np.testing.assert_allclose(reports[0]["losses"], single_losses,
+                                       rtol=1e-3)
+            if not all(r["sums_equal"] for r in reports) \
+                    or {r["backend"] for r in reports} != {backend}:
+                fail(f"14e {label}: {reports}")
+            e_rec[label] = {"reports": reports, "wall_s": wall,
+                            "max_abs_vs_single": worst,
+                            "frac_beyond_1e-6": far}
+            print(f"14e {label}: {world_n} process(es) on {backend}, "
+                  f"devices {[r['device'] for r in reports]}, {DIST_STEPS} "
+                  f"steps of 13a's fine-tune (global batch {DIST_B}): "
+                  f"params bit-equal across processes, within {worst:.2e} "
+                  f"of one process ({far:.4f} beyond 1e-6); losses "
+                  f"{reports[0]['losses']}, {reports[0]['step_ms']:.1f} ms "
+                  f"a step against {single_ms:.1f} in one process; "
+                  f"{wall:.1f} s of wall [{card}]", flush=True)
+        rec["14e"] = e_rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) the in-process DP train step, YOLOv8l at the verb's defaults
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        grads_to_flax)
+    from aerial_image_recognition_tpu_torch.pipeline import train as T
+    rng = np.random.default_rng(14)
+    tiles, tb, tc = render_tiles(rng, V8L_B, V8L_SIZE)
+    batch = next(iter(memory_loader(
+        tiles, tile_targets(tb, tc, V8L_SIZE), V8L_B, False, mosaic=0.0,
+        mixup=0.0, hsv=0.0).epoch(0)))
+    tree = unit_variance_tree(torch, "yolov8_tokyo", tiles[:, :SIZE, :SIZE])
+    bundle = create_model("yolov8_tokyo", dtype=torch.float32,
+                          variables=tree, device="cuda")
+    tx = T.make_optimizer(lr=TRAIN_LR)
+    s0 = T.init_train_state(bundle, tx)
+    one = T.make_train_step(bundle, tx)
+    two_t = T.make_train_step(bundle, tx, mesh=meshes["two_shards_one_card"])
+    if one.bn_mode != "batch" or two_t.bn_mode != "batch":
+        fail("14f: yolov8 did not resolve to batch BN")
+    # the reference: one device with the statistics taken as the shards
+    # take them (each shard's mean and squared deviations, met in f64):
+    # the single-device step's own flax fast variance E[x²] − E[x]²
+    # cancels on this seeded model's channels, and its difference is
+    # recorded beside (no gate)
+    _, _, g_fast, _ = one.loss_and_grads(s0, *batch)
+    T._set_bn_sync(one.module, T._ShardSync(
+        [torch.device("cuda", 0)], None).hook(0))
+    try:
+        l1, _, g1, bs1 = one.loss_and_grads(s0, *batch)
+    finally:
+        T._set_bn_sync(one.module, None)
+    l2, _, g2, bs2 = two_t.loss_and_grads(s0, *batch)
+    g_rel = leaf_errors(grads_to_flax(g2)["params"],
+                        grads_to_flax(g1)["params"])
+    # remat over the two shards: recomputed in lockstep, the statistics of
+    # the first forward kept
+    lr_, _, gr, bsr = T.make_train_step(
+        bundle, tx, mesh=meshes["two_shards_one_card"],
+        remat=True).loss_and_grads(s0, *batch)
+    remat_rel = max(leaf_errors(grads_to_flax(gr)["params"],
+                                grads_to_flax(g2)["params"]).values())
+    remat_stats_equal = all(torch.equal(bsr[k], bs2[k]) for k in bs2)
+    remat_stats_rel = max(float((bsr[k] - bs2[k]).abs().max())
+                          / max(float(bs2[k].abs().max()), 1e-30)
+                          for k in bs2)
+    remat_loss_rel = abs(float(lr_) - float(l2)) / abs(float(l2))
+    if remat_loss_rel > 1e-6 or remat_stats_rel > 1e-6 \
+            or remat_rel > TRAIN_GRAD_LIMIT:
+        fail(f"14f: remat over two shards: loss {remat_loss_rel:.2e}, "
+             f"statistics {remat_stats_rel:.2e}, gradients "
+             f"{remat_rel:.2e}")
+    del gr
+    fast_rel = leaf_errors(grads_to_flax(g_fast)["params"],
+                           grads_to_flax(g1)["params"])
+    bs_rel = max(float((bs2[k] - bs1[k]).abs().max())
+                 / max(float(bs1[k].abs().max()), 1e-30) for k in bs1)
+    loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    if loss_rel > 1e-4 or max(g_rel.values()) > TRAIN_GRAD_LIMIT \
+            or bs_rel > TRAIN_GRAD_LIMIT:
+        fail(f"14f: two shards against one device: loss {loss_rel:.2e}, "
+             f"gradients {max(g_rel.values()):.2e} at "
+             f"{max(g_rel, key=g_rel.get)}, statistics {bs_rel:.2e}")
+    del g1, g2, g_fast
+    _, ms1, _ = timed_train_steps(torch, one, s0, batch, 3, warmup=1)
+    _, ms2, losses2 = timed_train_steps(torch, two_t, s0, batch, 3, warmup=1)
+    if not all(math.isfinite(v) for v in losses2):
+        fail(f"14f: losses {losses2}")
+    rec["14f"] = {"size": V8L_SIZE, "batch": V8L_B, "shards": 2,
+                  "loss_rel": loss_rel,
+                  "grad_max_rel_to_leaf_max": max(g_rel.values()),
+                  "grad_worst_leaf": max(g_rel, key=g_rel.get),
+                  "stats_max_rel": bs_rel,
+                  "remat_grad_max_rel": remat_rel,
+                  "remat_loss_rel": remat_loss_rel,
+                  "remat_stats_equal": remat_stats_equal,
+                  "fast_variance_grad_max_rel": max(fast_rel.values()),
+                  "fast_variance_worst_leaf": max(fast_rel, key=fast_rel.get),
+                  "fast_variance_leaves_beyond_limit": sum(
+                      v > TRAIN_GRAD_LIMIT for v in fast_rel.values()),
+                  "step_ms_single": ms1,
+                  "step_ms_two_shards": ms2}
+    print(f"14f yolov8l {V8L_SIZE} px, batch {V8L_B}, batch BN, two "
+          f"shards of one card against one device: loss {loss_rel:.1e}, "
+          f"gradients within {max(g_rel.values()):.1e} of each leaf's "
+          f"largest (limit {TRAIN_GRAD_LIMIT}), statistics {bs_rel:.1e} "
+          f"(one device with flax's fast variance instead: gradients "
+          f"{max(fast_rel.values()):.1e} at "
+          f"{max(fast_rel, key=fast_rel.get)}); remat over the shards: "
+          f"loss {remat_loss_rel:.1e}, statistics equal "
+          f"{remat_stats_equal}, gradients within {remat_rel:.1e}; "
+          f"{ms2:.1f} ms a step "
+          f"against {ms1:.1f} [{card}]", flush=True)
+    del bundle, one, two_t, s0
+
+    # (g) spatial: one batch's rows over the meshes, at phase 4's width
+    from aerial_image_recognition_tpu_torch.parallel.spatial import (
+        make_spatial_detect)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        make_detect_fn)
+    sp_cfg = DetectorConfig.from_dict(cfg)
+    plain = make_detect_fn(single.bundle, sp_cfg)
+    sp_ref, plain_ms = timed_steps(torch, plain, dev_images, dev_bounds,
+                                   DP_TIMED)
+    g_rec = {"plain_ms_device_input": plain_ms}
+    for label, mesh in meshes.items():
+        fn = make_spatial_detect(single.bundle, sp_cfg, mesh)
+        path = f"spatial_{label}"
+        open_window()
+        sp_out, sp_ms = timed_steps(torch, fn, dev_images, dev_bounds,
+                                    DP_TIMED)
+        close_window(path, ["nms_suppress"])
+        if launches[path]["nms_suppress"] != DP_TIMED + 1:
+            fail(f"14g {label}: {launches[path]['nms_suppress']} NMS "
+                 f"launches in {DP_TIMED + 1} steps")
+        check_output(torch, f"14g {label}", sp_out)
+        ok, agree = detection_sets_agree(sp_out, sp_ref,
+                                         min_match_frac=DP_MATCH,
+                                         max_mean_score_delta=DP_SCORE)
+        if not ok:
+            fail(f"14g {label}: against the unsharded forward {agree}")
+        g_rec[label] = {"shards": mesh.local_size,
+                        "step_ms_device_input": sp_ms,
+                        "slower_than_plain": sp_ms / plain_ms,
+                        "agree_plain": agree,
+                        "equal_plain": same_detections(torch, sp_out,
+                                                       sp_ref)}
+        print(f"14g spatial {label} ({mesh.local_size} shard(s) of the "
+              f"rows): {sp_ms:.2f} ms a batch of {B} against {plain_ms:.2f} "
+              f"unsharded; against it {agree}, equal "
+              f"{g_rec[label]['equal_plain']} [{card}]", flush=True)
+    rec["14g"] = g_rec
+
+
+def parallel_only(torch, record, card) -> None:
+    """``--parallel-only``: the NMS and int8 epilogue kernels against
+    their plain versions, then phase 14. The kernel line holds both."""
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    nms = check_nms_kernel(torch, record)
+    epilogue = check_int8_product(torch, record, card)
+    print(f"nms_suppress: bit-identical to plain on "
+          f"{len(record['nms_cases'])} cases; int8_epilogue equal to plain "
+          f"on {len(record['int8_cases'])} shapes [{card}]", flush=True)
+    launches = {}
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
+         "int8_epilogue": requantize}, launches)
+    multi_gpu(torch, record, card, launches, open_window, close_window)
+    record["launches_by_path"] = launches
+    for entry in (nms, epilogue):
+        entry["launches"] = sum(p.get(entry["name"], 0)
+                                for p in launches.values())
+        entry["launches_by_path"] = {path: p.get(entry["name"], 0)
+                                     for path, p in launches.items()}
+    record["kernels"] = [nms, epilogue]
+
+
 def train_only(torch, record, card) -> None:
     """``--train-only``: the NMS kernel against its plain version
     (``NMS_CASES``, evaluate's shapes among them), then phase 13. The
@@ -3886,13 +4583,15 @@ def main() -> None:
     modes = {"--scan-only": "chip_smoke_scan.json",
              "--front-ends-only": "chip_smoke_front_ends.json",
              "--segment-only": "chip_smoke_segment.json",
-             "--train-only": "chip_smoke_train.json"}
+             "--train-only": "chip_smoke_train.json",
+             "--parallel-only": "chip_smoke_parallel.json"}
     mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in modes:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
              "--scan-only for the city scan's phases alone, with "
              "--front-ends-only for the CLI's, with --segment-only for "
-             "segmentation's or with --train-only for training's")
+             "segmentation's, with --train-only for training's or with "
+             "--parallel-only for multi-GPU's")
     try:
         import torch
     except ImportError as e:
@@ -3953,6 +4652,10 @@ def main() -> None:
         return
     if mode == "--train-only":
         train_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
+        return
+    if mode == "--parallel-only":
+        parallel_only(torch, record, card)
         finish(torch, record, name, modes[mode])
         return
 
@@ -4330,6 +5033,9 @@ def main() -> None:
 
     # 13. training on the card
     training(torch, record, card, launches, open_window, close_window)
+
+    # 14. multi-GPU
+    multi_gpu(torch, record, card, launches, open_window, close_window)
 
     for entry in (kernel, clahe, epilogue):
         entry["launches"] = sum(p.get(entry["name"], 0)

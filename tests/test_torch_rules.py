@@ -203,11 +203,15 @@ def test_unported_options_raise(tmp_path):
         build_detect_step)
     from aerial_image_recognition_tpu_torch.runtime.config import (
         DetectorConfig)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        build_detect_step(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        build_detect_step(DetectorConfig(extra={"quantize": "int8"}),
-                          device="cpu", mesh=object())
+    # a mesh builds the data-parallel step, float and turnkey int8
+    from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(["cpu"] * 2)
+    dp = build_detect_step(device="cpu", mesh=mesh, batch=2, model_size=64)
+    assert dp.input_shardings == mesh.rows(2) and len(dp.shard_fns) == 2
+    dq = build_detect_step(DetectorConfig(extra={"quantize": "int8"}),
+                           device="cpu", mesh=mesh, batch=2, model_size=64)
+    assert dq.quantize_state == "calibrating"
+    assert dq.input_shardings == mesh.rows(2)
     # the reference resizes multiscale's off-native scales with
     # jax.image.resize when resize_matmul is false; the port has only the
     # matrix-product resize, so the combination is refused, not swapped
@@ -226,10 +230,9 @@ def test_unported_options_raise(tmp_path):
     from aerial_image_recognition_tpu_torch.pipeline.detector import (
         CarDetector)
     from aerial_image_recognition_tpu_torch.post.heatmap import hex_heatmap
-    for flag in (True, 4):
+    for flag, n in ((True, 1), (4, 4)):
         det = CarDetector(".", {"data_parallel": flag}, device="cpu")
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-            det._make_mesh()
+        assert det._make_mesh().devices == (torch.device("cpu"),) * n
     assert CarDetector(".", {"data_parallel": False})._make_mesh() is None
     with pytest.raises(NotImplementedError, match="quad stem"):
         list(assemble_batches(iter([]), batch_size=2, src_size=8,
@@ -270,23 +273,31 @@ def test_unported_options_raise(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [2, True])
-def test_server_refuses_data_parallel(monkeypatch, flag):
+def test_server_builds_a_data_parallel_step(monkeypatch, flag):
     """The reference shards the serving batch over a mesh when
-    ``data_parallel`` is set; the port's server refuses the flag, before it
-    builds a step, instead of serving on one device without a word."""
+    ``data_parallel`` is set; so does the port's server: its step is built
+    over ``mesh_from_flag`` (on the CPU, that many CPU shards; True is
+    one), never quietly on one device."""
     from aerial_image_recognition_tpu_torch.pipeline import inference
     from aerial_image_recognition_tpu_torch.pipeline.serve import (
         DetectionServer)
+    meshes = []
 
-    def no_build(*a, **kw):
-        raise AssertionError("the server built a step")
+    def spy(cfg, *, batch, mesh, device):
+        meshes.append(mesh)
+        assert str(device) == "cpu" and batch == 4
+        return _StubStep()
 
-    monkeypatch.setattr(inference, "build_detect_step", no_build)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        DetectionServer({"data_parallel": flag}, device="cpu")
-    srv = DetectionServer({"data_parallel": None}, device="cpu",
-                          detect_step=_StubStep())      # unset: serves
+    monkeypatch.setattr(inference, "build_detect_step", spy)
+    srv = DetectionServer({"data_parallel": flag, "device_batch": 4},
+                          device="cpu")
     srv._httpd.server_close()
+    n = 1 if flag is True else flag
+    assert meshes[0].devices == (torch.device("cpu"),) * n
+    srv = DetectionServer({"data_parallel": None, "device_batch": 4},
+                          device="cpu")
+    srv._httpd.server_close()
+    assert meshes[1] is None                    # unset: one device
 
 
 class _StubStep:

@@ -439,14 +439,6 @@ def test_ema_tracks_the_reference_ramp(bundles, batch):
     assert not torch.equal(s1["ema_params"][k], s1["params"][k])
 
 
-def test_mesh_is_refused(bundles):
-    _, pb = bundles
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        PT.make_train_step(pb, PT.make_optimizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        PT.fit(pb, None, mesh=object())
-
-
 def test_checkpoint_round_trip_and_resume(bundles, batch, tmp_path):
     _, pb = bundles
     tx = PT.make_optimizer(lr=LR, warmup_steps=2)
