@@ -159,12 +159,10 @@ class _UploadRing:
     each, allocated at the first batch's shape and reused for the scan,
     with a dedicated copy stream on each device and one staging thread.
 
-    ``shards`` is ``((device, first row, end row), …)``: one entry for a
-    single-device step, the step's ``input_shardings`` for a data-parallel
-    one, whose rows then go straight from the pinned buffer to their
-    shard's device on that device's copy stream (one H2D copy per shard,
-    nothing resharded after the upload) and reach the step as lists of
-    per-shard tensors.
+    The step runs over ``mesh`` (``parallel/mesh.Mesh``): each shard's rows
+    (``mesh.rows``) go straight from the pinned buffer to its device on
+    that device's copy stream (one H2D copy per shard, nothing resharded
+    after the upload) and reach the step as lists of per-shard tensors.
 
     ``upload`` hands batch N+1 to the staging thread, which copies it into
     its slot's pinned buffer (torch's copy releases the interpreter lock,
@@ -180,13 +178,12 @@ class _UploadRing:
     step's path. ``stage_s`` is the staging thread's busy time.
     """
 
-    def __init__(self, shards, slots: int, sharded: bool):
-        self.shards = tuple(shards)
-        self.sharded = sharded
+    def __init__(self, mesh, slots: int):
+        self.mesh = mesh
+        self.shards = None                   # mesh.rows of the first batch
         self.slots = slots
         self.copy_streams = {d: torch.cuda.Stream(d)
-                             for d in dict.fromkeys(
-                                 d for d, _, _ in self.shards)}
+                             for d in mesh.distinct_devices}
         self.stage_s = 0.0
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="upload-ring")
@@ -199,24 +196,20 @@ class _UploadRing:
 
     def _allocate(self, images: np.ndarray, bounds: np.ndarray):
         """Per slot: (pinned images, pinned bounds, device images, device
-        bounds), the device pair a list of per-shard tensors when
-        sharded."""
+        bounds), the device pair lists of per-shard tensors."""
         self._shapes = (images.shape, bounds.shape)
+        self.shards = self.mesh.rows(images.shape[0])
         self._bufs = []
         for _ in range(self.slots):
-            dev = [(torch.empty(images[lo:hi].shape, dtype=torch.uint8,
-                                device=d),
-                    torch.empty(bounds[lo:hi].shape, dtype=torch.float32,
-                                device=d))
-                   for d, lo, hi in self.shards]
-            dev_img, dev_bnd = (list(t) for t in zip(*dev))
             self._bufs.append((
                 torch.empty(images.shape, dtype=torch.uint8,
                             pin_memory=True),
                 torch.empty(bounds.shape, dtype=torch.float32,
                             pin_memory=True),
-                dev_img if self.sharded else dev_img[0],
-                dev_bnd if self.sharded else dev_bnd[0]))
+                [torch.empty(images[lo:hi].shape, dtype=torch.uint8,
+                             device=d) for d, lo, hi in self.shards],
+                [torch.empty(bounds[lo:hi].shape, dtype=torch.float32,
+                             device=d) for d, lo, hi in self.shards]))
 
     def upload(self, b: TileBatch) -> int:
         """Start staging batch ``b`` into the next slot; returns the slot.
@@ -249,8 +242,6 @@ class _UploadRing:
                        else torch.tensor(images))
         host_bnd.copy_(torch.from_numpy(bounds.copy()))
         copied = []
-        if not self.sharded:
-            dev_img, dev_bnd = [dev_img], [dev_bnd]
         for (d, lo, hi), img, bnd in zip(self.shards, dev_img, dev_bnd):
             stream = self.copy_streams[d]
             with torch.cuda.stream(stream):
@@ -301,15 +292,16 @@ def run_pipeline(batches: Iterable[TileBatch],
     by the time result N is being read back, batch N+1's upload and compute
     are already queued.
 
-    The upload target is ``step.device`` (a plain callable without one
-    gets CPU tensors); a data-parallel step's ``input_shardings`` send each
-    shard's rows to its own device. For a CUDA step the upload is a ring
-    of ``depth+1`` pinned host / device buffer pairs on a dedicated copy
-    stream per device (``_UploadRing``): batch N+1 is copied into its
-    pinned slot on the ring's staging thread and issued as an H2D copy
-    while batch N is dispatched and computes, and the step receives device
-    tensors. ``prefetch_device=False`` hands the host arrays to the step
-    as they are (its own per-call upload then runs). For a CUDA step,
+    A port ``DetectStep`` (a step with a ``mesh``) gets each shard's rows
+    on its own device, as lists of per-shard tensors; a plain callable
+    gets tensors on its ``device`` (the CPU without one). For a CUDA
+    ``DetectStep`` the upload is a ring of ``depth+1`` pinned host /
+    device buffer pairs on a dedicated copy stream per device
+    (``_UploadRing``): batch N+1 is copied into its pinned slot on the
+    ring's staging thread and issued as H2D copies while batch N is
+    dispatched and computes. ``prefetch_device=False`` hands the host
+    arrays to the step as they are (its own per-call upload then runs).
+    For a CUDA step,
     ``on_result`` runs with a readback stream as the current stream, which
     first waits for an event recorded after that batch's step: its copies
     to the host then wait for that step alone, not for the later batches
@@ -334,17 +326,18 @@ def run_pipeline(batches: Iterable[TileBatch],
     device = torch.device(device) if device is not None \
         else torch.device("cpu")
     cuda = device.type == "cuda"
-    shardings = getattr(step, "input_shardings", None)
-    shards = shardings or ((device, 0, None),)
-    ring = _UploadRing(shards, depth + 1, sharded=shardings is not None) \
-        if prefetch_device and cuda else None
+    mesh = getattr(step, "mesh", None)
+    ring = _UploadRing(mesh, depth + 1) \
+        if prefetch_device and cuda and mesh is not None else None
     readback = torch.cuda.Stream(device) if cuda else None
+    devices = dict.fromkeys([device] + (
+        [] if mesh is None else list(mesh.distinct_devices)))
 
     def upload(b: TileBatch):
         t0 = time.perf_counter()
         if ring is not None:
             return ring.upload(b)              # timed on the ring's thread
-        if prefetch_device and shardings is not None:
+        if prefetch_device and mesh is not None:
             d = step.place(b.images, b.bounds)
         elif prefetch_device:
             d = (torch.from_numpy(np.ascontiguousarray(b.images))
@@ -361,7 +354,7 @@ def run_pipeline(batches: Iterable[TileBatch],
         if not cuda:
             return out, None
         dones = {}
-        for dev in dict.fromkeys([device] + [s[0] for s in shards]):
+        for dev in devices:
             dones[dev] = torch.cuda.Event()
             dones[dev].record(torch.cuda.current_stream(dev))
         if ring is not None:

@@ -809,9 +809,8 @@ class Int8Bundle:
         ``g`` runs the graph (default: a ``_Run`` over this bundle's
         qparams, with the family's activation)."""
         x = QT(p2_i8, self.static_scales["__p2__"], p2_i8.shape[-1])
-        act = "leaky" if getattr(self.module, "variant", "") == "tiny" \
-            else "silu"
-        g = g or _Run(self.q["convs"], act=act, scales=self.static_scales)
+        g = g or _Run(self.q["convs"], act=self.act,
+                      scales=self.static_scales)
         if self.spec.family == "yolov8":
             from aerial_image_recognition_tpu_torch.models.yolov8 import (
                 SCALES)
@@ -821,17 +820,28 @@ class Int8Bundle:
             return _v7base_trunk(g, x)
         return _tiny_trunk(g, x)
 
+    @property
+    def act(self) -> str:
+        """The trunk's activation: leaky for yolov7-tiny, else silu."""
+        return "leaky" if getattr(self.module, "variant", "") == "tiny" \
+            else "silu"
+
     def _raw_from_p2_i8(self, p2_i8: torch.Tensor) -> List[torch.Tensor]:
-        """int8 trunk + f32 heads → the three raw NHWC maps. A tap's codes
-        are dequantized by its static scale: yolov7's by ``out_scales``,
-        yolov8's by the coding scale of the tower's last conv."""
-        if p2_i8.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        """int8 trunk + f32 heads → the three raw NHWC maps."""
+        return self.raw_from_taps(self.trunk_codes(p2_i8))
+
+    def raw_from_taps(self, taps) -> List[torch.Tensor]:
+        """The f32 heads over the trunk's int8 head taps (QTs) → the three
+        raw NHWC maps. A tap's codes are dequantized by its static scale:
+        yolov7's by ``out_scales``, yolov8's by the coding scale of the
+        tower's last conv."""
+        if taps[0].v.is_cuda \
+                and torch.get_float32_matmul_precision() != "highest":
             raise RuntimeError(
                 "the f32 detect heads need full-precision f32 matmuls; "
                 "torch.get_float32_matmul_precision() is "
                 f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
                 "back to 'highest'")
-        taps = self.trunk_codes(p2_i8)
         heads = self.module.heads()
         if self.spec.family == "yolov8":
             return [torch.cat([heads[i](taps[i].v.to(torch.float32)

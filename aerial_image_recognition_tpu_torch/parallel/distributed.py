@@ -2,10 +2,16 @@
 
 Counterpart of ``aerial_image_recognition_tpu/parallel/distributed.py``.
 Every process joins one process group, fetches ONLY its own AOI stripe's
-tiles (``host_stripe``), runs the detect step on its local devices, and the
+tiles (``host_stripe``), runs the detect step on its device, and the
 records are merged by the exact host dedup (``merge_host_detections``). The
 data-parallel train step (``pipeline/train.py``) all-reduces over the same
 group.
+
+Under a process group each process drives ONE device: ``initialize`` makes
+card ``rank % count`` its current device, ``make_mesh``/``mesh_from_flag``
+give it a mesh of that device alone (the process group spans the rest), and
+``context`` counts one local device. (The reference runs one process per
+host over all its chips; NCCL wants a process per card.)
 
 ``initialize`` reads the reference's own variables
 (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``),
@@ -33,12 +39,6 @@ class DistributedContext:
     global_devices: int
 
 
-def _local_devices(backend: Optional[str]) -> int:
-    if backend == "nccl" and torch.cuda.is_available():
-        return torch.cuda.device_count()
-    return 1
-
-
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, *,
@@ -49,10 +49,12 @@ def initialize(coordinator_address: Optional[str] = None,
     Arguments default from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
     JAX_PROCESS_ID. ``coordinator_address`` is ``host:port`` (or
     ``tcp://host:port``); process 0 hosts the store there. ``backend`` is
-    given to ``init_process_group`` as it is. With ``nccl`` each process
-    takes the card of its rank modulo the visible count as its current
-    device (a card per process). Without an address this is a world of one
-    with no group, as the reference's single-host default."""
+    given to ``init_process_group`` as it is. Where a card is visible each
+    process takes the card of its rank modulo the visible count as its
+    current device (a card per process; processes share cards round-robin
+    when there are more of them, which only gloo allows). Without an
+    address this is a world of one with no group, as the reference's
+    single-host default."""
     import torch.distributed as dist
 
     coordinator_address = coordinator_address or os.environ.get(
@@ -63,7 +65,7 @@ def initialize(coordinator_address: Optional[str] = None,
             os.environ.get("JAX_PROCESS_ID", "0"))
         addr = coordinator_address if "://" in coordinator_address \
             else f"tcp://{coordinator_address}"
-        if backend == "nccl":
+        if torch.cuda.is_available():
             torch.cuda.set_device(pid % torch.cuda.device_count())
         from datetime import timedelta
         dist.init_process_group(backend, init_method=addr, world_size=n,
@@ -73,18 +75,18 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def context() -> DistributedContext:
-    """The rank, world size and device counts of this process."""
+    """The rank, world size and device counts of this process: every
+    visible card outside a process group, one device per process in
+    one."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         local = torch.cuda.device_count() if torch.cuda.is_available() \
             else 1
         return DistributedContext(0, 1, local, local)
-    backend = dist.get_backend()
-    local = _local_devices(backend)
     world = dist.get_world_size()
     return DistributedContext(
         process_index=dist.get_rank(), process_count=world,
-        local_devices=local, global_devices=local * world)
+        local_devices=1, global_devices=world)
 
 
 def shutdown() -> None:

@@ -102,16 +102,22 @@ def make_mesh(n_devices: Optional[int] = None,
     """The first ``n_devices`` visible CUDA cards (all without a count),
     each once. Like the reference's ``devs[:n]`` it truncates silently: a
     count above the number of cards gives every card and no error. Raises
-    when there is no card. The mesh spans processes when
-    ``torch.distributed`` is initialized (``parallel/distributed.py``)."""
+    when there is no card. Under a ``torch.distributed`` process group
+    (``parallel/distributed.py``) a process drives one card: the mesh is
+    its current card alone (any count truncates to it) and spans the
+    processes."""
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if count == 0:
         raise RuntimeError("make_mesh: no CUDA device is visible; list the "
                            "devices yourself (Mesh([...])) for the CPU")
-    devs = [torch.device("cuda", i) for i in range(count)]
+    group = _default_group()
+    if group is not None:
+        devs = [torch.device("cuda", torch.cuda.current_device())]
+    else:
+        devs = [torch.device("cuda", i) for i in range(count)]
     if n_devices is not None:
         devs = devs[:n_devices]
-    return Mesh(devs, axis_name, group=_default_group())
+    return Mesh(devs, axis_name, group=group)
 
 
 def mesh_from_flag(dp, device: Optional[DeviceLike] = None) -> Optional[Mesh]:
@@ -121,13 +127,15 @@ def mesh_from_flag(dp, device: Optional[DeviceLike] = None) -> Optional[Mesh]:
     truncating as it does). With ``device`` on the CPU the mesh is that
     many shards of the CPU (``True``: one), as XLA's virtual host devices
     are; CarDetector, DetectionServer and the CLI share this, so
-    ``data_parallel: true`` means the same everywhere."""
+    ``data_parallel: true`` means the same everywhere. Under a process
+    group each process has one device, as ``make_mesh``'s."""
     if not dp:
         return None
     n = None if isinstance(dp, bool) else int(dp)
     if device is not None and torch.device(device).type == "cpu":
-        return Mesh([torch.device("cpu")] * (n or 1),
-                    group=_default_group())
+        group = _default_group()
+        return Mesh([torch.device("cpu")] * (1 if group is not None
+                                             else n or 1), group=group)
     return make_mesh(n)
 
 

@@ -15,9 +15,17 @@ operations shard by shard:
   top and bottom padded as the operation pads (zeros; −inf for a pool);
 * nearest ``interpolate``, channel ``cat``/``chunk``/``split``, the
   activations, casts and elementwise arithmetic run on each shard's rows;
-* anything else gathers the whole tensor on the first device and runs
-  there (the heads' NHWC permute, so decode, NMS and lon/lat run once, on
-  replicated outputs, as the reference's ``out_shardings``).
+* the heads' NHWC ``permute`` is where the rows meet: the whole map is
+  gathered on the first device there, so decode, NMS and lon/lat run once,
+  on replicated outputs, as the reference's ``out_shardings``;
+* any other operation on row-sharded activations raises
+  NotImplementedError: a mesh never quietly becomes its first device.
+
+An ``Int8Bundle``'s float stems run on ``RowShards``; its int8 trunk runs
+on ``_Rows`` (NHWC codes split by rows) through ``_RowsRun``, which gives
+each trunk operation (convolution, the pools, the upsample, the residual
+add, the channel split) its halo rows in the same way, on each device's
+copy of the int8 qparams; the head taps meet on the first device.
 
 Every activation of a given height is split the same way (``row_edges``),
 so two of them always line up. The weights of a conv live on the bundle's
@@ -26,6 +34,7 @@ this is for one high-priority tile's latency across cards; shards that
 share a card run in turns.
 """
 
+from dataclasses import replace
 from typing import Optional, Sequence
 
 import torch
@@ -81,26 +90,8 @@ class RowShards(torch.Tensor):
     def rows(self, start: int, stop: int, device, fill: float) -> torch.Tensor:
         """Rows ``start:stop`` (global; outside the image: ``fill``) on
         ``device``, taken from the shards that hold them."""
-        height = self.edges[-1]
-        b, c, _, w = self.shape
-        pieces = []
-        if start < 0:
-            pieces.append(self._fill(min(0, stop) - start, device, fill))
-        for k, part in enumerate(self.parts):
-            lo = max(start, self.edges[k])
-            hi = min(stop, self.edges[k + 1])
-            if lo < hi:
-                pieces.append(part[:, :, lo - self.edges[k]:
-                                   hi - self.edges[k]].to(device))
-        if stop > height:
-            pieces.append(self._fill(stop - max(start, height), device,
-                                     fill))
-        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=2)
-
-    def _fill(self, n: int, device, value: float) -> torch.Tensor:
-        b, c, _, w = self.shape
-        return torch.full((b, c, n, w), value, dtype=self.dtype,
-                          device=device)
+        return _take_rows(self.parts, self.edges, 2, start, stop, device,
+                          fill)
 
     def param(self, t: Optional[torch.Tensor], device):
         """A weight on ``device``: itself where it lives, else a copy made
@@ -126,7 +117,9 @@ class RowShards(torch.Tensor):
                     for a in args[1:] + tuple(kwargs.values()))):
             handler = _each               # a cast, not a move
         if handler is None:
-            return _gathered(func, args, kwargs)
+            if func in _MEET:
+                return _gathered(func, args, kwargs)
+            _refuse(getattr(func, "__name__", str(func)))
         with torch._C.DisableTorchFunctionSubclass():
             return handler(func, *args, **kwargs)
 
@@ -138,6 +131,39 @@ class RowShards(torch.Tensor):
 
 _METADATA = {torch.Tensor.dim, torch.Tensor.size, torch.Tensor.numel,
              torch.Tensor.is_contiguous, torch.Tensor.__repr__}
+# the heads' NHWC permute: where the rows meet (see the module docstring)
+_MEET = {torch.Tensor.permute, torch.permute}
+
+
+def _refuse(what: str):
+    raise NotImplementedError(
+        f"spatial inference: {what} on row-sharded activations has no "
+        "sharded rule; it would run the rest of the forward on one device")
+
+
+def _take_rows(parts, edges, dim: int, start: int, stop: int, device,
+               fill: float) -> torch.Tensor:
+    """Global rows ``start:stop`` (dim ``dim``) of a tensor split as
+    ``parts`` at ``edges``, on ``device``; rows outside the tensor are
+    ``fill``."""
+    height = edges[-1]
+    pieces = []
+
+    def filled(n):
+        shape = list(parts[0].shape)
+        shape[dim] = n
+        return torch.full(shape, fill, dtype=parts[0].dtype, device=device)
+    if start < 0:
+        pieces.append(filled(min(0, stop) - start))
+    for k, part in enumerate(parts):
+        lo = max(start, edges[k])
+        hi = min(stop, edges[k + 1])
+        if lo < hi:
+            pieces.append(part.narrow(dim, lo - edges[k], hi - lo)
+                          .to(device))
+    if stop > height:
+        pieces.append(filled(stop - max(start, height)))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
 
 
 def _first(args):
@@ -160,7 +186,7 @@ def _whole(a):
 
 
 def _gathered(func, args, kwargs):
-    """Any other operation: on the whole tensors, on the first device."""
+    """The heads' permute: on the whole tensors, on the first device."""
     with torch._C.DisableTorchFunctionSubclass():
         return func(*_whole(args), **{k: _whole(v)
                                       for k, v in kwargs.items()})
@@ -203,8 +229,7 @@ def _window(func, x: RowShards, kernel_h: int, stride: int, pad: int,
 def _conv2d(func, x, weight, bias=None, stride=1, padding=0, dilation=1,
             groups=1):
     if not isinstance(x, RowShards) or isinstance(padding, str):
-        return _gathered(func, (x, weight, bias, stride, padding, dilation,
-                                groups), {})
+        _refuse(f"conv2d(padding={padding!r}) or a sharded weight")
     (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), \
         _pair(dilation)
 
@@ -217,8 +242,7 @@ def _conv2d(func, x, weight, bias=None, stride=1, padding=0, dilation=1,
 def _max_pool2d(func, x, kernel_size, stride=None, padding=0, dilation=1,
                 ceil_mode=False, return_indices=False):
     if ceil_mode or return_indices:
-        return _gathered(func, (x, kernel_size, stride, padding, dilation,
-                                ceil_mode, return_indices), {})
+        _refuse("max_pool2d with ceil_mode or return_indices")
     (kh, kw) = _pair(kernel_size)
     (sh, sw) = _pair(stride if stride not in (None, []) else kernel_size)
     (ph, pw), (dh, dw) = _pair(padding), _pair(dilation)
@@ -235,8 +259,8 @@ def _interpolate(func, x, size=None, scale_factor=None, mode="nearest",
     s = scale_factor if isinstance(scale_factor, (int, float)) else None
     if mode != "nearest" or size is not None or s is None \
             or float(s) != int(s):
-        return _gathered(func, (x, size, scale_factor, mode, align_corners,
-                                recompute_scale_factor, antialias), {})
+        _refuse(f"interpolate(mode={mode!r}, size={size}, "
+                f"scale_factor={scale_factor})")
     s = int(s)
     edges = row_edges(x.edges[-1] * s, len(x.devices))
     parts = []
@@ -253,7 +277,7 @@ def _cat(func, tensors, dim=0, *, out=None):
     tensors = list(tensors)
     if out is not None or dim not in (1, -3) \
             or not all(isinstance(t, RowShards) for t in tensors):
-        return _gathered(func, (tensors, dim), {})
+        _refuse(f"cat over dim {dim}")
     x = tensors[0]
     return x.like([torch.cat([t.parts[k] for t in tensors], dim=1)
                    for k in range(len(x.devices))])
@@ -261,7 +285,7 @@ def _cat(func, tensors, dim=0, *, out=None):
 
 def _chunks(func, x, arg, dim=0):
     if dim not in (1, -3):
-        return _gathered(func, (x, arg, dim), {})
+        _refuse(f"{func.__name__} over dim {dim}")
     per = [func(p, arg, dim=1) for p in x.parts]
     return tuple(x.like([pieces[j] for pieces in per])
                  for j in range(len(per[0])))
@@ -299,21 +323,158 @@ _EACH = {F.silu, F.relu, F.leaky_relu, torch.sigmoid, torch.Tensor.sigmoid,
          torch.add, torch.mul}
 
 
+class _Rows:
+    """int8 NHWC codes split by rows (dim 1) over devices, as ``RowShards``
+    splits an NCHW activation: ``parts[k]`` holds rows
+    ``edges[k]:edges[k+1]`` on ``devices[k]``."""
+
+    def __init__(self, parts, devices):
+        self.parts = list(parts)
+        self.devices = tuple(devices)
+        self.edges = row_edges(sum(p.shape[1] for p in self.parts),
+                               len(self.devices))
+        if [p.shape[1] for p in self.parts] != [
+                self.edges[k + 1] - self.edges[k]
+                for k in range(len(self.parts))]:
+            raise ValueError("_Rows: parts do not follow row_edges")
+
+    @property
+    def shape(self):
+        b, _, w, c = self.parts[0].shape
+        return (b, self.edges[-1], w, c)
+
+    def rows(self, start: int, stop: int, device, fill: float):
+        return _take_rows(self.parts, self.edges, 1, start, stop, device,
+                          fill)
+
+    def whole(self) -> torch.Tensor:
+        return torch.cat([p.to(self.devices[0]) for p in self.parts], dim=1)
+
+
+class _RowsRun:
+    """The int8 trunk graph's operations (``models/int8._Run``'s) on
+    ``_Rows``: each output shard's input rows, its halo included, are
+    gathered onto its device and the device's ``_Run`` does the operation
+    there; rows beyond the image are the operation's padding (zeros for a
+    convolution, −128 for a pool)."""
+
+    def __init__(self, runs, devices):
+        self.runs = runs                  # {device: _Run}
+        self.devices = tuple(devices)
+
+    def _window(self, x: "_Rows", kernel: int, stride: int, pad: int,
+                fill: float, op) -> "_Rows":
+        # op(run, slab) pads ``pad`` rows itself; a slab that starts q
+        # outputs early (a multiple of the stride) keeps its own padding
+        # out of every output row that is kept
+        height = x.shape[1]
+        out_h = (height + 2 * pad - kernel) // stride + 1
+        edges = row_edges(out_h, len(self.devices))
+        q = -(-pad // stride)
+        parts = []
+        for k, dev in enumerate(self.devices):
+            o0, o1 = edges[k], edges[k + 1]
+            n = o1 - o0
+            stop = (max(o1, o0 + 1) - 1) * stride - pad + kernel
+            slab = x.rows((o0 - q) * stride, stop, dev, fill)
+            parts.append(op(self.runs[dev], slab)[:, q:q + n])
+        return _Rows(parts, self.devices)
+
+    def conv(self, name, x, kernel, stride=1):
+        from aerial_image_recognition_tpu_torch.models.int8 import QT
+        xs = x if isinstance(x, list) else [x]
+        v = xs[0].v if len(xs) == 1 else _Rows(
+            [torch.cat([p.v.parts[k] for p in xs], dim=-1)
+             for k in range(len(self.devices))], self.devices)
+        s_in = xs[0].s
+        scale = []
+
+        def op(run, slab):
+            out = run.conv(name, QT(slab, s_in, slab.shape[-1]), kernel,
+                           stride)
+            scale.append(out.s)
+            return out.v
+        out = self._window(v, kernel, stride, kernel // 2, 0.0, op)
+        return QT(out, scale[0], out.shape[-1])
+
+    def pool2(self, x):
+        return replace(x, v=self._window(
+            x.v, 2, 2, 0, -128.0,
+            lambda run, slab: run.pool2(replace(x, v=slab)).v))
+
+    def pool_same(self, x, k):
+        return replace(x, v=self._window(
+            x.v, k, 1, k // 2, -128.0,
+            lambda run, slab: run.pool_same(replace(x, v=slab), k).v))
+
+    def up2(self, x):
+        height = x.v.shape[1]
+        edges = row_edges(2 * height, len(self.devices))
+        parts = []
+        for k, dev in enumerate(self.devices):
+            o0, o1 = edges[k], edges[k + 1]
+            lo = o0 // 2
+            slab = x.v.rows(lo, max(lo + 1, (o1 - 1) // 2 + 1), dev, 0.0)
+            up = self.runs[dev].up2(replace(x, v=slab)).v
+            parts.append(up[:, o0 - 2 * lo:o1 - 2 * lo])
+        return replace(x, v=_Rows(parts, self.devices))
+
+    def add(self, key, y, x):
+        from aerial_image_recognition_tpu_torch.models.int8 import QT
+        outs = [self.runs[d].add(key, replace(y, v=yp), replace(x, v=xp))
+                for d, yp, xp in zip(self.devices, y.v.parts, x.v.parts)]
+        return QT(_Rows([o.v for o in outs], self.devices), outs[0].s, y.c)
+
+    def split2(self, x):
+        pairs = [self.runs[d].split2(replace(x, v=p))
+                 for d, p in zip(self.devices, x.v.parts)]
+        return tuple(replace(pairs[0][j], v=_Rows([pr[j].v for pr in pairs],
+                                                  self.devices))
+                     for j in range(2))
+
+
 class _SpatialBundle:
     """A bundle whose trunk runs on ``RowShards``: ``forward`` splits the
     preprocessed images by rows over the mesh, and the outputs come back
-    whole on the first device."""
+    whole on the first device. An ``Int8Bundle``'s trunk runs on
+    ``_Rows`` (``_RowsRun``) over a replica of its int8 qparams on each
+    device."""
 
     def __init__(self, bundle, devices: Sequence[torch.device]):
+        from aerial_image_recognition_tpu_torch.models.int8 import (
+            Int8Bundle, _Run)
         self.bundle = bundle
         self.spec = bundle.spec
         self.device = bundle.device
         self.devices = tuple(devices)
         self.weights = {}
+        self.int8 = None
+        if isinstance(bundle, Int8Bundle):
+            from aerial_image_recognition_tpu_torch.runtime.device import (
+                canonical)
+            replicas = {d: bundle if canonical(d) == canonical(bundle.device)
+                        else bundle.to(d) for d in dict.fromkeys(self.devices)}
+            self.int8 = (replicas, _RowsRun(
+                {d: _Run(r.q["convs"], act=bundle.act,
+                         scales=bundle.static_scales)
+                 for d, r in replicas.items()}, self.devices))
 
     def forward(self, images: torch.Tensor):
         x = RowShards.split(images, self.devices, self.weights)
-        return _whole(self.bundle.forward(x))
+        if self.int8 is None:
+            return _whole(self.bundle.forward(x))
+        from aerial_image_recognition_tpu_torch.models.int8 import (
+            QT, _module_dtype)
+        replicas, run = self.int8
+        b = self.bundle
+        p2 = b.module.stems(x.to(_module_dtype(b.module)))
+        with torch._C.DisableTorchFunctionSubclass():
+            codes = _Rows([replicas[d]._p2_quantize(p)
+                           for d, p in zip(p2.devices, p2.parts)],
+                          p2.devices)
+        taps = b.trunk_codes(codes, g=run)
+        return b.decode(b.raw_from_taps([QT(t.v.whole(), t.s, t.c)
+                                         for t in taps]))
 
 
 def make_spatial_detect(bundle, cfg, mesh: Mesh, *, axis: str = "data",

@@ -18,11 +18,12 @@ function over device tensors. ``DetectStep`` keeps the surface that
 ``pack_images``, ``bundle.spec.class_names``), so either package's callers
 can drive it.
 
-With a ``mesh`` (``parallel/mesh.Mesh``) the step is data-parallel: one
-replica of the bundle per device of the mesh, the batch split on dim 0,
-each shard running the whole per-tile program on its device, NMS kernel
-included, and the outputs gathered in shard order on the mesh's first
-device.
+Every step runs over a mesh (``parallel/mesh.Mesh``; the one device of
+``device`` when none is given): one replica of the bundle per device of the
+mesh, the batch split on dim 0, each shard running the whole per-tile
+program on its device, NMS kernel included, and the outputs gathered in
+shard order on the mesh's first device (a one-shard step's outputs are its
+shard's, with no copy).
 
 ``extra.quantize = "int8"`` runs the trunk quantized (``models/int8.py``):
 with a saved calibration (``quantize_calib``) from the first call, without
@@ -44,6 +45,7 @@ from aerial_image_recognition_tpu_torch.models.registry import (
 from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
 from aerial_image_recognition_tpu_torch.ops.preprocess import (
     matmul_resize_float, preprocess_batch)
+from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
 from aerial_image_recognition_tpu_torch.post.georef import lonlat, to_numpy
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
 from aerial_image_recognition_tpu_torch.runtime.device import (
@@ -72,8 +74,12 @@ def _upload(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 def _gather(outs, device: torch.device):
     """Per-shard outputs (Detections, lon, lat) → one output concatenated on
-    dim 0 on ``device``, in shard order. A copy from another card waits
-    for that card's stream (PyTorch orders cross-device copies)."""
+    dim 0 on ``device``, in shard order (one shard: its output as it is).
+    A copy from another card waits for that card's stream (PyTorch orders
+    cross-device copies)."""
+    if len(outs) == 1:
+        return outs[0]
+
     def cat(ts):
         return torch.cat([t.to(device, non_blocking=True) for t in ts])
     det = type(outs[0][0])(*(cat(f) for f in zip(*(o[0] for o in outs))))
@@ -84,21 +90,22 @@ def _gather(outs, device: torch.device):
 class DetectStep:
     """The detection step + its host-side metadata.
 
-    Data-parallel (built with a mesh): ``input_shardings`` holds each
-    local shard's (device, first row, end row) and ``shard_fns`` its
-    detect function, over its device's replica of the bundle; ``bundle``
-    is the first device's replica. The ingest ring reads
-    ``input_shardings`` to upload each shard's rows straight to its
-    device; the step also takes a whole host batch, or a batch on one
-    device, and splits it. Single device: both None."""
+    The step runs over ``mesh``: ``shard_fns`` holds each local shard's
+    detect function, over its device's replica of the bundle; ``bundle`` is
+    the first device's replica. ``input_shardings`` is the reference's
+    surface: each local shard's (device, first row, end row) for
+    ``batch`` rows when the step was built with a mesh, else None. The
+    ingest ring uploads each shard's rows straight to its device
+    (``mesh.rows``); the step also takes a whole host batch, or a batch on
+    one device, and splits it."""
     bundle: ModelBundle
-    fn: Callable  # (images_u8 [B,S,S,3], bounds [B,4] f32) on device
+    mesh: Mesh
+    shard_fns: tuple         # one (images_u8, bounds) → outputs fn a shard
     batch: int
     input_size: int          # source pixels per tile edge entering the step
     model_size: int = 640    # network input edge (pixel frame of det.boxes)
     input_shardings: Optional[tuple] = None   # ((device, lo, hi), …) or None
     input_layout: str = "hwc"                 # [B,S,S,3] uint8 batches
-    shard_fns: Optional[tuple] = None         # one detect fn per shard
 
     @property
     def device(self) -> torch.device:
@@ -107,34 +114,28 @@ class DetectStep:
     def __call__(self, images_u8, bounds):
         """images_u8 [B,S,S,3] uint8, bounds [B,4] (w,s,e,n) →
         (Detections, lon [B,D], lat [B,D]) as tensors on the step's
-        device. Returns once the work is queued, not done. A
-        data-parallel step also takes lists of per-shard tensors, each
-        already on its shard's device (what the upload ring hands it)."""
+        device. Returns once the work is queued, not done. Also takes
+        lists of per-shard tensors, each already on its shard's device
+        (what ``place`` and the upload ring hand it)."""
         images, bounds = self.place(images_u8, bounds)
-        if self.input_shardings is None:
-            return self.fn(images, bounds)
         outs = []
-        for (d, _, _), fn, im, bd in zip(self.input_shardings,
-                                         self.shard_fns, images, bounds):
+        for d, fn, im, bd in zip(self.mesh.devices, self.shard_fns, images,
+                                 bounds):
             with on_device(d):
                 outs.append(fn(im, bd))
         return _gather(outs, self.device)
 
     def place(self, images_u8, bounds):
-        """A host or device batch → the step's device inputs: tensors on
-        its device or, data-parallel, lists of each shard's rows on its
+        """A host or device batch → lists of each shard's rows on its
         device (lists of per-shard tensors pass through)."""
-        if self.input_shardings is None:
-            return (_upload(self.pack_images(images_u8), self.device,
-                            torch.uint8),
-                    _upload(bounds, self.device, torch.float32))
         if isinstance(images_u8, (list, tuple)):
             return list(images_u8), list(bounds)
         images_u8 = self.pack_images(images_u8)
+        rows = self.mesh.rows(len(images_u8))
         return ([_upload(images_u8[lo:hi], d, torch.uint8)
-                 for d, lo, hi in self.input_shardings],
+                 for d, lo, hi in rows],
                 [_upload(bounds[lo:hi], d, torch.float32)
-                 for d, lo, hi in self.input_shardings])
+                 for d, lo, hi in rows])
 
     def pack_images(self, images_u8):
         """This step takes [B,S,S,3] batches as they are."""
@@ -304,7 +305,8 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     ``mesh`` (``parallel/mesh.Mesh``): the data-parallel step over the
     mesh's local devices (``device`` defaults to the mesh's first); the
     batch must divide evenly over them (ValueError naming the mesh).
-    Turnkey int8 keeps the mesh through its rebuild.
+    Without one the step runs over a mesh of its one device. Turnkey int8
+    keeps the mesh through its rebuild.
     """
     if mesh is not None and device is None:
         device = mesh.devices[0]
@@ -340,38 +342,33 @@ def _compile_detect_step(bundle, cfg: DetectorConfig, *,
                          src_size: Optional[int] = None,
                          crop_size: Optional[int] = None,
                          model_size: Optional[int] = None,
-                         mesh=None) -> DetectStep:
+                         mesh: Optional[Mesh] = None) -> DetectStep:
     """A DetectStep for an already-resolved bundle (the shared tail of
     ``build_detect_step`` and the int8 self-calibration rebuild). Nothing
-    is compiled: PyTorch runs eagerly. With a mesh, the bundle is
-    replicated to each distinct device of it (``bundle.to``; shards on one
-    device share its replica)."""
+    is compiled: PyTorch runs eagerly. The bundle is replicated to each
+    distinct device of the mesh other than its own (``bundle.to``; shards
+    on one device share its replica)."""
     model_size = model_size or bundle.spec.input_size
     eff_batch = batch or cfg.device_batch
-    fn_kw = dict(src_size=src_size, crop_size=crop_size,
-                 model_size=model_size)
-    shardings = shard_fns = None
-    if mesh is None:
-        fn = make_detect_fn(bundle, cfg, **fn_kw)
-    else:
-        n = mesh.local_size
-        if eff_batch % n:
-            raise ValueError(
-                f"device_batch {eff_batch} must divide evenly over the "
-                f"{n}-device '{mesh.axis_name}' mesh axis (set device_batch "
-                f"to a multiple of {n})")
-        shardings = mesh.rows(eff_batch)
-        fns = {}
-        for d in mesh.distinct_devices:
-            replica = bundle if canonical(bundle.device) == canonical(d) \
-                else bundle.to(d)
-            fns[d] = (replica, make_detect_fn(replica, cfg, **fn_kw))
-        bundle, fn = fns[mesh.devices[0]]
-        shard_fns = tuple(fns[d][1] for d in mesh.devices)
-    return DetectStep(bundle=bundle, fn=fn, batch=eff_batch,
-                      input_size=src_size or model_size,
-                      model_size=model_size, input_shardings=shardings,
-                      shard_fns=shard_fns)
+    given = mesh is not None
+    mesh = mesh or Mesh([bundle.device])
+    if eff_batch % mesh.local_size:
+        raise ValueError(
+            f"device_batch {eff_batch} must divide evenly over the "
+            f"{mesh.local_size}-device '{mesh.axis_name}' mesh axis (set "
+            f"device_batch to a multiple of {mesh.local_size})")
+    fns = {}
+    for d in mesh.distinct_devices:
+        replica = bundle if canonical(bundle.device) == canonical(d) \
+            else bundle.to(d)
+        fns[d] = (replica, make_detect_fn(replica, cfg, src_size=src_size,
+                                          crop_size=crop_size,
+                                          model_size=model_size))
+    return DetectStep(bundle=fns[mesh.devices[0]][0], mesh=mesh,
+                      shard_fns=tuple(fns[d][1] for d in mesh.devices),
+                      batch=eff_batch, input_size=src_size or model_size,
+                      model_size=model_size,
+                      input_shardings=mesh.rows(eff_batch) if given else None)
 
 
 def detection_sets_agree(out_a, out_b, *, min_match_frac: float = 0.9,
@@ -523,6 +520,10 @@ class SelfQuantizingStep:
         return self._active.model_size
 
     @property
+    def mesh(self):
+        return self._active.mesh
+
+    @property
     def input_shardings(self):
         return self._active.input_shardings
 
@@ -545,10 +546,6 @@ class SelfQuantizingStep:
             return images.detach().to("cpu", torch.uint8).numpy().copy()
         return np.array(images, dtype=np.uint8)
 
-    @staticmethod
-    def _clone(x):
-        return [t.clone() for t in x] if isinstance(x, list) else x.clone()
-
     def __call__(self, images, bounds):
         if self.quantize_state != "calibrating":
             return self._active(images, bounds)
@@ -562,8 +559,8 @@ class SelfQuantizingStep:
         if ndet >= self._min_det and self._ref is None:
             # copies: a caller may reuse its device buffers for later
             # batches (run_pipeline's upload ring does) before the replay
-            self._ref = (self._clone(dev_images), self._clone(dev_bounds),
-                         out)
+            self._ref = ([t.clone() for t in dev_images],
+                         [t.clone() for t in dev_bounds], out)
             if not collect:
                 # the reference batch joins the calibration set so absmax
                 # sees detection-bearing content even when the first

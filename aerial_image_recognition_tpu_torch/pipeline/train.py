@@ -65,7 +65,6 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from aerial_image_recognition_tpu_torch.models.layers import (
     BN_MOMENTUM, BatchNorm, clear_batch_stats, set_bn_mode)
@@ -77,6 +76,7 @@ from aerial_image_recognition_tpu_torch.ops.losses import (
     xunet_loss, yolov7_loss, yolov8_loss)
 from aerial_image_recognition_tpu_torch.ops.preprocess import (
     preprocess_batch)
+from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
 from aerial_image_recognition_tpu_torch.runtime.device import (
     canonical, on_device)
 
@@ -397,15 +397,8 @@ def _fold_batch_stats(module: torch.nn.Module,
     return new
 
 
-def _apply(module, params, batch_stats, x, remat: bool = False):
-    tensors = {**params, **batch_stats}
-    if remat:
-        # activation checkpointing over the whole forward; the recompute
-        # finds the BN batch statistics set and keeps them (one update)
-        return checkpoint(lambda inp: functional_call(module, tensors,
-                                                      (inp,)),
-                          x, use_reentrant=False)
-    return functional_call(module, tensors, (x,))
+def _apply(module, params, batch_stats, x):
+    return functional_call(module, {**params, **batch_stats}, (x,))
 
 
 def _decode(bundle: ModelBundle, module, outs):
@@ -434,18 +427,17 @@ class TrainStep:
         self.ema_decay = ema_decay
         self.freeze_prefixes = resolve_freeze_prefixes(bundle, freeze)
         self.module = _train_module(bundle)
-        self.mesh = mesh
-        if mesh is not None:
-            if canonical(mesh.devices[0]) != canonical(bundle.device):
-                raise ValueError(
-                    f"the mesh's first device {mesh.devices[0]} must hold "
-                    f"the train state (the bundle is on {bundle.device})")
-            # shard 0 trains on the bundle's own module; each other shard
-            # on its own copy (functional_call swaps a module's tensors,
-            # and a BatchNorm keeps its batch statistics)
-            self.shard_modules = [self.module] + [
-                bundle.trainable(d).requires_grad_(False).eval()
-                for d in mesh.devices[1:]]
+        self.mesh = mesh = mesh or Mesh([bundle.device])
+        if canonical(mesh.devices[0]) != canonical(bundle.device):
+            raise ValueError(
+                f"the mesh's first device {mesh.devices[0]} must hold "
+                f"the train state (the bundle is on {bundle.device})")
+        # shard 0 trains on the bundle's own module; each other shard on
+        # its own copy (functional_call swaps a module's tensors, and a
+        # BatchNorm keeps its batch statistics)
+        self.shard_modules = [self.module] + [
+            bundle.trainable(d).requires_grad_(False).eval()
+            for d in mesh.devices[1:]]
 
     def _loss(self, outs, targets):
         spec, lk = self.bundle.spec, self.loss_kwargs
@@ -460,34 +452,9 @@ class TrainStep:
 
     def loss_and_grads(self, state: Dict, images_u8, targets, names=None):
         """(loss, metrics, grads {name: tensor}, new batch_stats) for the
-        leaves ``names`` (default: every parameter). Under a mesh,
-        ``images_u8``/``targets`` are this process's rows of the global
-        batch."""
-        if self.mesh is not None:
-            return self._loss_and_grads_dp(state, images_u8, targets, names)
-        module, dev = self.module, self.bundle.device
-        names = list(state["params"]) if names is None else names
-        leaves = {n: t.detach().requires_grad_(n in names)
-                  for n, t in state["params"].items()}
-        targets = torch.as_tensor(targets, dtype=torch.float32).to(dev)
-        set_bn_mode(module, self.bn_mode)
-        clear_batch_stats(module)
-        with _f32_convs():
-            x = _images_in(images_u8, dev)
-            outs = _apply(module, leaves, state["batch_stats"], x,
-                          self.remat)
-            loss, metrics = self._loss(outs, targets)
-            grads = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                        materialize_grads=True)
-        new_bs = state["batch_stats"]
-        if self.bn_mode == "batch":
-            new_bs = _fold_batch_stats(module, new_bs)
-        clear_batch_stats(module)
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                   for k, v in metrics.items()}
-        return loss.detach(), metrics, dict(zip(names, grads)), new_bs
-
-    def _loss_and_grads_dp(self, state: Dict, images_u8, targets, names):
+        leaves ``names`` (default: every parameter). ``images_u8`` and
+        ``targets`` are this process's rows of the global batch (all of
+        it, in one process)."""
         mesh, primary = self.mesh, self.bundle.device
         names = list(state["params"]) if names is None else names
         group = mesh.group if mesh.process_count > 1 else None
@@ -531,7 +498,7 @@ class TrainStep:
             with _f32_convs():
                 if self.remat:
                     shape = []
-                    outs = _RematShards.apply(run_all, shape, *flat)
+                    outs = _Remat.apply(run_all, shape, *flat)
                     outs = _unflatten_outs(outs, shape)
                 else:
                     outs = run_all(flat)
@@ -610,8 +577,9 @@ def make_train_step(bundle: ModelBundle, tx: AdamW,
     bn_mode: 'frozen' = BN applies its running statistics as a fixed
     affine during training too; 'batch' = batch statistics and flax's
     running-average update; 'auto' = ``resolve_bn_mode``. remat:
-    activation checkpointing of the forward (``torch.utils.checkpoint``,
-    non-reentrant; the running statistics update once). ema_decay > 0:
+    activation checkpointing of the forward (``_Remat``: every shard's
+    forward is recomputed in the backward, in lockstep as the first time;
+    the running statistics update once). ema_decay > 0:
     keep an EMA of the params in ``state["ema_params"]``. freeze: as
     ``resolve_freeze_prefixes``; frozen layers' running statistics are put
     back after a batch-mode step (the optimizer's mask is ``tx``'s).
@@ -620,10 +588,9 @@ def make_train_step(bundle: ModelBundle, tx: AdamW,
     (and the state): the data-parallel step of the module docstring, equal
     to this step on the global batch. The local batch must divide evenly
     over the mesh's local devices; across processes every process passes
-    its own rows (process-major) and gets the same new state. remat
-    under a mesh checkpoints every shard's forward at once and recomputes
-    them in lockstep (``_RematShards``). ``axis_name`` is the reference's;
-    the mesh carries its own.
+    its own rows (process-major) and gets the same new state. Without a
+    mesh the step runs over a mesh of the bundle's one device.
+    ``axis_name`` is the reference's; the mesh carries its own.
     """
     return TrainStep(bundle, tx, loss_kwargs=loss_kwargs, bn_mode=bn_mode,
                      remat=remat, ema_decay=ema_decay, freeze=freeze,
@@ -687,7 +654,8 @@ def _gather_outs(outs, device: torch.device, group):
     global batch's, concatenated in shard order on ``device``, then over
     the processes."""
     def cat(ts):
-        t = torch.cat([x.to(device) for x in ts])
+        t = ts[0].to(device) if len(ts) == 1 \
+            else torch.cat([x.to(device) for x in ts])
         return t if group is None else _GatherRows.apply(t, group)
     if isinstance(outs[0], torch.Tensor):
         return cat(outs)
@@ -774,7 +742,7 @@ def _unflatten_outs(flat, shape):
     return outs
 
 
-class _RematShards(torch.autograd.Function):
+class _Remat(torch.autograd.Function):
     """Activation checkpointing over every shard's forward at once:
     ``run(leaves)`` runs them keeping no activations; the backward runs
     them again, in lockstep as the first time (a synchronized BatchNorm

@@ -1013,6 +1013,60 @@ def same_detections(torch, out_a, out_b) -> bool:
     return all(torch.equal(a, b) for a, b in pairs)
 
 
+def detection_deltas(out_a, out_b) -> dict:
+    """How far two step outputs are apart, detection by detection: per
+    tile, each valid detection of ``out_a`` matched to one of ``out_b``'s
+    by greedy same-class IoU ≥ 0.5 in score order (``detection_sets_agree``'s
+    matching). Returns the detections left unmatched on either side, the
+    largest |Δscore| and the largest |Δ| of a box coordinate (px) over the
+    matches."""
+    import numpy as np
+    det_a, det_b = out_a[0], out_b[0]
+    va, vb = det_a.valid.cpu().numpy(), det_b.valid.cpu().numpy()
+    ba, bb = det_a.boxes.cpu().numpy(), det_b.boxes.cpu().numpy()
+    sa, sb = det_a.scores.cpu().numpy(), det_b.scores.cpu().numpy()
+    ca, cb = det_a.classes.cpu().numpy(), det_b.classes.cpu().numpy()
+    unmatched, d_score, d_box = 0, 0.0, 0.0
+    for i in range(va.shape[0]):
+        ia, ib = np.where(va[i])[0], np.where(vb[i])[0]
+        used = np.zeros(len(ib), bool)
+        for j in ia[np.argsort(-sa[i][ia], kind="stable")]:
+            best, k_best = 0.5, -1
+            for n, k in enumerate(ib):
+                if used[n] or cb[i][k] != ca[i][j]:
+                    continue
+                iou = box_iou(ba[i][j], bb[i][k])
+                if iou >= best:
+                    best, k_best = iou, n
+            if k_best < 0:
+                unmatched += 1
+                continue
+            used[k_best] = True
+            k = ib[k_best]
+            d_score = max(d_score, abs(float(sa[i][j]) - float(sb[i][k])))
+            d_box = max(d_box, float(np.abs(ba[i][j] - bb[i][k]).max()))
+        unmatched += int((~used).sum())
+    return {"unmatched": unmatched, "max_score_delta": d_score,
+            "max_box_delta_px": d_box}
+
+
+def box_iou(a, b) -> float:
+    """IoU of two cxcywh boxes."""
+    ix = max(0.0, min(a[0] + a[2] / 2, b[0] + b[2] / 2)
+             - max(a[0] - a[2] / 2, b[0] - b[2] / 2))
+    iy = max(0.0, min(a[1] + a[3] / 2, b[1] + b[3] / 2)
+             - max(a[1] - a[3] / 2, b[1] - b[3] / 2))
+    inter = ix * iy
+    union = a[2] * a[3] + b[2] * b[3] - inter
+    return float(inter / max(union, 1e-9))
+
+
+def held_to(deltas: dict, score: float, box: float) -> bool:
+    """``detection_deltas`` within its limits: every detection matched."""
+    return deltas["unmatched"] == 0 and deltas["max_score_delta"] <= score \
+        and deltas["max_box_delta_px"] <= box
+
+
 def recall(out, bounds, cars, radius_m: float = 2.0) -> float:
     """Fraction of rendered cars with a detection centre within radius_m."""
     from aerial_image_recognition_tpu_torch.post.georef import (
@@ -3250,6 +3304,36 @@ def leaf_errors(got, want):
             for k in w}
 
 
+@contextlib.contextmanager
+def f64_bn_statistics(torch):
+    """14f's witness: ``batch``-mode BatchNorm (where no shard sync is set)
+    with its statistics accumulated in f64 over two passes, the mean, then
+    the mean of squared deviations from it, and normalizing as the layer
+    does. It shares neither the single-device step's flax fast variance
+    E[x²] − E[x]² nor the shards' pairwise combination."""
+    from aerial_image_recognition_tpu_torch.models import layers
+    real = layers.BatchNorm.forward
+
+    def forward(self, x):
+        if self.mode != "batch" or self.sync is not None:
+            return real(self, x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3), dtype=torch.float64).float()
+        dev = xf - mean[:, None, None]
+        var = (dev * dev).mean(dim=(0, 2, 3), dtype=torch.float64).float()
+        if self.batch_mean is None:
+            self.batch_mean, self.batch_var = mean.detach(), var.detach()
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (dev * mul[:, None, None]
+                + self.bias[:, None, None]).to(x.dtype)
+
+    layers.BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        layers.BatchNorm.forward = real
+
+
 def timed_train_steps(torch, step, state, batch, n: int, warmup: int = 2):
     """(state, ms a step by CUDA events over n steps after warmup, the
     losses) of a train step on one batch held on the host."""
@@ -3749,13 +3833,20 @@ def training(torch, record, card, launches, open_window, close_window):
 
 DP_TIMED = 10                    # timed steps of each data-parallel step
 DIST_STEPS, DIST_B = 3, 16       # 14e: 13a's fine-tune, global batch
-# 14a: a shard of 32 rows may take another cuDNN algorithm (and another
-# bf16 rounding) than the batch of 64, so a near-threshold score may
-# cross the threshold: the DP step's detections are held to the
-# single-device step's by detection_sets_agree at 0.98 of the larger set
-# and a mean |Δscore| of 0.01 (the bf16-vs-f32 gate of phase 4 is 0.9
-# and 0.05); exact equality is recorded beside it
-DP_MATCH, DP_SCORE = 0.98, 0.01
+# 14a, 14g: a one-shard step is the single-device step's computation and
+# is held to it bit for bit. Over two shards of a card, a shard of 32 rows
+# (14a) or of half the rows (14g) takes other cuDNN algorithms than the
+# whole batch, so the outputs move by bf16 roundings: they are held
+# detection by detection (detection_deltas): every detection matched, each
+# score within DP_SCORE_MAX and each box coordinate within DP_BOX_MAX px
+# of its match. The largest readings (H100 80GB HBM3, 700 W, two runs
+# alike): 14a 1.60e-3 and 0.034 px, 14g 3.6e-7 and 0.011 px, the int8
+# steps 0 and 0; the limits are about three times 14a's.
+DP_SCORE_MAX, DP_BOX_MAX = 5e-3, 0.1
+# 14b: the two-shard scan with its dedup off, deduped on the host after,
+# against the single-device scan (another dedup order): 2 of 1838 records
+# unmatched within 0.5 m in every run on the H100 80GB HBM3 at 700 W (0.99891)
+DP_SCAN_MATCH = 0.998
 
 DIST_CHILD = f"""
 import json, os, sys
@@ -3763,15 +3854,15 @@ sys.path.insert(0, {ROOT!r})
 import numpy as np, torch
 import chip_smoke as cs
 from {PORT}.parallel import distributed as D
-from {PORT}.parallel.mesh import Mesh
+from {PORT}.parallel.mesh import make_mesh
 coord, rank, world, backend, out = sys.argv[1:6]
 rank, world = int(rank), int(world)
 ctx = D.initialize(coord, world, rank, backend=backend)
-dev = torch.device("cuda", torch.cuda.current_device()) \\
-    if backend == "nccl" else torch.device("cuda", 0)
-torch.cuda.set_device(dev)
+dev = torch.device("cuda", rank % torch.cuda.device_count())
 D.process_allgather(np.zeros(1, np.int32))
-mesh = Mesh([dev], group=torch.distributed.group.WORLD)
+mesh = make_mesh()                 # under the group: this process's card
+assert list(mesh.devices) == [dev] and mesh.size == world, mesh
+assert (ctx.local_devices, ctx.global_devices) == (1, world), ctx
 params, losses, ms = cs.dist_train(torch, mesh, dev, rank, world)
 sums = D.process_allgather(np.asarray([float(np.abs(v).sum())
                                        for v in params.values()]))
@@ -3857,37 +3948,42 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     (YOLOv7-tiny, trained fixture, 640 px, batch 64, bf16) over
     ``make_mesh()`` (every card) and over two shards of one card
     (``Mesh([cuda:0, cuda:0])``): detections against the single-device
-    step (``DP_MATCH``, ``DP_SCORE``), NMS launches = shards × steps, ms a
+    step (one shard: bit-equal; more: ``detection_deltas`` within
+    ``DP_SCORE_MAX``, ``DP_BOX_MAX``), NMS launches = shards × steps, ms a
     step and host syncs a step; turnkey int8 under each mesh must reach
-    ``int8``, every shard running the epilogue kernel; (b) the upload ring
-    over the two-shard step (detections equal, tolerance 0, to the step
-    called per batch), and ``CarDetector`` scans of phase 10b's FakeWorld:
-    ``data_parallel: true`` (bit-equal to a single-device scan's records)
-    and, over 11b's AOI, the two-shard step injected with the dedup off
-    (its records deduped matching the single-device scan's at
-    ``DP_MATCH`` within 0.5 m); (c) ``detect --data-parallel`` and
+    ``int8``, every shard running the epilogue kernel, the two-shard int8
+    step held to the one over ``make_mesh()`` as the float steps are; (b)
+    the upload ring over the two-shard step (detections equal, tolerance
+    0, to the step called per batch), and ``CarDetector`` scans of phase
+    10b's FakeWorld: ``data_parallel: true`` (bit-equal to a single-device
+    scan's records) and, over 11b's AOI, the two-shard step injected with
+    the dedup off (its records deduped matching the single-device scan's
+    at ``DP_SCAN_MATCH`` within 0.5 m); (c) ``detect --data-parallel`` and
     ``serve --data-parallel`` as counted children, equal to the same run
     in this process (the scan bit-equal; the served records within 1e-7°
     and 1e-3 of confidence, as concurrent requests may batch otherwise);
     (d) ``halo_dedup_host`` on the card at ``k_slots`` 4096 over (b)'s raw
-    records of 11b's AOI, equal to ``dedup_host``, timed; (e) torch.distributed: a world of one on NCCL,
-    then two processes sharing the card over gloo (or, with two cards or
-    more, one process per card on NCCL), running 13a's fine-tune as a
-    data-parallel train step for ``DIST_STEPS`` steps: parameters
-    bit-equal between the processes and within 2·lr a step of one process
-    on the global batch; (f) the in-process data-parallel train step over
-    two shards of one card for YOLOv8l at the train verb's defaults (768
-    px, batch 8, ``batch`` BN; seeded unit-variance weights): loss, every
-    gradient leaf and the running statistics against the single-device
-    step at 13a's card bars (loss rtol 1e-4, ``TRAIN_GRAD_LIMIT``), its
-    BN statistics taken as the shards take them (the plain step's flax
-    fast variance cancels on this model; its difference is recorded), and
-    remat over the two shards against the step without it (loss and
-    statistics within 1e-6, gradients within ``TRAIN_GRAD_LIMIT``), each
-    step timed; (g) spatial inference (``make_spatial_detect``: the
-    trunk's rows over each mesh, halos gathered from the neighbouring
-    shards) on phase 4's batch against the unsharded detect function
-    (``DP_MATCH``, ``DP_SCORE``), timed."""
+    records of 11b's AOI, equal to ``dedup_host``, timed; (e)
+    torch.distributed: a world of one on NCCL, then two processes sharing
+    the card over gloo (or, with two cards or more, one process per card on
+    NCCL), each process's mesh from ``make_mesh()`` (its one card), running
+    13a's fine-tune as a data-parallel train step for ``DIST_STEPS`` steps:
+    parameters bit-equal between the processes and within 2·lr a step of
+    one process on the global batch; (f) the in-process data-parallel
+    train step over two shards of one card for YOLOv8l at the train verb's
+    defaults (768 px, batch 8, ``batch`` BN; seeded unit-variance
+    weights) against the single-device step with its BN statistics in f64
+    (``f64_bn_statistics``): loss within rtol 1e-4, running statistics
+    within ``TRAIN_GRAD_LIMIT``, each gradient leaf no further from it
+    than the plain f32 single-device step is plus ``TRAIN_GRAD_LIMIT`` of
+    the leaf's largest (the plain step's distance recorded); remat over the
+    two shards against the step without it (loss and statistics within
+    1e-6, gradients within ``TRAIN_GRAD_LIMIT``), each step timed; (g)
+    spatial inference (``make_spatial_detect``: the trunk's rows over each
+    mesh, halos gathered from the neighbouring shards; the float bundle
+    and (a)'s int8 one) on phase 4's batch against the unsharded detect
+    function as in (a), the gathers counted (only the heads' permutes),
+    timed."""
     import shutil
     import socket
     import tempfile
@@ -3957,10 +4053,13 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
                  f"launches in {steps_run} steps of {shards} shards")
         syncs = host_syncs_in_one_step(torch, step, *parts)
         check_output(torch, f"14a {label}", out)
-        ok, agree = detection_sets_agree(out, ref, min_match_frac=DP_MATCH,
-                                         max_mean_score_delta=DP_SCORE)
-        if not ok:
-            fail(f"14a {label}: against the single-device step {agree}")
+        _, agree = detection_sets_agree(out, ref)
+        deltas = detection_deltas(out, ref)
+        equal = same_detections(torch, out, ref)
+        if not (equal if shards == 1 else
+                held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX)):
+            fail(f"14a {label}: against the single-device step {deltas}, "
+                 f"equal {equal}")
         rec["14a"][label] = {
             "devices": [str(d) for d in mesh.devices], "shards": shards,
             "step_ms_host_input": ms, "step_ms_device_input": dev_ms,
@@ -3968,16 +4067,16 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             "slower_than_single_device_input": dev_ms / single_dev_ms,
             "nms_launches": launches[path]["nms_suppress"],
             "host_syncs": len(syncs), "host_sync_messages": syncs[:4],
-            "agree_single": agree,
-            "equal_single": same_detections(torch, out, ref)}
+            "agree_single": agree, "deltas_single": deltas,
+            "equal_single": equal}
         print(f"14a {label} ({shards} shard(s) on {mesh.devices}): "
               f"{ms:.2f} ms a step (host input), {dev_ms:.2f} with the "
               f"shards' rows on their devices, against {single_ms:.2f} / "
               f"{single_dev_ms:.2f} for one device; {len(syncs)} host "
               f"syncs a step (one device: {len(single_syncs)}); "
               f"{launches[path]['nms_suppress']} NMS launches in "
-              f"{steps_run} steps; against one device {agree}, equal "
-              f"{rec['14a'][label]['equal_single']} [{card}]", flush=True)
+              f"{steps_run} steps; against one device {agree}, {deltas}, "
+              f"equal {equal} [{card}]", flush=True)
 
         # turnkey int8 under the mesh
         q = build_detect_step(DetectorConfig.from_dict(
@@ -4003,15 +4102,26 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
         ok_q, agree_q = detection_sets_agree(ref, q_out)
         if not ok_q:
             fail(f"14a int8 {label}: against the bf16 step {agree_q}")
+        # the int8 steps of the two meshes calibrated on the same batches:
+        # the same qparams, so they are held to each other as the float
+        # steps are to the single-device step
+        if label == "cards":
+            q_ref, q_bundle = q_out, q.bundle
+            q_deltas = None
+        else:
+            q_deltas = detection_deltas(q_out, q_ref)
+            if not held_to(q_deltas, DP_SCORE_MAX, DP_BOX_MAX):
+                fail(f"14a int8 {label}: against the int8 step over "
+                     f"make_mesh() {q_deltas}")
         rec["14a"][label]["int8"] = {
             "states": states, "parity": q.parity, "step_ms_host_input": q_ms,
             "epilogue_launches_a_step": per_step,
             "nms_launches": launches[qpath]["nms_suppress"],
-            "agree_bf16_single": agree_q}
+            "agree_bf16_single": agree_q, "deltas_int8_cards": q_deltas}
         print(f"14a int8 {label}: states {states}, {q_ms:.2f} ms a step, "
               f"{per_step:.0f} epilogue launches a step ({TRUNK_CONVS} × "
-              f"{shards}), against the bf16 step {agree_q} [{card}]",
-              flush=True)
+              f"{shards}), against the bf16 step {agree_q}, against the "
+              f"int8 step over make_mesh() {q_deltas} [{card}]", flush=True)
         del q
 
     # (b) the ring over the two-shard step, then scans of 10b's world
@@ -4087,8 +4197,8 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     keep = dedup_host(raw[:, 0], raw[:, 1], raw[:, 2], 2.0)
     deduped = raw[keep]
     matched = matched_within(fe_single, deduped, 0.5)
-    if matched < DP_MATCH or abs(len(deduped) - len(fe_single)) \
-            > (1 - DP_MATCH) * len(fe_single):
+    if matched < DP_SCAN_MATCH or abs(len(deduped) - len(fe_single)) \
+            > (1 - DP_SCAN_MATCH) * len(fe_single):
         fail(f"14b: the two-shard scan's {len(deduped)} deduped records "
              f"match {matched:.3f} of the single scan's {len(fe_single)}")
     rec["14b"] = {"ring_batches": stats["batches"], "scans": scans,
@@ -4290,21 +4400,21 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     two_t = T.make_train_step(bundle, tx, mesh=meshes["two_shards_one_card"])
     if one.bn_mode != "batch" or two_t.bn_mode != "batch":
         fail("14f: yolov8 did not resolve to batch BN")
-    # the reference: one device with the statistics taken as the shards
-    # take them (each shard's mean and squared deviations, met in f64):
-    # the single-device step's own flax fast variance E[x²] − E[x]²
-    # cancels on this seeded model's channels, and its difference is
-    # recorded beside (no gate)
-    _, _, g_fast, _ = one.loss_and_grads(s0, *batch)
-    T._set_bn_sync(one.module, T._ShardSync(
-        [torch.device("cuda", 0)], None).hook(0))
-    try:
-        l1, _, g1, bs1 = one.loss_and_grads(s0, *batch)
-    finally:
-        T._set_bn_sync(one.module, None)
+    # the witness: the single-device step with its BN statistics in f64
+    # (f64_bn_statistics). The two-shard step is held to it leaf by leaf as
+    # the CPU tests hold theirs to the reference's f64 step: no further
+    # from it than the plain f32 single-device step is, plus
+    # TRAIN_GRAD_LIMIT of the leaf's largest
+    with f64_bn_statistics(torch):
+        lw, _, gw, bsw = one.loss_and_grads(s0, *batch)
+    gw = grads_to_flax(gw)["params"]
+    lp, _, gp, _ = one.loss_and_grads(s0, *batch)
+    plain_rel = leaf_errors(grads_to_flax(gp)["params"], gw)
+    del gp
     l2, _, g2, bs2 = two_t.loss_and_grads(s0, *batch)
-    g_rel = leaf_errors(grads_to_flax(g2)["params"],
-                        grads_to_flax(g1)["params"])
+    g_rel = leaf_errors(grads_to_flax(g2)["params"], gw)
+    over = {k: v for k, v in g_rel.items()
+            if v > plain_rel[k] + TRAIN_GRAD_LIMIT}
     # remat over the two shards: recomputed in lockstep, the statistics of
     # the first forward kept
     lr_, _, gr, bsr = T.make_train_step(
@@ -4323,84 +4433,126 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
              f"statistics {remat_stats_rel:.2e}, gradients "
              f"{remat_rel:.2e}")
     del gr
-    fast_rel = leaf_errors(grads_to_flax(g_fast)["params"],
-                           grads_to_flax(g1)["params"])
-    bs_rel = max(float((bs2[k] - bs1[k]).abs().max())
-                 / max(float(bs1[k].abs().max()), 1e-30) for k in bs1)
-    loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
-    if loss_rel > 1e-4 or max(g_rel.values()) > TRAIN_GRAD_LIMIT \
-            or bs_rel > TRAIN_GRAD_LIMIT:
-        fail(f"14f: two shards against one device: loss {loss_rel:.2e}, "
-             f"gradients {max(g_rel.values()):.2e} at "
-             f"{max(g_rel, key=g_rel.get)}, statistics {bs_rel:.2e}")
-    del g1, g2, g_fast
+    bs_rel = max(float((bs2[k] - bsw[k]).abs().max())
+                 / max(float(bsw[k].abs().max()), 1e-30) for k in bsw)
+    loss_rel = abs(float(l2) - float(lw)) / abs(float(lw))
+    plain_loss_rel = abs(float(lp) - float(lw)) / abs(float(lw))
+    if loss_rel > 1e-4 or over or bs_rel > TRAIN_GRAD_LIMIT:
+        worst = max(over, key=lambda k: over[k] - plain_rel[k]) \
+            if over else None
+        fail(f"14f: two shards against the f64-statistics step: loss "
+             f"{loss_rel:.2e}, {len(over)} gradient leaves further than "
+             f"the plain step + {TRAIN_GRAD_LIMIT} (e.g. {worst}: "
+             f"{over.get(worst)} against {plain_rel.get(worst)}), "
+             f"statistics {bs_rel:.2e}")
+    del g2, gw
     _, ms1, _ = timed_train_steps(torch, one, s0, batch, 3, warmup=1)
     _, ms2, losses2 = timed_train_steps(torch, two_t, s0, batch, 3, warmup=1)
     if not all(math.isfinite(v) for v in losses2):
         fail(f"14f: losses {losses2}")
     rec["14f"] = {"size": V8L_SIZE, "batch": V8L_B, "shards": 2,
+                  "against": "single device, BN statistics in f64",
                   "loss_rel": loss_rel,
                   "grad_max_rel_to_leaf_max": max(g_rel.values()),
                   "grad_worst_leaf": max(g_rel, key=g_rel.get),
+                  "grad_leaves_beyond_limit": sum(
+                      v > TRAIN_GRAD_LIMIT for v in g_rel.values()),
                   "stats_max_rel": bs_rel,
+                  "plain_f32_loss_rel": plain_loss_rel,
+                  "plain_f32_grad_max_rel": max(plain_rel.values()),
+                  "plain_f32_worst_leaf": max(plain_rel, key=plain_rel.get),
+                  "plain_f32_leaves_beyond_limit": sum(
+                      v > TRAIN_GRAD_LIMIT for v in plain_rel.values()),
+                  "leaves": len(g_rel),
                   "remat_grad_max_rel": remat_rel,
                   "remat_loss_rel": remat_loss_rel,
                   "remat_stats_equal": remat_stats_equal,
-                  "fast_variance_grad_max_rel": max(fast_rel.values()),
-                  "fast_variance_worst_leaf": max(fast_rel, key=fast_rel.get),
-                  "fast_variance_leaves_beyond_limit": sum(
-                      v > TRAIN_GRAD_LIMIT for v in fast_rel.values()),
                   "step_ms_single": ms1,
                   "step_ms_two_shards": ms2}
     print(f"14f yolov8l {V8L_SIZE} px, batch {V8L_B}, batch BN, two "
-          f"shards of one card against one device: loss {loss_rel:.1e}, "
-          f"gradients within {max(g_rel.values()):.1e} of each leaf's "
-          f"largest (limit {TRAIN_GRAD_LIMIT}), statistics {bs_rel:.1e} "
-          f"(one device with flax's fast variance instead: gradients "
-          f"{max(fast_rel.values()):.1e} at "
-          f"{max(fast_rel, key=fast_rel.get)}); remat over the shards: "
-          f"loss {remat_loss_rel:.1e}, statistics equal "
-          f"{remat_stats_equal}, gradients within {remat_rel:.1e}; "
-          f"{ms2:.1f} ms a step "
-          f"against {ms1:.1f} [{card}]", flush=True)
+          f"shards of one card against one device with its BN statistics "
+          f"in f64: loss {loss_rel:.1e}, gradients within "
+          f"{max(g_rel.values()):.1e} of each leaf's largest at "
+          f"{max(g_rel, key=g_rel.get)} ({rec['14f']['grad_leaves_beyond_limit']}"
+          f" of {len(g_rel)} leaves beyond {TRAIN_GRAD_LIMIT}), statistics "
+          f"{bs_rel:.1e}; the plain f32 step against the same: loss "
+          f"{plain_loss_rel:.1e}, gradients {max(plain_rel.values()):.1e} "
+          f"at {max(plain_rel, key=plain_rel.get)} "
+          f"({rec['14f']['plain_f32_leaves_beyond_limit']} leaves beyond); "
+          f"remat over the shards: loss {remat_loss_rel:.1e}, statistics "
+          f"equal {remat_stats_equal}, gradients within {remat_rel:.1e}; "
+          f"{ms2:.1f} ms a step against {ms1:.1f} [{card}]", flush=True)
     del bundle, one, two_t, s0
 
-    # (g) spatial: one batch's rows over the meshes, at phase 4's width
-    from aerial_image_recognition_tpu_torch.parallel.spatial import (
-        make_spatial_detect)
+    # (g) spatial: one batch's rows over the meshes, at phase 4's width,
+    # the float bundle and (a) int8 one; the rows meet only at the heads'
+    # NHWC permutes (the float trunk's; the int8 trunk's taps are joined
+    # by the spatial module itself): every other gather is a failure
+    from aerial_image_recognition_tpu_torch.parallel import spatial as SP
     from aerial_image_recognition_tpu_torch.pipeline.inference import (
         make_detect_fn)
     sp_cfg = DetectorConfig.from_dict(cfg)
-    plain = make_detect_fn(single.bundle, sp_cfg)
-    sp_ref, plain_ms = timed_steps(torch, plain, dev_images, dev_bounds,
-                                   DP_TIMED)
-    g_rec = {"plain_ms_device_input": plain_ms}
-    for label, mesh in meshes.items():
-        fn = make_spatial_detect(single.bundle, sp_cfg, mesh)
-        path = f"spatial_{label}"
-        open_window()
-        sp_out, sp_ms = timed_steps(torch, fn, dev_images, dev_bounds,
-                                    DP_TIMED)
-        close_window(path, ["nms_suppress"])
-        if launches[path]["nms_suppress"] != DP_TIMED + 1:
-            fail(f"14g {label}: {launches[path]['nms_suppress']} NMS "
-                 f"launches in {DP_TIMED + 1} steps")
-        check_output(torch, f"14g {label}", sp_out)
-        ok, agree = detection_sets_agree(sp_out, sp_ref,
-                                         min_match_frac=DP_MATCH,
-                                         max_mean_score_delta=DP_SCORE)
-        if not ok:
-            fail(f"14g {label}: against the unsharded forward {agree}")
-        g_rec[label] = {"shards": mesh.local_size,
-                        "step_ms_device_input": sp_ms,
-                        "slower_than_plain": sp_ms / plain_ms,
-                        "agree_plain": agree,
-                        "equal_plain": same_detections(torch, sp_out,
-                                                       sp_ref)}
-        print(f"14g spatial {label} ({mesh.local_size} shard(s) of the "
-              f"rows): {sp_ms:.2f} ms a batch of {B} against {plain_ms:.2f} "
-              f"unsharded; against it {agree}, equal "
-              f"{g_rec[label]['equal_plain']} [{card}]", flush=True)
+    g_rec = {}
+    gathered = []
+    real_gathered = SP._gathered
+
+    def counted(func, args, kwargs):
+        gathered.append(getattr(func, "__name__", str(func)))
+        return real_gathered(func, args, kwargs)
+
+    SP._gathered = counted
+    try:
+        for kind, sp_bundle in (("float", single.bundle),
+                                ("int8", q_bundle)):
+            plain = make_detect_fn(sp_bundle, sp_cfg)
+            sp_ref, plain_ms = timed_steps(torch, plain, dev_images,
+                                           dev_bounds, DP_TIMED)
+            g_rec[kind] = {"plain_ms_device_input": plain_ms}
+            for label, mesh in meshes.items():
+                fn = SP.make_spatial_detect(sp_bundle, sp_cfg, mesh)
+                path = f"spatial_{kind}_{label}"
+                shards = mesh.local_size
+                gathered.clear()
+                open_window()
+                sp_out, sp_ms = timed_steps(torch, fn, dev_images,
+                                            dev_bounds, DP_TIMED)
+                close_window(path, ["nms_suppress"] + (
+                    ["int8_epilogue"] if kind == "int8" else []))
+                epilogues = launches[path]["int8_epilogue"]
+                want_epi = TRUNK_CONVS * shards * (DP_TIMED + 1) \
+                    if kind == "int8" else 0
+                if launches[path]["nms_suppress"] != DP_TIMED + 1 \
+                        or epilogues != want_epi:
+                    fail(f"14g {kind} {label}: {launches[path]['nms_suppress']}"
+                         f" NMS and {epilogues} epilogue launches in "
+                         f"{DP_TIMED + 1} steps of {shards} shards")
+                if set(gathered) - {"permute"}:
+                    fail(f"14g {kind} {label}: gathered whole at "
+                         f"{sorted(set(gathered))}")
+                check_output(torch, f"14g {kind} {label}", sp_out)
+                _, agree = detection_sets_agree(sp_out, sp_ref)
+                deltas = detection_deltas(sp_out, sp_ref)
+                equal = same_detections(torch, sp_out, sp_ref)
+                if not (equal if shards == 1 else
+                        held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX)):
+                    fail(f"14g {kind} {label}: against the unsharded "
+                         f"function {deltas}, equal {equal}")
+                g_rec[kind][label] = {
+                    "shards": shards, "step_ms_device_input": sp_ms,
+                    "slower_than_plain": sp_ms / plain_ms,
+                    "gathers_a_step": len(gathered) / (DP_TIMED + 1),
+                    "epilogue_launches": epilogues,
+                    "agree_plain": agree, "deltas_plain": deltas,
+                    "equal_plain": equal}
+                print(f"14g spatial {kind} {label} ({shards} shard(s) of "
+                      f"the rows): {sp_ms:.2f} ms a batch of {B} against "
+                      f"{plain_ms:.2f} unsharded; "
+                      f"{len(gathered) / (DP_TIMED + 1):.0f} gathers a "
+                      f"step, all at the heads' permute; {epilogues} "
+                      f"epilogue launches; against it {agree}, {deltas}, "
+                      f"equal {equal} [{card}]", flush=True)
+    finally:
+        SP._gathered = real_gathered
     rec["14g"] = g_rec
 
 

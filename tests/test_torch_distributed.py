@@ -118,9 +118,20 @@ def test_initialize_reads_the_reference_variables(monkeypatch):
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
     monkeypatch.setenv("JAX_PROCESS_ID", "3")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert PD.initialize(backend="gloo") == "ctx"
     assert (seen["b"], seen["init_method"], seen["world_size"],
             seen["rank"]) == ("gloo", "tcp://10.0.0.1:1234", 4, 3)
+    # a card per process: rank 3 of 4 takes card 3 % 2 of two, whatever
+    # the backend
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda i: seen.update(card=i))
+    for backend in ("nccl", "gloo"):
+        seen.pop("card", None)
+        PD.initialize(backend=backend)
+        assert (seen["b"], seen["card"]) == (backend, 1)
 
 
 # ------------------------------------------------------ two processes

@@ -31,6 +31,7 @@ from aerial_image_recognition_tpu.runtime.config import (
 from aerial_image_recognition_tpu_torch.fetch.fake import FakeWorld
 from aerial_image_recognition_tpu_torch.fetch.xyz import TileImage
 from aerial_image_recognition_tpu_torch.ingest import pipeline as PP
+from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
 from aerial_image_recognition_tpu_torch.pipeline.inference import (
     build_detect_step)
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
@@ -269,21 +270,25 @@ def test_upload_ring_orders_its_copies_and_steps(monkeypatch, n, switch):
 
     def allocate(self, images, bounds):
         self._shapes = (images.shape, bounds.shape)
+        self.shards = self.mesh.rows(images.shape[0])
         self._bufs = [(torch.empty(images.shape, dtype=torch.uint8),
                        torch.empty(bounds.shape),
-                       torch.empty(images.shape, dtype=torch.uint8),
-                       torch.empty(bounds.shape))
+                       [torch.empty(images.shape, dtype=torch.uint8)],
+                       [torch.empty(bounds.shape)])
                       for _ in range(self.slots)]
 
     monkeypatch.setattr(PP._UploadRing, "_allocate", allocate)
 
     class CardStep:
+        """A one-shard DetectStep's surface: per-shard lists in."""
         device = torch.device("cuda", 0)
+        mesh = Mesh([device])
 
         def __init__(self):
             self.seen = []
 
         def __call__(self, images, bounds):
+            (images,), (bounds,) = images, bounds
             log.ops.append(("step", stack()[-1].name,
                             int(images[0, 0, 0, 0])))
             self.seen.append((images.clone(), bounds.clone()))

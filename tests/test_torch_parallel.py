@@ -104,6 +104,16 @@ def test_mesh_flags_never_repeat_a_card(monkeypatch):
     assert list(PM.make_mesh(8).devices) == cards
     assert list(PM.mesh_from_flag(True, "cuda").devices) == cards
     assert list(PM.mesh_from_flag(5).devices) == cards
+    # under a process group a process drives one device, its current card
+    group = object()
+    monkeypatch.setattr(PM, "_default_group", lambda: group)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    for mesh in (PM.make_mesh(), PM.make_mesh(2), PM.mesh_from_flag(True),
+                 PM.mesh_from_flag(4, "cuda:1")):
+        assert list(mesh.devices) == cards[1:] and mesh.group is group
+    for dp in (True, 1, 3):
+        mesh = PM.mesh_from_flag(dp, "cpu")
+        assert mesh.devices == (torch.device("cpu"),) and mesh.group is group
 
 
 # --------------------------------------------------------- the stripes
@@ -564,6 +574,67 @@ def test_spatial_trunk_is_sharded_and_exact(name, n, monkeypatch):
     assert set(gathered) == {"permute"}
 
 
+class _OpLog:
+    """Wraps an int8 trunk graph runner (``g``) and keeps every
+    operation's output."""
+
+    def __init__(self, g):
+        self.g, self.outs = g, []
+
+    def __getattr__(self, name):
+        def call(*args, **kwargs):
+            out = getattr(self.g, name)(*args, **kwargs)
+            self.outs.append((name, out))
+            return out
+        return call
+
+
+@pytest.mark.parametrize("name,n", [("yolov7_base", 8), ("yolov8n", 5)])
+def test_spatial_int8_trunk_is_sharded_and_exact(name, n, monkeypatch):
+    """A seeded ``Int8Bundle`` of each other family (yolov7-base's MP
+    convs, yolov8's split, residual adds and SPPF) with the rows over n
+    CPU shards at 96 px: every trunk operation's output, gathered, equals
+    the unsharded run's (tolerance 0; a seeded trunk's last taps saturate,
+    so each layer is held), the boxes and scores equal the unsharded int8
+    forward's, and nothing is gathered before the head taps."""
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        _Run, quantize_bundle)
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.parallel import spatial as SP
+    gathered = []
+    real = SP._gathered
+    monkeypatch.setattr(SP, "_gathered", lambda f, a, k: (
+        gathered.append(f.__name__), real(f, a, k))[1])
+    tiles = np.random.default_rng(2).integers(0, 256, (2, 96, 96, 3),
+                                              dtype=np.uint8)
+    qb = quantize_bundle(create_model(name, dtype=torch.float32, seed=1,
+                                      device="cpu", fold_bn=True),
+                         [tiles], model_size=96)
+    x = torch.from_numpy(tiles).permute(0, 3, 1, 2).float() / 255.0
+    sb = SP._SpatialBundle(qb, [torch.device("cpu")] * n)
+    with torch.inference_mode():
+        want = qb.forward(x)
+        got = sb.forward(x)
+        p2 = qb.module.stems(x)
+        plain = _OpLog(_Run(qb.q["convs"], act=qb.act,
+                            scales=qb.static_scales))
+        qb.trunk_codes(qb._p2_quantize(p2), g=plain)
+        split = _OpLog(sb.int8[1])
+        e = SP.row_edges(p2.shape[2], n)
+        qb.trunk_codes(SP._Rows([qb._p2_quantize(p2[:, :, e[k]:e[k + 1]])
+                                 for k in range(n)], sb.devices), g=split)
+    assert len(plain.outs) == len(split.outs) > 50
+    for (op, a), (_, b) in zip(plain.outs, split.outs):
+        for qa, qs in zip(a if isinstance(a, tuple) else (a,),
+                          b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(qa.v, qs.v.whole()), op
+            assert qa.s == qs.s
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert gathered == []
+
+
 def test_spatial_rows_and_refusals():
     from aerial_image_recognition_tpu_torch.parallel.spatial import (
         RowShards, make_spatial_detect, row_edges)
@@ -575,6 +646,21 @@ def test_spatial_rows_and_refusals():
     assert torch.equal(r.rows(-2, 7, torch.device("cpu"), -1.0)[:, :, 2:7],
                        x)
     assert (r.rows(-2, 0, torch.device("cpu"), -1.0) == -1).all()
+    # an operation without a sharded rule never runs on the first device
+    # alone: it is refused while the rows are split
+    import torch.nn.functional as F
+    w = torch.ones(3, 3, 3, 3)
+    for op in (lambda: F.conv2d(r, w, padding="same"),
+               lambda: F.max_pool2d(r, 2, ceil_mode=True),
+               lambda: F.interpolate(r, scale_factor=2, mode="bilinear"),
+               lambda: F.interpolate(r, size=(10, 8)),
+               lambda: torch.cat([r, r], dim=0),
+               lambda: r.chunk(2, dim=2),
+               lambda: r[:, :, 1:],
+               lambda: r.sum()):
+        with pytest.raises(NotImplementedError, match="spatial inference"):
+            op()
+    assert torch.equal(r.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1))
     b = build_detect_step(DetectorConfig.from_dict(CFG), batch=2,
                           model_size=64, device="cpu").bundle
     with pytest.raises(ValueError, match="mesh starts"):
@@ -582,10 +668,12 @@ def test_spatial_rows_and_refusals():
                             PM.Mesh([torch.device("meta")]))
 
 
-def test_spatial_with_an_int8_bundle():
-    """An ``Int8Bundle`` under spatial inference: its float stems run on
-    the shards' rows, its int8 trunk on the gathered map; the detections
-    equal the unsharded int8 function's (tolerance 0)."""
+def test_spatial_with_an_int8_bundle(monkeypatch):
+    """An ``Int8Bundle`` under spatial inference: its float stems and its
+    int8 trunk run on the shards' rows (halos of the 3×3 convs, the
+    stride-2 convs and SPP's chained pools included), nothing is gathered
+    before the head taps; the detections equal the unsharded int8
+    function's (tolerance 0)."""
     from aerial_image_recognition_tpu_torch.models.int8 import (
         quantize_bundle)
     from aerial_image_recognition_tpu_torch.parallel.spatial import (
@@ -599,8 +687,14 @@ def test_spatial_with_an_int8_bundle():
     qb = quantize_bundle(base.bundle, [tiles.numpy()], model_size=QSIZE)
     bnds = torch.tensor([[20.999, 52.199, 21.001, 52.201]] * 8)
     want = make_detect_fn(qb, cfg, model_size=QSIZE)(tiles, bnds)
+    from aerial_image_recognition_tpu_torch.parallel import spatial as SP
+    gathered = []
+    real = SP._gathered
+    monkeypatch.setattr(SP, "_gathered", lambda f, a, k: (
+        gathered.append(f.__name__), real(f, a, k))[1])
     got = make_spatial_detect(qb, cfg, PM.Mesh(["cpu"] * 4),
                               model_size=QSIZE)(tiles, bnds)
+    assert gathered == []
     assert int(want[0].valid.sum()) >= 8
     for a, b in zip(want[0], got[0]):
         assert torch.equal(a, b)

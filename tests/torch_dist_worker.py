@@ -164,8 +164,13 @@ def main() -> int:
         else:
             from aerial_image_recognition_tpu_torch.parallel.mesh import (
                 mesh_from_flag)
-            mesh = mesh_from_flag(1, "cpu")          # spans the processes
-            assert mesh.size == nproc and mesh.group is not None
+            # one device a process: any data-parallel count gives this
+            # process's one device, and the mesh spans the processes
+            assert (ctx.local_devices, ctx.global_devices) == (1, nproc), ctx
+            for dp in (True, 1, 4):
+                mesh = mesh_from_flag(dp, "cpu")
+                assert mesh.local_size == 1 and mesh.size == nproc \
+                    and mesh.process_index == pid and mesh.group is not None
             per = BATCH // nproc
             losses, state = train(mesh, slice(pid * per, (pid + 1) * per))
             sums = process_allgather(np.asarray([float(np.abs(v).sum())
