@@ -90,29 +90,53 @@ __global__ void clahe_apply_kernel(const float* __restrict__ luts,
   }
 }
 
+// Makes `device` the calling thread's current device for the life of the
+// object and restores the device that was current before, on every return
+// path: a launch changes no state of the process.
+class CurrentDevice {
+ public:
+  explicit CurrentDevice(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      changed_ = err_ == cudaSuccess;
+    }
+  }
+  ~CurrentDevice() {
+    if (changed_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool changed_ = false;
+  cudaError_t err_;
+};
+
 }  // namespace
 
 // C entry point (ctypes). Pointers are device pointers; stream is a
 // cudaStream_t. ystart [gh+1] and xstart [gw+1] are the cell boundaries:
 // rows ystart[k]..ystart[k+1] have lower tile row k. Returns the CUDA error
-// of the launch (0 = success).
+// of the launch (0 = success). The calling thread's current device is the
+// same after the call as before.
 extern "C" int clahe_apply_launch(const float* luts, const int32_t* l8,
                                   const float* wy, const float* wx,
                                   const int32_t* ystart,
                                   const int32_t* xstart, int batch, int h,
                                   int w, int gh, int gw, int nv, float* out,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const CurrentDevice on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   if (gh < 1 || gw < 1 || nv < 1 || gh > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || h == 0 || w == 0) return 0;
   const size_t shared = (size_t)nv * 256 * sizeof(float4);
   if (shared > (size_t)kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (shared > 48 * 1024) {
-    err = cudaFuncSetAttribute(clahe_apply_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shared);
+    const cudaError_t err = cudaFuncSetAttribute(
+        clahe_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(gw, gh, batch);

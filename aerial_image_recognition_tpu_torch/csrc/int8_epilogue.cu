@@ -72,18 +72,42 @@ __global__ void int8_epilogue_vec4_kernel(const int4* __restrict__ r,
   }
 }
 
+// Makes `device` the calling thread's current device for the life of the
+// object and restores the device that was current before, on every return
+// path: a launch changes no state of the process.
+class CurrentDevice {
+ public:
+  explicit CurrentDevice(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      changed_ = err_ == cudaSuccess;
+    }
+  }
+  ~CurrentDevice() {
+    if (changed_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool changed_ = false;
+  cudaError_t err_;
+};
+
 }  // namespace
 
 // C entry point (ctypes). Pointers are device pointers; stream is a
 // cudaStream_t; act is 0 leaky, 1 relu, 2 silu (inv is read by silu only).
 // cols must be a multiple of 4 and r, m, b 16-byte aligned. Returns the CUDA
-// error of the launch (0 = success).
+// error of the launch (0 = success). The calling thread's current device is
+// the same after the call as before.
 extern "C" int int8_epilogue_launch(const int32_t* r, const float* m,
                                     const float* b, float inv, int act,
                                     long long rows, int cols, int8_t* out,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const CurrentDevice on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   if (rows < 0 || cols < 1 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;

@@ -342,18 +342,42 @@ __global__ void nms_suppress_kernel(const float* __restrict__ boxes_t,
   }
 }
 
+// Makes `device` the calling thread's current device for the life of the
+// object and restores the device that was current before, on every return
+// path: a launch changes no state of the process.
+class CurrentDevice {
+ public:
+  explicit CurrentDevice(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      changed_ = err_ == cudaSuccess;
+    }
+  }
+  ~CurrentDevice() {
+    if (changed_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool changed_ = false;
+  cudaError_t err_;
+};
+
 }  // namespace
 
 // C entry point (ctypes). Pointers are device pointers; stream is a
 // cudaStream_t. Returns cudaGetLastError() after the launch (0 = success).
+// The calling thread's current device is the same after the call as before.
 extern "C" int nms_suppress_launch(const float* boxes_t, const float* scores,
                                    const int32_t* classes, int batch, int k,
                                    int max_det, float iou_threshold,
                                    int class_aware, int32_t* out_idx,
                                    float* out_conf, int32_t* out_cls,
                                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const CurrentDevice on(device);
+  if (on.error() != cudaSuccess) return (int)on.error();
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   if (batch == 0 || max_det == 0) return 0;
   const int threads = (k + 31) / 32 * 32;
