@@ -33,7 +33,7 @@ from aerial_image_recognition_tpu_torch.fetch.xyz import TileImage
 @dataclass
 class TileBatch:
     indices: np.ndarray      # [B] int64 global tile indices (−1 = padding)
-    images: np.ndarray       # [B, S, S, 3] uint8
+    images: np.ndarray       # [B, S, S, 3] uint8 (s2d2: [B, S/4, S/4, 48])
     bounds: np.ndarray       # [B, 4] float32 (west, south, east, north)
     n_valid: int
     failed_indices: List[int] = field(default_factory=list)
@@ -48,17 +48,20 @@ def assemble_batches(tiles: Iterable[Tuple[int, Optional[TileImage]]],
     is zero-padded with index −1 so every device step sees identical shapes
     (one compiled program for the whole scan).
 
-    layout "hwc" is the only one the port's steps take; the reference's
-    "s2d2" (the quad stem's space_to_depth^2 packing) raises
-    NotImplementedError until the quad stem is ported.
+    layout "s2d2" packs each tile in space_to_depth² order [S/4, S/4, 48]
+    for the quad stem (``DetectStep.input_layout``): a strided host copy in
+    place of the straight one (``ops/quadstem.host_s2d2_into``); the same
+    bytes cross to the device and nothing is relaid there.
     """
     if layout == "s2d2":
-        raise NotImplementedError(
-            "the s2d2 batch layout belongs to the quad stem, which is not "
-            "ported; the port's steps take [B,S,S,3] batches")
-    if layout != "hwc":
+        from aerial_image_recognition_tpu_torch.ops.quadstem import (
+            host_s2d2_into)
+        imgs = np.zeros((batch_size, src_size // 4, src_size // 4, 48),
+                        dtype=np.uint8)
+    elif layout == "hwc":
+        imgs = np.zeros((batch_size, src_size, src_size, 3), dtype=np.uint8)
+    else:
         raise ValueError(f"unknown batch layout {layout!r}")
-    imgs = np.zeros((batch_size, src_size, src_size, 3), dtype=np.uint8)
     bnds = np.zeros((batch_size, 4), dtype=np.float32)
     idxs = np.full((batch_size,), -1, dtype=np.int64)
     fill = 0
@@ -77,7 +80,10 @@ def assemble_batches(tiles: Iterable[Tuple[int, Optional[TileImage]]],
             from PIL import Image
             px = np.asarray(Image.fromarray(px).resize(
                 (src_size, src_size), Image.BILINEAR))
-        imgs[fill] = px
+        if layout == "s2d2":
+            host_s2d2_into(px, imgs[fill])   # one strided copy, no temporary
+        else:
+            imgs[fill] = px
         bnds[fill] = tile.bounds
         idxs[fill] = index
         fill += 1

@@ -3,8 +3,10 @@
 Counterpart of ``aerial_image_recognition_tpu/models/int8.py``: the
 detector families yolov7-tiny (``yolov7_itcvd``, leaky), yolov7-base and
 YOLOv8 n–x (silu) → ``Int8Bundle``, and the XUnet-256 segmentation model
-(relu) → ``Int8XUnetBundle``. The fully-int8 quad-stem entry waits for the
-quad stem and raises ``NotImplementedError`` until then.
+(relu) → ``Int8XUnetBundle``. YOLOv7-tiny and YOLOv8 also get the
+fully-int8 quad-stem entry (``_quantize_stems``, ``_stems_int8``,
+``Int8Bundle.forward_s2d2``), which the default step takes on native-size
+tiles.
 
 Scheme (standard PTQ, arranged so the int8 graph needs NO runtime rescales):
   * weights: per-output-channel symmetric int8, BatchNorm folded first;
@@ -25,11 +27,16 @@ Scheme (standard PTQ, arranged so the int8 graph needs NO runtime rescales):
   * the yolov8 Bottleneck's residual add dequantizes both operands, adds
     in f32 and requantizes at the Bottleneck's calibrated scale.
 
-The stems stay in the bundle's dtype (bf16 in production); the yolov7
-detect heads and the yolov8 output convs stay f32 (the yolov8 box and class
-towers are int8 trunk convs). XUnet keeps its 3-channel entry conv
-(enc0/cv1) in the bundle's dtype and its 1×1 mask head in f32, with the
-dec3 coding scale folded into the head's kernel. Each trunk graph mirrors its module's
+On the plain entry (``forward``) the stems stay in the bundle's dtype (bf16
+in production); the quad-stem entry on uint8 s2d² batches runs them int8
+too: the input shifts to int8 exactly (x − 128 is x XOR 128 seen as
+int8), both 2×2 convs are the integer product, and the first one's
+epilogue adds a per-position border term (the epilogue kernel's border
+mode) for the zero padding, which stands for pixel 128 after the shift.
+The yolov7 detect heads and the yolov8 output convs stay f32 (the yolov8
+box and class towers are int8 trunk convs). XUnet keeps its 3-channel
+entry conv (enc0/cv1) in the bundle's dtype and its 1×1 mask head in f32,
+with the dec3 coding scale folded into the head's kernel. Each trunk graph mirrors its module's
 ``trunk`` from the P2 feature on; a prepare/run interpreter pair shares the
 single transcription.
 
@@ -54,7 +61,7 @@ propagates.
 """
 
 import json
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -448,17 +455,22 @@ def qparams_from_jax(q, static_scales) -> Dict[str, Any]:
     ``q`` dictionary ``Int8Bundle.from_q`` (``Int8XUnetBundle.from_q``)
     takes, so that both trunks can run on identical qparams. Leaves may be
     numpy or anything ``np.asarray`` takes; the quad-stem entry
-    (``q["stems"]``) is dropped."""
+    (``q["stems"]``) comes across too."""
     scales = {k: float(v) for k, v in static_scales.items()}
     if "mask_kernel" in q:
         return {"convs": _convs_from_jax(q["convs"]),
                 "mask_kernel": np.asarray(q["mask_kernel"], np.float32),
                 "mask_bias": np.asarray(q["mask_bias"], np.float32),
                 "scales": scales}
-    return {"p2_scale": np.float32(q["p2_scale"]),
-            "convs": _convs_from_jax(q["convs"]),
-            "out_scales": [np.float32(s) for s in q.get("out_scales", [])],
-            "scales": scales}
+    out = {"p2_scale": np.float32(q["p2_scale"]),
+           "convs": _convs_from_jax(q["convs"]),
+           "out_scales": [np.float32(s) for s in q.get("out_scales", [])],
+           "scales": scales}
+    if "stems" in q:
+        out["stems"] = {k: np.asarray(v, np.int8 if k in ("w0", "w1")
+                                      else np.float32)
+                        for k, v in q["stems"].items()}
+    return out
 
 
 def _convs_from_jax(jconvs) -> Dict[str, Any]:
@@ -479,13 +491,28 @@ def _convs_from_jax(jconvs) -> Dict[str, Any]:
 IM2COL_MAX_BYTES = 1 << 30
 
 
+def _pads(kernel: int):
+    """(low, high) zero padding of a convolution: ``k//2`` on both sides for
+    the odd kernels, ((1,0),(1,0)) for the quad stem's 2×2 ones."""
+    return kernel // 2, (kernel - 1) // 2
+
+
+def _out_size(n: int, kernel: int, stride: int) -> int:
+    lo, hi = _pads(kernel)
+    return (n + lo + hi - kernel) // stride + 1
+
+
 def _conv_s32_plain(v: torch.Tensor, w: torch.Tensor, kernel: int,
                     stride: int) -> torch.Tensor:
-    """int8 [B,H,W,C] × int32 OIHW kernel → int32 [B,Ho,Wo,O], pad k//2:
-    ``F.conv2d`` on int32 tensors (exact integer arithmetic)."""
+    """int8 [B,H,W,C] × int32 OIHW kernel → int32 [B,Ho,Wo,O], padded as
+    ``_pads`` says: ``F.conv2d`` on int32 tensors (exact integer
+    arithmetic), padded ``k//2`` on both sides, of which a 2×2 kernel's
+    last row and column (the high side's) are dropped."""
+    _, h, wd, _ = v.shape
     r = F.conv2d(v.permute(0, 3, 1, 2).to(torch.int32), w, None, stride,
                  kernel // 2)
-    return r.permute(0, 2, 3, 1)
+    return r[:, :, :_out_size(h, kernel, stride),
+             :_out_size(wd, kernel, stride)].permute(0, 2, 3, 1)
 
 
 def _wide(v: torch.Tensor) -> torch.Tensor:
@@ -502,16 +529,15 @@ def _wide(v: torch.Tensor) -> torch.Tensor:
 
 def _im2col(v: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     """int8 [B,H,W,C] → [B,Ho,Wo,k·k·C]: the k·k shifted, strided slices
-    of the zero-padded input side by side, in (dy, dx, c) order — the row
-    order of an HWIO kernel reshaped to [k·k·C, O]. Pure data movement, so
-    it is done on ``_wide`` views."""
+    of the zero-padded input (``_pads``) side by side, in (dy, dx, c)
+    order — the row order of an HWIO kernel reshaped to [k·k·C, O]. Pure
+    data movement, so it is done on ``_wide`` views."""
     v = _wide(v)
     b, h, w, c = v.shape
-    pad = kernel // 2
-    ho = (h + 2 * pad - kernel) // stride + 1
-    wo = (w + 2 * pad - kernel) // stride + 1
-    vp = v.new_zeros((b, h + 2 * pad, w + 2 * pad, c))
-    vp[:, pad:pad + h, pad:pad + w] = v
+    lo, hi = _pads(kernel)
+    ho, wo = _out_size(h, kernel, stride), _out_size(w, kernel, stride)
+    vp = v.new_zeros((b, h + lo + hi, w + lo + hi, c))
+    vp[:, lo:lo + h, lo:lo + w] = v
     return torch.cat(
         [vp[:, dy:dy + stride * (ho - 1) + 1:stride,
             dx:dx + stride * (wo - 1) + 1:stride]
@@ -531,7 +557,8 @@ def _conv_s32_card(v: torch.Tensor, w: torch.Tensor, kernel: int,
 
 def conv_s32(v: torch.Tensor, w: torch.Tensor, kernel: int,
              stride: int = 1) -> torch.Tensor:
-    """The exact s8×s8→s32 convolution, pad ``k//2``. ``w`` is the kernel
+    """The exact s8×s8→s32 convolution, padded ``k//2`` (odd kernels) or
+    ((1,0),(1,0)) (the quad stem's 2×2 kernels). ``w`` is the kernel
     as ``device_kernel`` made it for ``v``'s device. A CPU tensor takes the
     plain version; a CUDA tensor takes ``torch._int_mm`` or raises."""
     if v.dtype != torch.int8 or v.dim() != 4:
@@ -574,6 +601,20 @@ def _device_convs(convs, device: torch.device) -> Dict[str, Any]:
                      "b": _f32_on(qp["b"], device)}
         if "inv" in qp:
             out[name]["inv"] = float(np.float32(qp["inv"]))
+    return out
+
+
+def _device_stems(stems, device: torch.device) -> Dict[str, Any]:
+    """``_quantize_stems``' numpy constants → what ``_stems_int8`` reads on
+    ``device``: both kernels as ``device_kernel`` makes them, ``m``, ``b``
+    and ``corr`` as f32 tensors, ``inv0``/``inv1`` (silu) as host
+    numbers."""
+    out = {k: device_kernel(stems[k], device) for k in ("w0", "w1")}
+    for k in ("m0", "b0", "corr", "m1", "b1"):
+        out[k] = _f32_on(stems[k], device)
+    for k in ("inv0", "inv1"):
+        if k in stems:
+            out[k] = float(np.float32(stems[k]))
     return out
 
 
@@ -651,6 +692,79 @@ class _Run:
         out = x.v[:, :, None, :, None, :].expand(b, h, 2, w, 2, c) \
             .reshape(b, 2 * h, 2 * w, c)
         return replace(x, v=out)
+
+
+# ---------------------------------------------------------------------------
+# the fully-int8 quad stem
+
+
+def _stem_consts(w0, b0, w1, b1, s0: float, p2s: float,
+                 act: str) -> Dict[str, Any]:
+    """The fully-int8 quad stem's constants from the folded f32 stems
+    (``ops/quadstem.fold_convbn``) and the coding scales of stem0's output
+    (``s0``) and of P2 (``p2s``), numpy as the reference makes them.
+
+    The uint8 s2d² input shifts to int8 exactly, so stem0's only
+    quantization loss is its weights. The shift makes the zero padding
+    stand for pixel 128 instead of the black pixels the float path pads
+    with; a per-channel border term from partial sums of the float kernel
+    repairs it. With low-side-only cell padding there are four cases
+    (interior, top row, left column, corner):
+        corr(y,x) = S − [y=0]·Su0 − [x=0]·Sv0 + [y=0,x=0]·Suv
+    entering between ``t·m0`` and ``b0``, already scaled by 128/(255·s0)
+    (leaky) or 128/255 (silu). Stem1 pads int8 zeros, which are activation
+    0.0: exact under symmetric quantization, like every trunk conv."""
+    from aerial_image_recognition_tpu_torch.ops.quadstem import (
+        quad_kernel_transform, s2d_kernel_transform)
+    w0q = np.asarray(quad_kernel_transform(w0), np.float32)  # [2,2,48,4c0]
+    w1q = np.asarray(s2d_kernel_transform(w1), np.float32)   # [2,2,4c0,c1]
+    b0q = np.tile(np.asarray(b0, np.float32), 4)
+    w08, sw0 = _pcq(w0q)
+    w18, sw1 = _pcq(w1q)
+    # partial sums of the float kernel over (u,v) tap subsets, channels in
+    k_sum = w0q.sum(axis=2)                       # [2,2,O]
+    sums = np.stack([k_sum.sum(axis=(0, 1)), k_sum[0].sum(axis=0),
+                     k_sum[:, 0].sum(axis=0), k_sum[0, 0]])
+    if act == "leaky":
+        # homogeneity folds the requantize divisions into every constant
+        return {"w0": w08, "m0": sw0 / (255.0 * s0), "b0": b0q / s0,
+                "corr": sums * (128.0 / (255.0 * s0)),
+                "w1": w18, "m1": sw1 * s0 / p2s,
+                "b1": np.asarray(b1, np.float32) / p2s}
+    # silu: the constants stay in activation units; the requantize
+    # divisions are multiplications after the activation
+    return {"w0": w08, "m0": sw0 / 255.0, "b0": b0q,
+            "corr": sums * (128.0 / 255.0), "inv0": np.float32(1.0 / s0),
+            "w1": w18, "m1": sw1 * s0, "b1": np.asarray(b1, np.float32),
+            "inv1": np.float32(1.0 / p2s)}
+
+
+def _quantize_stems(variables, absmax: Dict[str, float], bn_eps=1e-5,
+                    stem_names=("stem0", "stem1"),
+                    act="leaky") -> Dict[str, Any]:
+    """The fully-int8 quad stem of a flax-format f32 tree and a calibration
+    (``_stem_consts``); the folds are ``ops/quadstem.fold_convbn``'s."""
+    from aerial_image_recognition_tpu_torch.ops.quadstem import fold_convbn
+    p, st = variables["params"], variables["batch_stats"]
+    n0, n1 = stem_names
+    w0, b0 = fold_convbn(p[n0], st[n0], eps=bn_eps)
+    w1, b1 = fold_convbn(p[n1], st[n1], eps=bn_eps)
+    if n0 not in absmax or n1 not in absmax:
+        raise KeyError(f"no calibration record for {n0} or {n1}")
+    return _stem_consts(w0, b0, w1, b1, max(absmax[n0], 1e-12) / 127.0,
+                        max(absmax[n1], 1e-12) / 127.0, act)
+
+
+def _stems_int8(sq, xq: torch.Tensor, act: str = "leaky") -> torch.Tensor:
+    """uint8 s2d² batch [B,H/4,W/4,48] → the P2 feature's int8 codes
+    [B,H/4,W/4,c1] (the trunk's coding), from ``_device_stems``' ``sq``:
+    two integer products and two epilogue launches, the first in border
+    mode."""
+    x8 = torch.bitwise_xor(xq, 128).view(torch.int8)
+    h1 = requantize(conv_s32(x8, sq["w0"], 2), sq["m0"], sq["b0"],
+                    sq.get("inv0"), act, corr=sq["corr"])
+    return requantize(conv_s32(h1, sq["w1"], 2), sq["m1"], sq["b1"],
+                      sq.get("inv1"), act)
 
 
 # ---------------------------------------------------------------------------
@@ -734,7 +848,10 @@ class Int8Bundle:
     made from; ``static_scales`` the per-tensor coding scales (python
     floats, keyed like the convs, plus ``__p2__``); ``absmax`` the
     calibration table it was quantized with, where known (``save_absmax``
-    persists it: a self-calibrated step can be rebuilt from the file)."""
+    persists it: a self-calibrated step can be rebuilt from the file).
+    ``q["stems"]`` holds the fully-int8 quad stem's constants where the
+    family has the lowering; ``quad`` is the float quad stem
+    (``ops/quadstem.QuadStem``), built at its first use."""
     spec: Any
     module: nn.Module
     device: torch.device
@@ -742,6 +859,7 @@ class Int8Bundle:
     params: Dict[str, Any]
     static_scales: Dict[str, float]
     absmax: Optional[Dict[str, float]] = None
+    quad: Any = field(default=None, repr=False)
 
     @classmethod
     def from_q(cls, spec, variables, q, *, dtype: torch.dtype,
@@ -750,7 +868,8 @@ class Int8Bundle:
         """Build from flax-format f32 ``variables`` (only the stems and the
         heads are read; the variant or scale is read off their shapes) and
         a numpy ``q`` dictionary (``_Prepare``'s ``convs``, ``p2_scale``,
-        ``out_scales`` for yolov7, ``scales``)."""
+        ``out_scales`` for yolov7, ``scales``, and ``_quantize_stems``'
+        ``stems`` where the family has the quad stem)."""
         from aerial_image_recognition_tpu_torch.models.layers import (
             fold_batchnorm)
         from aerial_image_recognition_tpu_torch.models.weights import (
@@ -774,14 +893,24 @@ class Int8Bundle:
               "p2_scale": _f32_on(q["p2_scale"], device),
               "out_scales": [float(np.float32(s))
                              for s in q.get("out_scales", [])]}
+        if "stems" in q:
+            dq["stems"] = _device_stems(q["stems"], device)
         scales = dict(q["scales"])
         host_q = {k: v for k, v in q.items() if k != "scales"}
         return cls(spec=spec, module=module, device=device, q=dq,
                    params={"orig": orig, "q": host_q}, static_scales=scales,
                    absmax=None if absmax is None else dict(absmax))
 
+    def _s2d2_meta(self) -> Optional[Dict]:
+        from aerial_image_recognition_tpu_torch.ops.quadstem import stem_meta
+        return stem_meta(self.spec.family,
+                         getattr(self.module, "variant", ""))
+
     def supports_s2d2(self) -> bool:
-        return False
+        """The standard stems of yolov7-tiny and yolov8 by construction;
+        yolov7-base's four-conv stem (strides 1, 2, 1, 2) has no quad-stem
+        lowering."""
+        return self._s2d2_meta() is not None
 
     def to(self, device) -> "Int8Bundle":
         """A replica on ``device`` (a data-parallel shard's) carrying only
@@ -794,8 +923,11 @@ class Int8Bundle:
         dq = {"convs": _device_convs(hq["convs"], device),
               "p2_scale": _f32_on(hq["p2_scale"], device),
               "out_scales": list(self.q["out_scales"])}
+        if "stems" in hq:
+            dq["stems"] = _device_stems(hq["stems"], device)
         return replace(self, module=copy.deepcopy(self.module).to(device),
-                       device=device, q=dq)
+                       device=device, q=dq,
+                       quad=self.quad and self.quad.to(device))
 
     def _p2_quantize(self, p2: torch.Tensor) -> torch.Tensor:
         """P2 [B,C,H,W] float → int8 codes [B,H,W,C]; a true division by
@@ -867,10 +999,33 @@ class Int8Bundle:
         p2 = self.module.stems(images.to(_module_dtype(self.module)))
         return self.decode(self._raw_from_p2_i8(self._p2_quantize(p2)))
 
-    def forward_s2d2(self, xq, in_scale=1.0 / 255.0):
-        raise NotImplementedError(
-            "the quad-stem entry (and its fully-int8 stems) arrives with "
-            "the quad stem, which the port has parked")
+    def quad_stem(self):
+        """The float quad stem over the pruned tree's stems, in the stems'
+        dtype on this bundle's device, built once."""
+        if self.quad is None:
+            from aerial_image_recognition_tpu_torch.ops.quadstem import (
+                QuadStem)
+            meta = self._s2d2_meta()
+            self.quad = QuadStem.from_variables(
+                self.params["orig"], stem_names=meta["stems"],
+                act=meta["act"], bn_eps=meta["bn_eps"],
+                dtype=_module_dtype(self.module), device=self.device)
+        return self.quad
+
+    def forward_s2d2(self, xq: torch.Tensor, in_scale=1.0 / 255.0):
+        """The quad-stem entry: xq [B,S/4,S/4,48] s2d² (``ops/quadstem``)
+        → (boxes, scores) as ``forward``. A uint8 batch at ``in_scale``
+        1/255 takes the fully-int8 stems (``_stems_int8``); anything else
+        the float quad stem, whose P2 is then quantized."""
+        if not self.supports_s2d2():
+            raise NotImplementedError(
+                "no quad-stem lowering for this stem geometry")
+        if (xq.dtype == torch.uint8 and "stems" in self.q
+                and in_scale in (None, 1.0 / 255.0)):
+            p2_i8 = _stems_int8(self.q["stems"], xq, act=self.act)
+        else:
+            p2_i8 = self._p2_quantize(self.quad_stem()(xq, in_scale))
+        return self.decode(self._raw_from_p2_i8(p2_i8))
 
 
 class _XUnetEnds(nn.Module):
@@ -1121,6 +1276,10 @@ def quantize_bundle(bundle, calib_batches: Sequence[Any],
     else:
         trunk = _v7base_trunk if arch == "base" else _tiny_trunk
         q["out_scales"] = [np.float32(o.s) for o in trunk(prep, p2)]
+    if arch != "base":      # base's four-conv stem has no quad stem
+        q["stems"] = _quantize_stems(
+            bundle.variables, absmax, bn_eps=meta["bn_eps"],
+            stem_names=meta["stems"], act=meta["act"])
     scales = dict(prep.scales)
     scales["__p2__"] = p2.s
     q["scales"] = scales

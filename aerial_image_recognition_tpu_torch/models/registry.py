@@ -10,7 +10,7 @@ returns mask logits.
 
 import copy
 import os
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -86,12 +86,15 @@ class ModelBundle:
 
     ``variables`` is the f32 flax-format tree (numpy, on the host) the
     module was built from, before any BN fold or cast: int8 quantization
-    (``models/int8.quantize_bundle``) reads the weights there, since the
-    fused, cast module no longer has them."""
+    (``models/int8.quantize_bundle``) and the quad stem read the weights
+    there, since the fused, cast module no longer has them. ``quad`` is the
+    quad stem's ``ops/quadstem.QuadStem`` on the bundle's device, built from
+    them at the first ``forward_s2d2`` (or carried over by ``to``)."""
     spec: ModelSpec
     module: nn.Module
     device: torch.device
     variables: Optional[Dict] = None
+    quad: Any = field(default=None, repr=False)
 
     def forward(self, images: torch.Tensor):
         """images [B,3,S,S] (/255, trunk dtype) → (boxes [B,A,4] cxcywh
@@ -112,7 +115,8 @@ class ModelBundle:
         module there; the host ``variables`` are shared."""
         device = torch.device(device)
         return replace(self, module=copy.deepcopy(self.module).to(device),
-                       device=device)
+                       device=device,
+                       quad=self.quad and self.quad.to(device))
 
     def trainable(self, device=None) -> nn.Module:
         """A new unfused f32 copy of the model for training: built from
@@ -130,10 +134,50 @@ class ModelBundle:
         return module.float().to(device=device or self.device,
                                  memory_format=torch.channels_last)
 
+    def _s2d2_meta(self) -> Optional[Dict]:
+        """The quad-stem lowering's stem scopes, activation and BN epsilon,
+        or None where it does not apply (``ops/quadstem.stem_meta``:
+        yolov7-tiny and every yolov8 scale)."""
+        from aerial_image_recognition_tpu_torch.ops.quadstem import stem_meta
+        return stem_meta(self.spec.family,
+                         getattr(self.module, "variant", ""))
+
     def supports_s2d2(self) -> bool:
-        """The quad-stem lowering is parked in the port: False for every
-        family."""
-        return False
+        """True when the quad-stem inference lowering applies."""
+        return self._s2d2_meta() is not None
+
+    def quad_stem(self):
+        """The bundle's ``QuadStem`` on its device, built once from
+        ``variables`` in the trunk's dtype."""
+        if self.quad is None:
+            from aerial_image_recognition_tpu_torch.ops.quadstem import (
+                QuadStem)
+            meta = self._s2d2_meta()
+            if meta is None:
+                raise ValueError(f"no quad-stem lowering for "
+                                 f"{self.spec.name}")
+            if self.variables is None:
+                raise ValueError("the quad stem needs the f32 variables the "
+                                 "bundle was built from (bundle.variables)")
+            dtype = next(m.weight.dtype for m in self.module.modules()
+                         if isinstance(m, nn.Conv2d))
+            self.quad = QuadStem.from_variables(
+                self.variables, stem_names=meta["stems"], act=meta["act"],
+                bn_eps=meta["bn_eps"], dtype=dtype, device=self.device)
+        return self.quad
+
+    def forward_s2d2(self, xq: torch.Tensor, in_scale=1.0 / 255.0):
+        """The quad-stem inference path: xq is the host-relayouted s2d²
+        batch [B,S/4,S/4,48] (uint8 or float). The /255 folds into the
+        stem's first conv; the trunk runs from the P2 feature
+        (``from_p2``). Returns what ``forward`` returns."""
+        from aerial_image_recognition_tpu_torch.ops.decode import (
+            decode_yolov7, decode_yolov8)
+        outs = self.module(self.quad_stem()(xq, in_scale), from_p2=True)
+        if self.spec.family == "yolov8":
+            return decode_yolov8(outs, self.spec.num_classes)
+        return decode_yolov7(outs, self.module.anchors,
+                             self.spec.num_classes)
 
 
 def _prior_init_detect_bias(module: nn.Module, spec: ModelSpec) -> None:

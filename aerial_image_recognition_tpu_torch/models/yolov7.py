@@ -249,10 +249,19 @@ class YOLOv7(nn.Module):
             h.float()
         return self
 
-    def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def trunk(self, x: torch.Tensor,
+              from_p2: bool = False) -> List[torch.Tensor]:
+        """x → the three head taps. ``from_p2``: x is already the P2/4 stem
+        feature [B,64,S/4,S/4] (the quad stem computed it,
+        ``ops/quadstem.py``) and the two stems are skipped; tiny only,
+        inference only."""
         if self.variant == "base":
+            if from_p2:
+                raise ValueError("from_p2 is the quad-stem lowering of "
+                                 "yolov7-tiny; yolov7-base has none")
             return self._base_trunk(x)
-        x = self.stem1(self.stem0(x))
+        if not from_p2:
+            x = self.stem1(self.stem0(x))
         x = self.elan1(x)
         p3 = self.elan2(maxpool2(x))
         p4 = self.elan3(maxpool2(p3))
@@ -286,8 +295,10 @@ class YOLOv7(nn.Module):
         f5b = self.pan_elan5([b, a, spp])
         return [self.rep3(f3), self.rep4(f4b), self.rep5(f5b)]
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x [B,3,S,S] (already /255, trunk dtype) → three NHWC f32 maps."""
+    def forward(self, x: torch.Tensor,
+                from_p2: bool = False) -> List[torch.Tensor]:
+        """x [B,3,S,S] (already /255, trunk dtype), or with ``from_p2`` the
+        P2 feature (see ``trunk``) → three NHWC f32 maps."""
         if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
             raise RuntimeError(
                 "the f32 detect heads need full-precision f32 matmuls; "
@@ -295,4 +306,4 @@ class YOLOv7(nn.Module):
                 f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
                 "back to 'highest'")
         return [head(f.float().permute(0, 2, 3, 1))
-                for f, head in zip(self.trunk(x), self.heads())]
+                for f, head in zip(self.trunk(x, from_p2), self.heads())]

@@ -177,9 +177,15 @@ class YOLOv8(nn.Module):
             h.float()
         return self
 
-    def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x → the three neck features (f3, f4b, f5b) the head reads."""
-        x = self.c2f1(self.down2(self.stem(x)))
+    def trunk(self, x: torch.Tensor,
+              from_p2: bool = False) -> List[torch.Tensor]:
+        """x → the three neck features (f3, f4b, f5b) the head reads.
+        ``from_p2``: x is already the P2/4 feature [B,c2,S/4,S/4] (the quad
+        stem computed stem and down2, ``ops/quadstem.py``); inference
+        only."""
+        if not from_p2:
+            x = self.down2(self.stem(x))
+        x = self.c2f1(x)
         p3 = self.c2f2(self.down3(x))
         p4 = self.c2f3(self.down4(p3))
         p5 = self.sppf(self.c2f4(self.down5(p4)))
@@ -189,12 +195,14 @@ class YOLOv8(nn.Module):
         f5b = self.pan5([self.pan_down5(f4b), p5])
         return [f3, f4b, f5b]
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x [B,3,S,S] (already /255, trunk dtype) → three NHWC f32 maps."""
+    def forward(self, x: torch.Tensor,
+                from_p2: bool = False) -> List[torch.Tensor]:
+        """x [B,3,S,S] (already /255, trunk dtype), or with ``from_p2`` the
+        P2 feature (see ``trunk``) → three NHWC f32 maps."""
         if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
             raise RuntimeError(
                 "the f32 detect heads need full-precision f32 matmuls; "
                 "torch.get_float32_matmul_precision() is "
                 f"{torch.get_float32_matmul_precision()!r} (TF32) — set it "
                 "back to 'highest'")
-        return self.detect(self.trunk(x))
+        return self.detect(self.trunk(x, from_p2))

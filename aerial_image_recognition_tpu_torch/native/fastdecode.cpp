@@ -10,7 +10,7 @@
 // aerial_image_recognition_tpu_torch/gio/decode.py; the GIL is released for
 // the duration of the call, so the existing fetch thread pools scale across
 // cores. A copy of native/fastdecode.cpp without its quad-layout packer,
-// which waits with the quad stem.
+// which is in fastpack.cpp beside it (it needs no libjpeg).
 
 #include <cstddef>
 #include <cstdio>

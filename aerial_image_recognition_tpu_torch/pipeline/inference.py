@@ -1,15 +1,19 @@
 """The fused detection step: uint8 tiles → georeferenced detections.
 
 Counterpart of ``aerial_image_recognition_tpu/pipeline/inference.py``
-(``DetectStep``, ``make_detect_fn``, ``build_detect_step``,
-``detection_sets_agree``). One call runs preprocess (crop, resize, /255) →
-trunk (any registry detector) → f32 heads → decode → NMS (CUDA kernel on
-the card; class-aware for the two-class yolov8 models) →
-lon/lat on the device, so only ~max_det·6 numbers per tile come back to the
-host. The accuracy modes — the TTA ladder (whose CLAHE variations run the
-CUDA LUT-apply kernel on the card), multiscale, box voting, shadow
-enhancement — widen the middle of that chain and leave its ends as they
-are.
+(``DetectStep``, ``make_detect_fn``, ``use_quad_stem``,
+``build_detect_step``, ``detection_sets_agree``). One call runs preprocess
+(crop, resize, /255) → trunk (any registry detector) → f32 heads →
+decode → NMS (CUDA kernel on the card; class-aware for the two-class
+yolov8 models) → lon/lat on the device, so only ~max_det·6 numbers per tile come back to
+the host. Native-size YOLOv7-tiny and YOLOv8 tiles take the quad stem by
+default, as in the reference (``use_quad_stem``; ``extra.quad_stem:
+false`` opts out): the step's batches are then in the s2d² layout
+(``input_layout == "s2d2"``), whose /255 folds into the stem's first conv
+(``ops/quadstem.py``). The accuracy modes — the TTA ladder (whose CLAHE
+variations run the CUDA LUT-apply kernel on the card), multiscale, box
+voting, shadow enhancement — widen the middle of that chain and leave its
+ends as they are.
 
 PyTorch runs eagerly, so there is no compile step: the step is a plain
 function over device tensors. ``DetectStep`` keeps the surface that
@@ -105,7 +109,9 @@ class DetectStep:
     input_size: int          # source pixels per tile edge entering the step
     model_size: int = 640    # network input edge (pixel frame of det.boxes)
     input_shardings: Optional[tuple] = None   # ((device, lo, hi), …) or None
-    input_layout: str = "hwc"                 # [B,S,S,3] uint8 batches
+    # "hwc": [B,S,S,3] uint8 batches; "s2d2": [B,S/4,S/4,48], the quad
+    # stem's space_to_depth² layout (ops/quadstem.host_s2d2)
+    input_layout: str = "hwc"
 
     @property
     def device(self) -> torch.device:
@@ -127,18 +133,33 @@ class DetectStep:
 
     def place(self, images_u8, bounds):
         """A host or device batch → lists of each shard's rows on its
-        device (lists of per-shard tensors pass through)."""
+        device, in this step's layout (lists of per-shard tensors pass
+        through, each packed where it lies if it is not yet). A [B,S,S,3]
+        batch for the quad stem goes to each shard as it is and is relaid
+        there (``pack_images`` on a tensor): the same bytes as
+        ``host_s2d2`` gives, in a fraction of a millisecond on the card
+        where the host's strided copy of a 64-tile batch takes tens
+        (``PERF.md``)."""
         if isinstance(images_u8, (list, tuple)):
-            return list(images_u8), list(bounds)
-        images_u8 = self.pack_images(images_u8)
+            return [self.pack_images(t) for t in images_u8], list(bounds)
         rows = self.mesh.rows(len(images_u8))
-        return ([_upload(images_u8[lo:hi], d, torch.uint8)
+        return ([self.pack_images(_upload(images_u8[lo:hi], d, torch.uint8))
                  for d, lo, hi in rows],
                 [_upload(bounds[lo:hi], d, torch.float32)
                  for d, lo, hi in rows])
 
     def pack_images(self, images_u8):
-        """This step takes [B,S,S,3] batches as they are."""
+        """A [B,S,S,3] uint8 batch in this step's input layout: for the
+        quad stem a host array goes through ``host_s2d2`` and a tensor is
+        relaid where it lies (never through the host) by the same index
+        map; hwc steps, and batches already packed, pass as they are."""
+        if (self.input_layout == "s2d2" and hasattr(images_u8, "shape")
+                and len(images_u8.shape) == 4 and images_u8.shape[-1] == 3):
+            from aerial_image_recognition_tpu_torch.ops.quadstem import (
+                device_s2d2, host_s2d2)
+            if isinstance(images_u8, torch.Tensor):
+                return device_s2d2(images_u8)
+            return host_s2d2(np.asarray(images_u8))
         return images_u8
 
 
@@ -159,9 +180,16 @@ def _resolve_vote_iou(cfg: DetectorConfig):
 def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
                    src_size: Optional[int] = None,
                    crop_size: Optional[int] = None,
-                   model_size: Optional[int] = None):
+                   model_size: Optional[int] = None,
+                   quad: bool = False):
     """Build the (images_u8, bounds) → (Detections, lon, lat) function for
     device tensors.
+
+    quad: the caller asserts that the images arrive in the s2d² layout
+    [B,S/4,S/4,48] and go through ``bundle.forward_s2d2`` (the /255 folds
+    into the quad stem); ``build_detect_step`` decides it with
+    ``use_quad_stem``, other callers keep the [B,S,S,3] contract unless
+    they opt in.
 
     src_size: source pixel edge of incoming tiles (e.g. 1024 mosaics or
     864 crops; the step resizes whatever arrives, so it only documents the
@@ -258,6 +286,9 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
 
     @torch.inference_mode()
     def detect(images_u8: torch.Tensor, bounds: torch.Tensor):
+        if quad:
+            boxes, scores = bundle.forward_s2d2(images_u8)
+            return finish(boxes, scores, bounds)
         x = preprocess_batch(
             images_u8, out_size=model_size, crop_size=crop_size,
             method="bilinear", dtype=dtype,
@@ -275,6 +306,30 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
         return finish(boxes, scores, bounds)
 
     return detect
+
+
+def use_quad_stem(bundle, cfg: DetectorConfig, *, src_size=None,
+                  crop_size=None, model_size=None) -> bool:
+    """True when the quad-stem lowering applies: a model with two stride-2
+    3×3 stems (yolov7-tiny, yolov8 n–x), native-size tiles (no crop or
+    resize on the device, the model size a multiple of 4), and none of the
+    pixel-space options that need the [B,S,S,3] image (TTA, multiscale,
+    shadow enhancement). ``extra.quad_stem: false`` opts out."""
+    if not bool(cfg.extra.get("quad_stem", True)):
+        return False
+    if not bundle.supports_s2d2():
+        return False
+    eff_model = model_size or bundle.spec.input_size
+    if eff_model % 4:
+        return False
+    # the quad stem reads the raw tile pixels: a crop or resize on the
+    # device would have to come before it, so those keep the plain stems
+    if crop_size is not None or src_size not in (None, eff_model):
+        return False
+    for key in ("tta", "multiscale", "enhance_shadows"):
+        if cfg.extra.get(key):
+            return False
+    return True
 
 
 def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
@@ -307,6 +362,11 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     batch must divide evenly over them (ValueError naming the mesh).
     Without one the step runs over a mesh of its one device. Turnkey int8
     keeps the mesh through its rebuild.
+
+    Native-size tiles of a model with the quad-stem lowering take it
+    (``use_quad_stem``): the step's ``input_layout`` is then "s2d2", its
+    ``pack_images`` relays [B,S,S,3] batches, and each shard's rows of an
+    s2d² batch go to its device as they are.
     """
     if mesh is not None and device is None:
         device = mesh.devices[0]
@@ -348,6 +408,8 @@ def _compile_detect_step(bundle, cfg: DetectorConfig, *,
     is compiled: PyTorch runs eagerly. The bundle is replicated to each
     distinct device of the mesh other than its own (``bundle.to``; shards
     on one device share its replica)."""
+    quad = use_quad_stem(bundle, cfg, src_size=src_size, crop_size=crop_size,
+                         model_size=model_size)
     model_size = model_size or bundle.spec.input_size
     eff_batch = batch or cfg.device_batch
     given = mesh is not None
@@ -363,12 +425,13 @@ def _compile_detect_step(bundle, cfg: DetectorConfig, *,
             else bundle.to(d)
         fns[d] = (replica, make_detect_fn(replica, cfg, src_size=src_size,
                                           crop_size=crop_size,
-                                          model_size=model_size))
+                                          model_size=model_size, quad=quad))
     return DetectStep(bundle=fns[mesh.devices[0]][0], mesh=mesh,
                       shard_fns=tuple(fns[d][1] for d in mesh.devices),
                       batch=eff_batch, input_size=src_size or model_size,
                       model_size=model_size,
-                      input_shardings=mesh.rows(eff_batch) if given else None)
+                      input_shardings=mesh.rows(eff_batch) if given else None,
+                      input_layout="s2d2" if quad else "hwc")
 
 
 def detection_sets_agree(out_a, out_b, *, min_match_frac: float = 0.9,
@@ -462,7 +525,10 @@ class SelfQuantizingStep:
 
     A collected batch is copied to the host once, from whatever arrived
     (numpy, a device tensor or a data-parallel step's per-shard tensors),
-    before the step runs; other batches cost no copy. The reference batch
+    before the step runs, and a quad-stem step's s2d² batch is relaid to
+    [B,S,S,3] there (``host_s2d2_inverse``) for the calibration forward;
+    other batches cost no copy. The int8 rebuild must take the float
+    step's layout (a RuntimeError otherwise). The reference batch
     is kept as a device copy of the tensors the float step ran on (the
     caller may reuse its buffers, as ``run_pipeline``'s upload ring does)
     and replayed through the int8 step from there. Under a mesh the
@@ -567,6 +633,10 @@ class SelfQuantizingStep:
                 # `target` batches were empty scenery
                 collect, host = True, self._host_copy(images)
         if collect:
+            if self._base.input_layout == "s2d2" and host.shape[-1] != 3:
+                from aerial_image_recognition_tpu_torch.ops.quadstem import (
+                    host_s2d2_inverse)
+                host = host_s2d2_inverse(host)
             self._collected.append(host)
         if len(self._collected) >= self._target and self._ref is not None:
             self._quantize()
@@ -604,6 +674,11 @@ class SelfQuantizingStep:
         # outside the try: a kernel that does not build or launch, or an
         # integer product the card refuses, is a fault and propagates
         qstep = _compile_detect_step(qb, self._cfg, **self._kwargs)
+        if qstep.input_layout != self._base.input_layout:
+            raise RuntimeError(
+                f"int8 step layout {qstep.input_layout!r} != float "
+                f"{self._base.input_layout!r}: ingest batches would be "
+                "misshaped")
         qout = qstep(images, bounds)
         ok, stats = detection_sets_agree(base_out, qout)
         self.parity = stats

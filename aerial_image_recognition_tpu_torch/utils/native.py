@@ -2,7 +2,8 @@
 
 A copy of ``aerial_image_recognition_tpu/utils/native.py`` over the port's
 own copies of the sources (``native/fastgeo.cpp``, ``native/fastdecode.cpp``
-beside this package). Each library is compiled on first use into the
+beside this package, and ``native/fastpack.cpp``, the reference's quad-layout
+packer of ``fastdecode.cpp`` in a source that builds without libjpeg). Each library is compiled on first use into the
 repository's ``build/native/lib<name>-<hash>.so``, never next to the source;
 the hash covers the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded. The flags are portable (no
@@ -11,8 +12,8 @@ and a stale library is never loaded. The flags are portable (no
 test rounds as numpy's does.
 
 Everything degrades as the reference's does: without a compiler (or
-libjpeg) the loaders return None and the callers take their numpy / PIL
-paths, which give the same results (tests hold the two paths equal).
+libjpeg, for the decoder) the loaders return None and the callers take
+their numpy / PIL paths, which give the same results (tests hold the two paths equal).
 ``native_paths()`` says which libraries loaded.
 """
 
@@ -29,7 +30,7 @@ import numpy as np
 _SRC_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
-_LINK = {"fastgeo": (), "fastdecode": ("-ljpeg",)}
+_LINK = {"fastgeo": (), "fastdecode": ("-ljpeg",), "fastpack": ()}
 
 _lock = threading.Lock()
 _libs: Dict[str, Optional[ctypes.CDLL]] = {}
@@ -91,6 +92,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
         lib.points_in_ring.restype = None
+    elif name == "fastpack":
+        lib.pack_quad_u8.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_void_p]
+        lib.pack_quad_u8.restype = ctypes.c_int
     else:
         lib.jpeg_decode_rgb.argtypes = [
             ctypes.c_char_p, ctypes.c_int64,
@@ -111,12 +116,19 @@ def load_decode() -> Optional[ctypes.CDLL]:
     return _load("fastdecode")
 
 
+def load_pack() -> Optional[ctypes.CDLL]:
+    """The fastpack CDLL (the quad-layout packer), or None if unavailable
+    (no compiler — callers take the numpy strided copies)."""
+    return _load("fastpack")
+
+
 def native_paths() -> Dict[str, bool]:
     """Which native libraries this process built or loaded
-    ({"fastgeo": bool, "fastdecode": bool}); a name not yet asked for is
-    loaded now."""
+    ({"fastgeo": bool, "fastdecode": bool, "fastpack": bool}); a name not
+    yet asked for is loaded now."""
     return {"fastgeo": load() is not None,
-            "fastdecode": load_decode() is not None}
+            "fastdecode": load_decode() is not None,
+            "fastpack": load_pack() is not None}
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -185,3 +197,22 @@ def decode_jpeg_native(data: bytes,
     if rc != 0:
         return None
     return out
+
+
+def pack_quad_native(px: np.ndarray, out: np.ndarray) -> bool:
+    """Quad-layout pack [H,W,3] u8 → [H/4,W/4,48] u8 by the native
+    12-byte-run copier (the interpreter lock is released for the call, so
+    it runs in parallel across ingest threads). False if the library is
+    unavailable or the arrays do not qualify: the caller falls back to the
+    numpy strided copy."""
+    lib = load_pack()
+    if (lib is None or px.dtype != np.uint8 or out.dtype != np.uint8
+            or px.ndim != 3 or px.shape[2] != 3 or (px.shape[0] % 4)
+            or (px.shape[1] % 4)
+            or out.shape != (px.shape[0] // 4, px.shape[1] // 4, 48)
+            or not px.flags.c_contiguous or not out.flags.c_contiguous):
+        return False
+    rc = lib.pack_quad_u8(px.ctypes.data_as(ctypes.c_void_p),
+                          px.shape[0], px.shape[1],
+                          out.ctypes.data_as(ctypes.c_void_p))
+    return rc == 0

@@ -169,8 +169,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      the data-parallel detect step at phase 4's width over ``make_mesh()``
      and over two shards of one card, against the single-device step; NMS
      launches = shards × steps, ms and host syncs a step; turnkey int8
-     under each mesh reaching ``int8``, 53 epilogue launches a shard a
-     step; (b) the upload ring over the two-shard step, a ``CarDetector``
+     under each mesh reaching ``int8``, 55 epilogue launches a shard a
+     step (53 trunk convs and the quad stem's two); (b) the upload ring over the two-shard step, a ``CarDetector``
      scan with ``data_parallel: true`` of 10b's world bit-equal to a
      single-device scan, and the two-shard step's raw records of 11b's AOI;
      (c) ``detect --data-parallel`` and ``serve --data-parallel`` as
@@ -183,8 +183,26 @@ Phases (any failure exits nonzero, and no result line is printed):
      train step (768 px, batch 8, batch BN) over two shards of one card
      against one device; (g) spatial inference, the trunk's rows over each
      mesh, against the unsharded detect function.
+ 15. the quad stem, run after phase 8 (the default step of phases 4, 5, 8,
+     10 and 14 is the quad stem already): (a) the default step against the
+     same config with ``quad_stem: false`` at phase 4's shape, in turns
+     (quad, plain, plain, quad), host input and the batch on the card (the
+     quad step also on its packed batch), the device ms of the stem chain
+     alone and the rest, detections at phase 4's gates (agreement, recall
+     >= 0.8 each), the quad stem's P2 on the card against the CPU's (f32
+     with TF32 off within 1e-5 of the largest magnitude, bf16 within one
+     bf16 step of it); (b) the epilogue's border mode against its plain
+     version at stem0's full shape (s32 [64·160·160, 128] from the trained
+     fixture's fully-int8 stem0; leaky tolerance 0, silu within 1 LSB on
+     <= 1e-4) and the CPU's, timed against its 0.313 ms bytes bound; the
+     turnkey int8 of phase 8c goes through the fully-int8 stems: 55
+     epilogue launches a step, one in border mode; (c) the host relayout
+     of one 64-tile batch, native packer and numpy copies; (d) no kernel
+     leaves the current device changed: with two cards each kernel
+     launches on cuda:1 while cuda:0 is current; with one the script says
+     the check was not possible.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after it, or read
+15a, 9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after it, or read
 from the child that ran the path (11b–h, 12e, 13d, 14c); every kernel of a
 path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
@@ -211,7 +229,11 @@ among the cases) and phase 13 (record in
 ``python3 chip_smoke.py --parallel-only`` runs phases 1–2, the NMS and
 int8 epilogue kernels against their plain versions and phase 14 (record in
 ``chiprun_out/chip_smoke_parallel.json``, scans and child logs under
-``chiprun_out/multi_gpu/``).
+``chiprun_out/multi_gpu/``);
+``python3 chip_smoke.py --quad-only`` runs phases 1–2, the NMS and int8
+epilogue kernels against their plain versions and phase 15, with a turnkey
+int8 step on packed s2d2 batches for 15b (record in
+``chiprun_out/chip_smoke_quad.json``).
 """
 
 import contextlib
@@ -1255,8 +1277,10 @@ def ingest_ring(torch, record, card, step, images, bounds, step_ms,
     for k in range(n_batches):
         order = np.roll(np.arange(B), k)
         imgs = images[order][:, :, ::-1] if k % 2 else images[order]
+        # in the step's layout, as the ingest plane assembles them (the
+        # quad stem's s2d2 for the default step)
         batches.append(TileBatch(np.arange(k * B, (k + 1) * B),
-                                 np.ascontiguousarray(imgs),
+                                 step.pack_images(np.ascontiguousarray(imgs)),
                                  bounds[order].copy(), B))
     devs = [(torch.from_numpy(b.images).cuda(),
              torch.from_numpy(b.bounds).cuda()) for b in batches]
@@ -1573,7 +1597,8 @@ def dump():
     with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
         json.dump({{"nms_suppress": nms_suppress.launches,
                    "clahe_apply": apply_luts.launches,
-                   "int8_epilogue": requantize.launches}}, f)
+                   "int8_epilogue": requantize.launches,
+                   "int8_epilogue_border": requantize.border_launches}}, f)
 
 
 atexit.register(dump)
@@ -1890,8 +1915,14 @@ def front_ends(torch, record, card, launches, open_window, close_window):
         m_q = matched_within(got[:, :2], q_recs[:, :2], 2.0)
         m_b = matched_within(q_recs[:, :2], got[:, :2], 2.0)
         q_batches = q_meta["ingest_stats"]["batches"]
-        if min(m_q, m_b) < 0.9 \
-                or counts_q["int8_epilogue"] != TRUNK_CONVS * q_batches:
+        # the scan's tiles take the quad stem where they arrive at the
+        # model's size: then one border-mode launch a batch, and the
+        # fully-int8 stems' two epilogues beside the trunk's
+        quad_batches = counts_q.get("int8_epilogue_border", 0)
+        if min(m_q, m_b) < 0.9 or quad_batches not in (0, q_batches) \
+                or counts_q["int8_epilogue"] != (
+                    TRUNK_CONVS + (STEM_CONVS if quad_batches else 0)) \
+                * q_batches:
             fail(f"int8 detect: {m_q:.3f} of (b)'s records within 2 m, "
                  f"{m_b:.3f} the other way; launches {counts_q} in "
                  f"{q_batches} batches")
@@ -4095,7 +4126,7 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
         q_out, q_ms = timed_steps(torch, q, images, bounds, DP_TIMED)
         close_window(qpath, ["nms_suppress", "int8_epilogue"])
         per_step = (requantize.launches - before) / (DP_TIMED + 1)
-        if per_step != TRUNK_CONVS * shards \
+        if per_step != int8_epilogues_a_forward(q) * shards \
                 or q.input_shardings != step.input_shardings:
             fail(f"14a int8 {label}: {per_step} epilogue launches a step "
                  f"over {shards} shards, shardings {q.input_shardings}")
@@ -4119,8 +4150,8 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             "nms_launches": launches[qpath]["nms_suppress"],
             "agree_bf16_single": agree_q, "deltas_int8_cards": q_deltas}
         print(f"14a int8 {label}: states {states}, {q_ms:.2f} ms a step, "
-              f"{per_step:.0f} epilogue launches a step ({TRUNK_CONVS} × "
-              f"{shards}), against the bf16 step {agree_q}, against the "
+              f"{per_step:.0f} epilogue launches a step "
+              f"({int8_epilogues_a_forward(q)} × {shards}), against the bf16 step {agree_q}, against the "
               f"int8 step over make_mesh() {q_deltas} [{card}]", flush=True)
         del q
 
@@ -4556,6 +4587,438 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     rec["14g"] = g_rec
 
 
+# ------------------------------------------------------- 15. quad stem
+
+STEM_CONVS = 2                 # the fully-int8 quad stem's convs (stem0 in
+                               # the epilogue's border mode)
+QUAD_TIMED = 20                # timed steps of each step in 15a
+STEM0_BOUND_MS = (838.9e6 + 209.7e6) / HBM_BYTES_S * 1e3   # 0.313 ms
+
+
+def int8_epilogues_a_forward(step) -> int:
+    """Epilogue launches of one int8 forward of ``step``: the trunk's, and
+    the fully-int8 stems' where the step takes the quad stem."""
+    return TRUNK_CONVS + (STEM_CONVS if step.input_layout == "s2d2" else 0)
+
+
+class BorderLaunches:
+    """The epilogue wrapper's border-mode count (``requantize.
+    border_launches``), zeroed and read by ``launch_window`` like a
+    wrapper's ``launches``."""
+
+    @property
+    def launches(self):
+        from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+            requantize)
+        return requantize.border_launches
+
+    @launches.setter
+    def launches(self, n):
+        from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+            requantize)
+        requantize.border_launches = n
+
+
+def stem_int8_inputs(torch, images):
+    """The fully-int8 stem0 of the trained fixture at phase 4's shape:
+    (its s32 sums on the card [B,160,160,128], the device constants). The
+    calibration is the fixture's on 8 of the tiles."""
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        _device_stems, _quantize_stems, calibrate_absmax, conv_s32)
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.ops.quadstem import host_s2d2
+    bundle = create_model(params_path=FIXTURE, dtype=torch.float32,
+                          device="cuda")
+    absmax = calibrate_absmax(bundle, [images[:8]])
+    sq = _device_stems(_quantize_stems(bundle.variables, absmax),
+                       bundle.device)
+    del bundle
+    xq = torch.from_numpy(host_s2d2(images)).cuda()
+    r0 = conv_s32(torch.bitwise_xor(xq, 128).view(torch.int8), sq["w0"], 2)
+    torch.cuda.synchronize()
+    return r0, sq
+
+
+def check_border_epilogue(torch, record, card, images):
+    """15b: the epilogue's border mode against its plain version on the
+    card at stem0's full shape (s32 [64·160·160, 128] → int8; leaky
+    tolerance 0, silu within 1 LSB on <= 1e-4 as phase 8a holds it), and
+    the CPU's codes; timed against the bytes bound (838.9 MB read, 209.7 MB
+    written, 0.313 ms at 3.35 TB/s). Returns the kernel line's entry."""
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        _requantize_plain, requantize)
+    r0, sq = stem_int8_inputs(torch, images)
+    m, b, corr = sq["m0"], sq["b0"], sq["corr"]
+    rows = {}
+    max_err = 0
+    before = requantize.launches, requantize.border_launches
+    for act, inv in (("leaky", None), ("silu", 1.0)):
+        got = requantize(r0, m, b, inv, act, corr=corr)
+        plain = _requantize_plain(r0, m, b, inv, act, corr)
+        lo = slice(0, 2)                  # the CPU on two tiles
+        on_cpu = _requantize_plain(r0[lo].cpu(), m.cpu(), b.cpu(), inv, act,
+                                   corr.cpu())
+        torch.cuda.synchronize()
+        share_p, max_p = codes_diff(torch, got, plain)
+        share_c, max_c = codes_diff(torch, got[lo].cpu(), on_cpu)
+        limit = 1e-4 if act == "silu" else 0.0
+        if max(max_p, max_c) > 1 or max(share_p, share_c) > limit:
+            fail(f"border epilogue {act}: kernel against plain differs in "
+                 f"{share_p:.2e} of the codes (max {max_p}), against the "
+                 f"CPU in {share_c:.2e} (max {max_c})")
+        if float(got.float().std()) < 5.0:
+            fail(f"border epilogue {act}: degenerate codes")
+        # without the border term row 0 and column 0 change: the mode is
+        # not a no-op
+        no_border = requantize(r0, m, b, inv, act)
+        if torch.equal(no_border[:, 0], got[:, 0]) \
+                or torch.equal(no_border[:, :, 0], got[:, :, 0]):
+            fail(f"border epilogue {act}: the border term changes nothing")
+        max_err = max(max_err, max_p)
+        rows[act] = {"differ_plain": share_p, "differ_cpu": share_c,
+                     "max_abs": max(max_p, max_c)}
+    if (requantize.launches - before[0],
+            requantize.border_launches - before[1]) != (4, 2):
+        fail("border epilogue: the wrapper's counts did not move as launched")
+    ms = cuda_ms(lambda: requantize(r0, m, b, None, "leaky", corr=corr), 50)
+    plain_ms = cuda_ms(lambda: _requantize_plain(r0, m, b, None, "leaky",
+                                                 corr), 5, warmup=1)
+    n = r0.numel()
+    t_bytes = (n * 5 + 6 * r0.shape[-1] * 4) / HBM_BYTES_S * 1e3
+    t_ops = n * 13 / F32_FLOPS * 1e3     # 5 for the border term, 8 else
+    entry = {
+        "name": "int8_epilogue_border", "route": "cuda",
+        "source": "aerial_image_recognition_tpu_torch/csrc/int8_epilogue.cu",
+        "replaces": "aerial_image_recognition_tpu/models/int8.py:657 "
+                    "(_stems_int8's jnp chain fused by XLA; no TPU kernel)",
+        "launches": 0, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "shape": [n // r0.shape[-1], r0.shape[-1]],
+        "codes": rows}
+    record["border_epilogue"] = entry
+    print(f"int8_epilogue border mode: equal to plain on the card at "
+          f"{entry['shape']} (leaky; silu differs on "
+          f"{rows['silu']['differ_plain']:.1e}), and to the CPU on two "
+          f"tiles; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}) [{card}]",
+          flush=True)
+    del r0
+    return entry
+
+
+def stem_chain_ms(torch, step, dev_images):
+    """(ms by CUDA events, torch.profiler's device time by kernel) of the
+    step's stem chain alone, from the uint8 batch on the card to the P2
+    feature: the quad stem on the packed batch, or the preprocess (cast,
+    /255) and the two plain stems."""
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        preprocess_batch)
+    bundle = step.bundle
+    if step.input_layout == "s2d2":
+        xq = step.pack_images(dev_images)
+        stem = bundle.quad_stem()
+
+        def chain():
+            return stem(xq)
+    else:
+        module = bundle.module
+        dtype = next(p.dtype for p in module.stem0.parameters())
+
+        def chain():
+            x = preprocess_batch(dev_images, out_size=SIZE, dtype=dtype)
+            return module.stem1(module.stem0(x))
+    with torch.inference_mode():
+        return cuda_ms(chain, 20), profile_calls(torch, chain, 3)
+
+
+def check_current_device(torch, record, card):
+    """15d: no kernel entry point leaves the calling thread's current
+    device changed. With two cards or more each kernel launches on cuda:1
+    while cuda:0 is current; with one the check cannot be made, and the
+    script says so."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        record["current_device_check"] = (
+            f"not possible on this machine: {n} card")
+        print(f"current-device check: NOT POSSIBLE on this machine ({n} "
+              f"card); it needs two [{card}]", flush=True)
+        return
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.clahe import (
+        _luts_from_hist, _tile_histograms)
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    rng = np.random.default_rng(15)
+    boxes_t, scores, classes = (torch.from_numpy(a).to(d1)
+                                for a in nms_inputs(rng, "random", 2, 64))
+    l8 = torch.from_numpy(lightness_levels(rng, 2, 64, 64)).to(d1)
+    hist, (th, tw), n_px = _tile_histograms(l8, GRID)
+    luts = _luts_from_hist(hist, CLIPS[0], n_px)[:, :, :, None]
+    r = torch.randint(-1000, 1000, (2, 4, 4, 8), dtype=torch.int32,
+                      device=d1)
+    ones, zeros = (torch.ones(8, device=d1), torch.zeros(8, device=d1))
+    launched = []
+    nms_suppress(boxes_t, scores, classes, iou_threshold=0.45, max_det=16,
+                 class_aware=False)
+    launched.append(("nms_suppress", torch.cuda.current_device()))
+    requantize(r, ones, zeros, None, "leaky")
+    launched.append(("int8_epilogue", torch.cuda.current_device()))
+    requantize(r, ones, zeros, None, "leaky",
+               corr=torch.zeros(4, 8, device=d1))
+    launched.append(("int8_epilogue_border", torch.cuda.current_device()))
+    apply_luts(luts, l8, GRID[0], GRID[1], th, tw)
+    launched.append(("clahe_apply", torch.cuda.current_device()))
+    torch.cuda.synchronize(d1)
+    moved = [k for k, dev in launched if dev != 0]
+    if moved:
+        fail(f"current-device check: {moved} left the current device "
+             f"changed ({launched})")
+    record["current_device_check"] = {k: dev for k, dev in launched}
+    print(f"current-device check: every kernel launched on cuda:1 left "
+          f"cuda:0 current ({launched}) [{card}]", flush=True)
+
+
+def quad_stem_phase(torch, record, card, images, bounds, cars,
+                    open_window, close_window, launches):
+    """15a and 15c (15b and 15d run beside it, see ``check_border_
+    epilogue`` and ``check_current_device``): the default step (the quad
+    stem) against the same config with ``quad_stem: false`` at phase 4's
+    shape, each timed with host input and with the batch on the card (the
+    quad step also with its packed batch on the card, the ingest ring's
+    form), the device ms split into the stem chain and the rest; the
+    detections at phase 4's gates; the quad-stem P2 on the card against the
+    CPU's; the host relayout of one batch, native and numpy."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops import quadstem as Q
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step, detection_sets_agree)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    from aerial_image_recognition_tpu_torch.utils import native
+    rec = record.setdefault("quad_stem", {})
+    base = dict(params_path=FIXTURE, device_batch=B, dtype="bfloat16")
+    quad = build_detect_step(DetectorConfig.from_dict(base))
+    plain = build_detect_step(DetectorConfig.from_dict(
+        dict(base, quad_stem=False)))
+    if (quad.input_layout, plain.input_layout) != ("s2d2", "hwc"):
+        fail(f"15a: layouts {quad.input_layout}, {plain.input_layout}")
+    dev_images = torch.from_numpy(images).cuda()
+    dev_bounds = torch.from_numpy(bounds).cuda()
+    dev_packed = torch.from_numpy(Q.host_s2d2(images)).cuda()
+    open_window()
+    times = {}
+    outs = {}
+    # in turns: quad, plain, plain, quad
+    for label, step in (("quad", quad), ("plain", plain), ("plain", plain),
+                        ("quad", quad)):
+        out, host_ms = timed_steps(torch, step, images, bounds, QUAD_TIMED)
+        _, dev_ms = timed_steps(torch, step, dev_images, dev_bounds,
+                                QUAD_TIMED)
+        t = times.setdefault(label, {"host_input": [], "device_input": []})
+        t["host_input"].append(host_ms)
+        t["device_input"].append(dev_ms)
+        if label == "quad":
+            _, packed_ms = timed_steps(torch, step, dev_packed, dev_bounds,
+                                       QUAD_TIMED)
+            t.setdefault("packed_device_input", []).append(packed_ms)
+        outs[label] = out
+    close_window("quad_stem", ["nms_suppress"])
+    # four turns of two timings, the quad turns a third
+    n_steps = 10 * (QUAD_TIMED + 1)
+    if launches["quad_stem"]["nms_suppress"] != n_steps:
+        fail(f"15a: {launches['quad_stem']['nms_suppress']} NMS launches in "
+             f"{n_steps} steps")
+    for label in outs:
+        check_output(torch, f"15a {label} step", outs[label])
+    ok, agree = detection_sets_agree(outs["quad"], outs["plain"])
+    deltas = detection_deltas(outs["quad"], outs["plain"])
+    rec_q, rec_p = (recall(outs[k], bounds, cars) for k in ("quad", "plain"))
+    if not ok or min(rec_q, rec_p) < 0.8:
+        fail(f"15a: quad against plain {agree}, recall {rec_q:.3f} / "
+             f"{rec_p:.3f}")
+    # where the device time goes: the stem chain alone, and the rest
+    stems, stem_profiles = {}, {}
+    for label, step in (("quad", quad), ("plain", plain)):
+        stems[label], stem_profiles[label] = stem_chain_ms(torch, step,
+                                                           dev_images)
+    relay_ms = cuda_ms(lambda: quad.pack_images(dev_images), 20)
+    split = {}
+    for label in ("quad", "plain"):
+        dev_ms = min(times[label]["device_input"])
+        if label == "quad":
+            dev_ms = min(times[label]["packed_device_input"])
+        split[label] = {"step_ms": dev_ms, "stem_chain_ms": stems[label],
+                        "rest_ms": dev_ms - stems[label]}
+    # the quad stem's P2, card against CPU: f32 (TF32 off) and bf16
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    p2 = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            on_card = create_model(params_path=FIXTURE, dtype=dtype,
+                                   device="cuda", fold_bn=True).quad_stem()
+            on_cpu = on_card.to("cpu")
+            xq = Q.host_s2d2(images[:4])
+            got = on_card(torch.from_numpy(xq).cuda()).float().cpu()
+            want = on_cpu(torch.from_numpy(xq)).float()
+            err = float((got - want).abs().max())
+            top = float(want.abs().max())
+            p2[str(dtype)] = {"max_abs_err": err, "max_abs": top}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    f32 = p2[str(torch.float32)]
+    bf16 = p2[str(torch.bfloat16)]
+    # f32: the same products summed in another order; bf16: the card
+    # rounds its f32 sums to bf16 once, the CPU too, so one bf16 step of
+    # the largest value (2^-7 relative) bounds a flip
+    if f32["max_abs_err"] > 1e-5 * f32["max_abs"] \
+            or bf16["max_abs_err"] > bf16["max_abs"] * 2.0 ** -7:
+        fail(f"15a: the quad stem's P2 on the card against the CPU's {p2}")
+    # 15c: the host relayout of one 64-tile batch
+    out = np.empty((B, SIZE // 4, SIZE // 4, 48), np.uint8)
+    have_native = native.native_paths()["fastpack"]
+
+    def pack_rows():
+        for k in range(B):
+            Q.host_s2d2_into(images[k], out[k])
+
+    def host_ms(fn, n=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+    relayout = {"native_loaded": have_native,
+                "rows_ms": host_ms(pack_rows),
+                "batched_numpy_ms": host_ms(lambda: Q.host_s2d2(images))}
+    real_native = native.pack_quad_native
+    native.pack_quad_native = lambda px, o: False
+    try:
+        relayout["rows_numpy_ms"] = host_ms(pack_rows)
+    finally:
+        native.pack_quad_native = real_native
+    if not np.array_equal(out, Q.host_s2d2(images)):
+        fail("15c: the relayout rows differ from host_s2d2")
+    rec.update(times_ms=times, split_device_ms=split,
+               stem_chain_profiles=stem_profiles,
+               device_relayout_ms=relay_ms, agree_plain=agree,
+               deltas_plain=deltas, recall_quad=rec_q, recall_plain=rec_p,
+               p2_card_vs_cpu=p2, host_relayout=relayout)
+    print(f"15a quad stem against plain stems, batch {B} at {SIZE} px bf16 "
+          f"(turns quad, plain, plain, quad): host input "
+          f"{times['quad']['host_input']} / {times['plain']['host_input']} "
+          f"ms; device input {times['quad']['device_input']} / "
+          f"{times['plain']['device_input']} ms; the quad step on its "
+          f"packed batch {times['quad']['packed_device_input']} ms; the "
+          f"device relayout of a [B,S,S,3] batch {relay_ms:.3f} ms; stem "
+          f"chain quad {stems['quad']:.3f} ms, plain {stems['plain']:.3f} "
+          f"ms; agreement {agree}, {deltas}, recall {rec_q:.3f} / "
+          f"{rec_p:.3f}; P2 card against CPU {p2} [{card}]", flush=True)
+    for label, prof in stem_profiles.items():
+        if "top" in prof:
+            print(f"15a {label} stem chain by kernel: device busy "
+                  f"{prof['device_busy_ms_per_step']:.3f} ms: " + "; ".join(
+                      f"{r['ms_per_step']:.3f} ms {r['name'][:50]}"
+                      for r in prof["top"][:6]) + f" [{card}]", flush=True)
+    print(f"15c host relayout of {B} tiles: rows {relayout['rows_ms']:.2f} "
+          f"ms ({'native packer' if have_native else 'numpy copies'}), rows "
+          f"by the numpy copies {relayout['rows_numpy_ms']:.2f} ms, batched "
+          f"numpy {relayout['batched_numpy_ms']:.2f} ms [{card}]", flush=True)
+    del quad, plain
+
+
+def turnkey_quad_int8(torch, record, card, images, bounds, open_window,
+                      close_window):
+    """15b for ``--quad-only``: turnkey int8 on s2d² batches (packed on the
+    host, as the ingest plane hands them) reaches ``int8`` with the
+    fully-int8 stems; epilogue launches a step."""
+    from aerial_image_recognition_tpu_torch.ops import quadstem as Q
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step, detection_sets_agree)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    packed = Q.host_s2d2(images)
+    float_step = build_detect_step(DetectorConfig.from_dict(dict(
+        params_path=FIXTURE, device_batch=B, dtype="bfloat16")))
+    ref = float_step(packed, bounds)
+    open_window()
+    q = build_detect_step(DetectorConfig.from_dict(dict(
+        params_path=FIXTURE, device_batch=B, dtype="bfloat16",
+        quantize="int8")))
+    states = []
+    for _ in range(2):
+        states.append(q.quantize_state)
+        q(packed, bounds)
+    states.append(q.quantize_state)
+    if states != ["calibrating", "calibrating", "int8"] \
+            or q.input_layout != "s2d2" or "stems" not in q.bundle.q:
+        fail(f"15b turnkey int8: states {states}, layout {q.input_layout}, "
+             f"{q.fallback_reason}")
+    before = requantize.launches, requantize.border_launches
+    out, ms = timed_steps(torch, q, packed, bounds, 10)
+    per_step = ((requantize.launches - before[0]) / 11,
+                (requantize.border_launches - before[1]) / 11)
+    close_window("quad_int8", ["nms_suppress", "int8_epilogue",
+                               "int8_epilogue_border"])
+    if per_step != (TRUNK_CONVS + STEM_CONVS, 1):
+        fail(f"15b turnkey int8: {per_step} (epilogue, border) launches a "
+             f"step")
+    ok, agree = detection_sets_agree(ref, out)
+    if not ok:
+        fail(f"15b turnkey int8 against the bf16 step: {agree}")
+    record.setdefault("quad_stem", {})["turnkey_int8"] = {
+        "states": states, "parity": q.parity, "step_ms_host_packed": ms,
+        "epilogue_launches_a_step": per_step[0],
+        "border_launches_a_step": per_step[1], "agree_bf16": agree}
+    print(f"15b turnkey int8 on s2d2 batches: states {states}, {ms:.2f} ms "
+          f"a step, {per_step[0]:.0f} epilogue launches a step "
+          f"({per_step[1]:.0f} in border mode), against the bf16 step "
+          f"{agree} [{card}]", flush=True)
+
+
+def quad_only(torch, record, card) -> None:
+    """``--quad-only``: the NMS and int8 epilogue kernels against their
+    plain versions, then phase 15 (a–d). The kernel line holds the NMS
+    kernel, the epilogue and its border mode."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    nms = check_nms_kernel(torch, record)
+    epilogue = check_int8_product(torch, record, card)
+    images, bounds, cars = render_tiles(np.random.default_rng(1), B, SIZE)
+    border = check_border_epilogue(torch, record, card, images)
+    launches = {}
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "int8_epilogue": requantize,
+         "int8_epilogue_border": BorderLaunches()}, launches)
+    quad_stem_phase(torch, record, card, images, bounds, cars, open_window,
+                    close_window, launches)
+    turnkey_quad_int8(torch, record, card, images, bounds, open_window,
+                      close_window)
+    check_current_device(torch, record, card)
+    record["launches_by_path"] = launches
+    for entry in (nms, epilogue, border):
+        entry["launches"] = sum(p.get(entry["name"], 0)
+                                for p in launches.values())
+        entry["launches_by_path"] = {path: p.get(entry["name"], 0)
+                                     for path, p in launches.items()}
+    record["kernels"] = [nms, epilogue, border]
+
+
 def parallel_only(torch, record, card) -> None:
     """``--parallel-only``: the NMS and int8 epilogue kernels against
     their plain versions, then phase 14. The kernel line holds both."""
@@ -4736,14 +5199,16 @@ def main() -> None:
              "--front-ends-only": "chip_smoke_front_ends.json",
              "--segment-only": "chip_smoke_segment.json",
              "--train-only": "chip_smoke_train.json",
-             "--parallel-only": "chip_smoke_parallel.json"}
+             "--parallel-only": "chip_smoke_parallel.json",
+             "--quad-only": "chip_smoke_quad.json"}
     mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in modes:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
              "--scan-only for the city scan's phases alone, with "
              "--front-ends-only for the CLI's, with --segment-only for "
-             "segmentation's, with --train-only for training's or with "
-             "--parallel-only for multi-GPU's")
+             "segmentation's, with --train-only for training's, with "
+             "--parallel-only for multi-GPU's or with --quad-only for the "
+             "quad stem's")
     try:
         import torch
     except ImportError as e:
@@ -4810,6 +5275,10 @@ def main() -> None:
         parallel_only(torch, record, card)
         finish(torch, record, name, modes[mode])
         return
+    if mode == "--quad-only":
+        quad_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
+        return
 
     # 3. kernel vs plain
     kernel = check_nms_kernel(torch, record)
@@ -4866,7 +5335,11 @@ def main() -> None:
     launches = {}
     open_window, close_window = launch_window(
         {"nms_suppress": nms_suppress, "clahe_apply": apply_luts,
-         "int8_epilogue": requantize}, launches)
+         "int8_epilogue": requantize,
+         "int8_epilogue_border": BorderLaunches()}, launches)
+    if step.input_layout != "s2d2":
+        fail(f"the default step's layout is {step.input_layout!r}, not the "
+             "quad stem's s2d2")
 
     open_window()                                # default path starts here
     n_iter = 20
@@ -4907,6 +5380,7 @@ def main() -> None:
                  f"{len(cars[k])} cars")
 
     step_rec = {"batch": B, "size": SIZE, "dtype": "bfloat16",
+                "layout": step.input_layout,
                 "step_ms_host_input": step_ms,
                 "tiles_per_s_host_input": B / step_ms * 1e3,
                 "step_ms_device_input": device_ms,
@@ -5013,11 +5487,15 @@ def main() -> None:
             or not qstep.parity or qstep.parity["matched"] < 1:
         fail(f"turnkey int8: bundle {type(qstep.bundle).__name__}, parity "
              f"{qstep.parity}")
-    swap_launches = (nms_suppress.launches, requantize.launches)
-    # 2 calibration steps + 1 parity replay; one int8 forward so far
-    if swap_launches != (3, TRUNK_CONVS):
+    swap_launches = (nms_suppress.launches, requantize.launches,
+                     requantize.border_launches)
+    # 2 calibration steps + 1 parity replay; one int8 forward so far, its
+    # stems fully int8 (the quad stem's uint8 entry)
+    per_forward = int8_epilogues_a_forward(qstep)
+    if swap_launches != (3, per_forward, 1):
         fail(f"turnkey int8: {swap_launches} launches of (nms_suppress, "
-             f"int8_epilogue) up to the swap, expected (3, {TRUNK_CONVS})")
+             f"int8_epilogue, its border mode) up to the swap, expected "
+             f"(3, {per_forward}, 1)")
     n_int8 = 10
     q_out, q_ms = timed_steps(torch, qstep, images, bounds, n_int8)
     _, q_dev_ms = timed_steps(torch, qstep, dev_images, dev_bounds, n_int8)
@@ -5027,10 +5505,13 @@ def main() -> None:
                                    n_int8)
     _, q_dev_ms2 = timed_steps(torch, qstep, dev_images, dev_bounds, n_int8)
     steps_run = 3 + 3 * (n_int8 + 1)
-    if (nms_suppress.launches, requantize.launches) != (
-            steps_run + n_int8 + 1, TRUNK_CONVS * (steps_run - 2)):
+    if (nms_suppress.launches, requantize.launches,
+            requantize.border_launches) != (
+            steps_run + n_int8 + 1, per_forward * (steps_run - 2),
+            steps_run - 2):
         fail(f"int8 path: {nms_suppress.launches} launches of nms_suppress "
-             f"and {requantize.launches} of int8_epilogue after "
+             f"and {requantize.launches} of int8_epilogue "
+             f"({requantize.border_launches} in border mode) after "
              f"{steps_run} steps")
     check_output(torch, "int8 step", q_out)
     ok_q, agree_q = detection_sets_agree(out, q_out)
@@ -5054,7 +5535,9 @@ def main() -> None:
              "turnkey step")
     del file_step
     record["int8"] = {
-        "batch": B, "size": SIZE, "stems": "bfloat16", "states": states,
+        "batch": B, "size": SIZE, "layout": qstep.input_layout,
+        "stems": "int8 (quad stem, border mode)", "states": states,
+        "epilogue_launches_a_forward": per_forward,
         "parity": qstep.parity, "timed_steps": n_int8,
         "step_ms_host_input": q_ms, "tiles_per_s_host_input": B / q_ms * 1e3,
         "step_ms_device_input": q_dev_ms,
@@ -5117,7 +5600,8 @@ def main() -> None:
             q_stats = json.load(r)
     finally:
         srv.stop()
-    close_window("int8", ["nms_suppress", "int8_epilogue"])
+    close_window("int8", ["nms_suppress", "int8_epilogue",
+                          "int8_epilogue_border"])
     for k, (status, body) in enumerate(q_replies):
         if status != 200 or body["count"] != len(body["detections"]):
             fail(f"int8 server request {k}: status {status}, {body}")
@@ -5134,6 +5618,13 @@ def main() -> None:
           f"through the swap, {q_stats['batches']} batches, /stats "
           f"quantize_state {q_stats['quantize_state']!r}, parity "
           f"{q_stats['quantize_parity']} [{card}]", flush=True)
+
+    # 15. the quad stem: quad against plain at phase 4's shape, the border
+    # mode at stem0's shape, the host relayout, the current-device check
+    border = check_border_epilogue(torch, record, card, images)
+    quad_stem_phase(torch, record, card, images, bounds, cars, open_window,
+                    close_window, launches)
+    check_current_device(torch, record, card)
 
     # 9. the other detector families
     kernel["ms_class_aware_v8_step"] = other_families(
@@ -5189,12 +5680,12 @@ def main() -> None:
     # 14. multi-GPU
     multi_gpu(torch, record, card, launches, open_window, close_window)
 
-    for entry in (kernel, clahe, epilogue):
+    for entry in (kernel, clahe, epilogue, border):
         entry["launches"] = sum(p.get(entry["name"], 0)
                                 for p in launches.values())
         entry["launches_by_path"] = {path: p.get(entry["name"], 0)
                                      for path, p in launches.items()}
-    record["kernels"] = [kernel, clahe, epilogue]
+    record["kernels"] = [kernel, clahe, epilogue, border]
     finish(torch, record, name, "chip_smoke.json")
 
 

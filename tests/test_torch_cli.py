@@ -20,11 +20,12 @@ and without CUDA a verb that builds a model exits non-zero before it
 fetches anything.
 
 Each ported verb runs on the CPU with ``--device cpu``. ``detect`` over
-each package's fake XYZ server (640-px windows at zoom 18, so the JAX step
-sends them through its quad stem; the trained fixture in the config's bf16
-in both): the same tiles, record counts within 10 %, and ≥ 0.9 of each
-package's records within 1 m and 0.05 in confidence of one of the other's
-(bf16 trunks; the quad stem against plain stems). ``import-weights`` and
+each package's fake XYZ server (640-px windows at zoom 18, so both steps
+send them through the quad stem; the trained fixture in the config's bf16
+in both): the same tiles, record counts within 2 %, and ≥ 0.98 of each
+package's records within 0.1 m and 0.01 in confidence of one of the
+other's (bf16 trunks summed in another order; while the port ran plain
+stems here the bar was 10 %, 0.9, 1 m and 0.05). ``import-weights`` and
 ``export`` equal the JAX verbs' arrays and bytes; ``calibrate`` gives the
 JAX verb's absmax within rtol 1e-5 (the tolerance
 ``tests/test_torch_int8.py`` holds ``calibrate_absmax`` to: this side
@@ -309,8 +310,9 @@ def test_detect_on_the_cpu_equals_jax_cli(tmp_path, capsys):
     assert outs["port"]["tiles"] == outs["jax"]["tiles"] >= 4
     got, want = (_detect_records(str(tmp_path / p)) for p in ("port", "jax"))
     assert len(want) >= 10
-    assert abs(len(got) - len(want)) <= 0.1 * len(want)
-    assert _matched_frac(got, want) >= 0.9 and _matched_frac(want, got) >= 0.9
+    assert abs(len(got) - len(want)) <= 0.02 * len(want)
+    assert _matched_frac(got, want, 0.1, 0.01) >= 0.98 \
+        and _matched_frac(want, got, 0.1, 0.01) >= 0.98
 
 
 def _serve_replies(argv, images, bboxes, env=None):

@@ -20,7 +20,9 @@ with numpy. Tolerances, each stated where it is used:
   one step away from the eager chain's, which later convs carry on; every
   score within 0.02, boxes of the detections within 0.25 px + 5e-3 of
   their size;
-* the parked quad-stem entry raises for every family.
+* the quad-stem entry: yolov8n has it, with the fully-int8 stems the JAX
+  bundle has (their codes are held in tests/test_torch_quadstem.py), and
+  yolov7-base's four-conv stem refuses it as the JAX package's does.
 """
 
 import dataclasses
@@ -182,9 +184,18 @@ def test_prepare_scales_and_ends(fams, family):
         assert names == {f"stem{i}.conv" for i in range(4)} | {
             "detect0", "detect1", "detect2"}
         assert pq.module.anchors == f["pb"].module.anchors
-    assert not pq.supports_s2d2()
-    with pytest.raises(NotImplementedError, match="quad"):
-        pq.forward_s2d2(torch.zeros(1, 24, 24, 48, dtype=torch.uint8))
+    has_quad = family == "yolov8n"
+    assert pq.supports_s2d2() == has_quad
+    assert ("stems" in pq.q) == ("stems" in jq.params["q"]) == has_quad
+    zeros = torch.zeros(1, 24, 24, 48, dtype=torch.uint8)
+    if has_quad:
+        boxes, scores = pq.forward_s2d2(zeros)
+        # 96-px tiles: 12² + 6² + 3² anchors, two classes
+        assert boxes.shape == (1, 189, 4) and scores.shape == (1, 189, 2)
+        assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
+    else:
+        with pytest.raises(NotImplementedError, match="quad"):
+            pq.forward_s2d2(zeros)
     # the bridge: the reference's q tree → the same bundle
     q = P.qparams_from_jax(jax.device_get(jq.params["q"]), jq.static_scales)
     rebuilt = P.Int8Bundle.from_q(f["pb"].spec, f["pb"].variables, q,

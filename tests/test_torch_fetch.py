@@ -91,7 +91,8 @@ def test_server_sends_the_same_bytes(servers, path):
 
 def test_native_decode_ran_here():
     """The fetchers below decode with libjpeg: g++ and libjpeg are here."""
-    assert native_paths() == {"fastgeo": True, "fastdecode": True}
+    assert native_paths() == {"fastgeo": True, "fastdecode": True,
+                              "fastpack": True}
 
 
 def test_xyz_fetchers_return_equal_arrays(servers):

@@ -87,9 +87,15 @@ def test_assemble_batches_equal_jax(n, batch, fail_every, ragged_at):
 
 
 def test_assemble_batches_layouts():
-    with pytest.raises(NotImplementedError, match="quad stem"):
-        list(PP.assemble_batches(_tiles(2), batch_size=2, src_size=32,
-                                 layout="s2d2"))
+    """The quad stem's s2d2 layout packs each tile as JAX's does (its
+    cases against JAX are in tests/test_torch_quadstem.py); an unknown
+    layout raises."""
+    got = list(PP.assemble_batches(_tiles(3), batch_size=2, src_size=32,
+                                   layout="s2d2"))
+    want = list(JP.assemble_batches(_tiles(3, cls=JaxTile), batch_size=2,
+                                    src_size=32, layout="s2d2"))
+    assert [b.images.shape for b in got] == [(2, 8, 8, 48)] * 2
+    _same_batches(got, want)
     with pytest.raises(ValueError, match="layout"):
         list(PP.assemble_batches(_tiles(2), batch_size=2, src_size=32,
                                  layout="chw"))

@@ -162,7 +162,10 @@ def test_int8_bundle_holds_no_float_trunk(both):
     assert names == {"stem0", "stem1", "detect0", "detect1", "detect2"}
     assert set(pq.params["orig"]["params"]) == names
     assert set(pq.params["orig"]["batch_stats"]) == {"stem0", "stem1"}
-    assert not pq.supports_s2d2() and pq.device == CPU
+    assert pq.supports_s2d2() and pq.device == CPU
+    # the fully-int8 quad stem's constants ride in q, not in the module
+    assert set(pq.params["q"]["stems"]) == {"w0", "m0", "b0", "corr", "w1",
+                                            "m1", "b1"}
 
 
 def test_transcription_guard(both):

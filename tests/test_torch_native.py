@@ -37,10 +37,12 @@ def _jpeg(arr, quality=92):
 
 
 def test_native_libraries_build_into_build_dir():
-    assert native_paths() == {"fastgeo": True, "fastdecode": True}
+    assert native_paths() == {"fastgeo": True, "fastdecode": True,
+                              "fastpack": True}
     built = sorted(p.name for p in native.BUILD_DIR.glob("lib*.so"))
     assert any(n.startswith("libfastgeo-") for n in built)
     assert any(n.startswith("libfastdecode-") for n in built)
+    assert any(n.startswith("libfastpack-") for n in built)
     assert native.BUILD_DIR.parts[-2:] == ("build", "native")
     # nothing is built beside the port's sources
     assert not list(native._SRC_DIR.glob("*.so"))
@@ -141,7 +143,8 @@ def test_without_a_compiler_the_numpy_paths_run(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "_libs", {})
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "none")
     monkeypatch.setenv("PATH", str(tmp_path))          # no g++ on it
-    assert native_paths() == {"fastgeo": False, "fastdecode": False}
+    assert native_paths() == {"fastgeo": False, "fastdecode": False,
+                              "fastpack": False}
     rng = np.random.default_rng(2)
     lon = 21.0 + rng.random(300) * 0.001
     lat = 52.2 + rng.random(300) * 0.001
@@ -151,3 +154,11 @@ def test_without_a_compiler_the_numpy_paths_run(monkeypatch, tmp_path):
     body = _jpeg(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8))
     pil = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
     np.testing.assert_array_equal(decode_rgb(body), pil)
+    # the quad stem's host relayout takes its numpy copies
+    from aerial_image_recognition_tpu_torch.ops.quadstem import (
+        host_s2d2, host_s2d2_into)
+    px = rng.integers(0, 255, (16, 16, 3), dtype=np.uint8)
+    out = np.zeros((4, 4, 48), np.uint8)
+    assert not native.pack_quad_native(px, out)
+    host_s2d2_into(px, out)
+    np.testing.assert_array_equal(out, host_s2d2(px))

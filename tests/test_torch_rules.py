@@ -71,7 +71,7 @@ def test_import_check_covers_the_numpy_copies():
             "pipeline/train.py", "runtime/train_ckpt.py"} <= names
     # and the native sources it builds are the port's own copies
     assert {p.name for p in (PORT / "native").glob("*.cpp")} == {
-        "fastgeo.cpp", "fastdecode.cpp"}
+        "fastgeo.cpp", "fastdecode.cpp", "fastpack.cpp"}
 
 
 def test_import_check_sees_the_prefix_package(tmp_path):
@@ -222,9 +222,9 @@ def test_unported_options_raise(tmp_path):
                 device="cpu", model_size=64)
     build_detect_step(DetectorConfig(extra={"resize_matmul": False}),
                       device="cpu", model_size=64)      # single-scale: fine
-    # the scan's data-parallel mesh and the quad stem's batch layout (the
-    # heatmap's GeoPackage output, refused until the writer was ported,
-    # now writes its layer)
+    # the scan's data-parallel mesh and the quad stem's batch layout, both
+    # ported (the heatmap's GeoPackage output, refused until the writer was
+    # ported, now writes its layer)
     from aerial_image_recognition_tpu_torch.ingest.pipeline import (
         assemble_batches)
     from aerial_image_recognition_tpu_torch.pipeline.detector import (
@@ -234,9 +234,8 @@ def test_unported_options_raise(tmp_path):
         det = CarDetector(".", {"data_parallel": flag}, device="cpu")
         assert det._make_mesh().devices == (torch.device("cpu"),) * n
     assert CarDetector(".", {"data_parallel": False})._make_mesh() is None
-    with pytest.raises(NotImplementedError, match="quad stem"):
-        list(assemble_batches(iter([]), batch_size=2, src_size=8,
-                              layout="s2d2"))
+    assert list(assemble_batches(iter([]), batch_size=2, src_size=8,
+                                 layout="s2d2")) == []
     from aerial_image_recognition_tpu_torch.gio.geopackage import read_gpkg
     heat = str(tmp_path / "heat.gpkg")
     hex_heatmap([{"lon": 21.0, "lat": 52.2, "confidence": 0.5}], 50.0,
@@ -250,20 +249,20 @@ def test_unported_options_raise(tmp_path):
         bundle = create_model(name, device="cpu", dtype=torch.float32)
         assert bundle.spec.name == "xunet_256"
         assert bundle.spec.family == "xunet"
-    # the int8 branches that wait for their slice: the quad-stem entry (and
-    # with it the fully-int8 stems) of every detector family
+    # the quad-stem entry, and with it the fully-int8 stems, of both
+    # detector families that have the lowering (once refused here)
     from aerial_image_recognition_tpu_torch.models.int8 import (
         quantize_bundle)
     for name in ("yolov7_itcvd", "yolov8n"):
         bundle = create_model(name, device="cpu", dtype=torch.float32)
-        assert not bundle.supports_s2d2()
+        assert bundle.supports_s2d2()
         qb = quantize_bundle(bundle, [torch.zeros(1, 64, 64, 3,
                                                   dtype=torch.uint8)],
                              model_size=64)
-        assert not qb.supports_s2d2()
-        assert not hasattr(qb, "stems_int8") and "stems" not in qb.q
-        with pytest.raises(NotImplementedError, match="quad"):
-            qb.forward_s2d2(torch.zeros(1, 16, 16, 48, dtype=torch.uint8))
+        assert qb.supports_s2d2() and "stems" in qb.q
+        boxes, scores = qb.forward_s2d2(torch.zeros(1, 16, 16, 48,
+                                                    dtype=torch.uint8))
+        assert torch.isfinite(boxes).all() and torch.isfinite(scores).all()
     # quantize_bundle dispatches an xunet bundle to quantize_xunet, as the
     # JAX package's does
     xunet = create_model("xunet_256", device="cpu", dtype=torch.float32)
