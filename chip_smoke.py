@@ -170,8 +170,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      and over two shards of one card, against the single-device step; NMS
      launches = shards × steps, ms and host syncs a step; turnkey int8
      under each mesh reaching ``int8``, 55 epilogue launches a shard a
-     step (53 trunk convs and the quad stem's two); (b) the upload ring over the two-shard step, a ``CarDetector``
-     scan with ``data_parallel: true`` of 10b's world bit-equal to a
+     step (53 trunk convs and the quad stem's two); (b) the upload ring
+     over the two-shard step, a ``CarDetector`` scan with
+     ``data_parallel: true`` of 10b's world bit-equal to a
      single-device scan, and the two-shard step's raw records of 11b's AOI;
      (c) ``detect --data-parallel`` and ``serve --data-parallel`` as
      counted children against the same runs in this process; (d)
@@ -202,9 +203,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      launches on cuda:1 while cuda:0 is current; with one the script says
      the check was not possible.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-15a, 9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after it, or read
-from the child that ran the path (11b–h, 12e, 13d, 14c); every kernel of a
-path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
+15a, 9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after
+it, or read from the child that ran the path (11b–h, 12e, 13d, 14c);
+every kernel of a path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
 whether a profile earlier in the process moves later timings.
 
@@ -4151,7 +4152,8 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             "agree_bf16_single": agree_q, "deltas_int8_cards": q_deltas}
         print(f"14a int8 {label}: states {states}, {q_ms:.2f} ms a step, "
               f"{per_step:.0f} epilogue launches a step "
-              f"({int8_epilogues_a_forward(q)} × {shards}), against the bf16 step {agree_q}, against the "
+              f"({int8_epilogues_a_forward(q)} × {shards}), against the "
+              f"bf16 step {agree_q}, against the "
               f"int8 step over make_mesh() {q_deltas} [{card}]", flush=True)
         del q
 
@@ -4591,8 +4593,7 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
 
 STEM_CONVS = 2                 # the fully-int8 quad stem's convs (stem0 in
                                # the epilogue's border mode)
-QUAD_TIMED = 20                # timed steps of each step in 15a
-STEM0_BOUND_MS = (838.9e6 + 209.7e6) / HBM_BYTES_S * 1e3   # 0.313 ms
+QUAD_TIMED = 10                # timed steps of each step in 15a
 
 
 def int8_epilogues_a_forward(step) -> int:
@@ -5621,10 +5622,14 @@ def main() -> None:
 
     # 15. the quad stem: quad against plain at phase 4's shape, the border
     # mode at stem0's shape, the host relayout, the current-device check
+    t15 = time.perf_counter()
     border = check_border_epilogue(torch, record, card, images)
     quad_stem_phase(torch, record, card, images, bounds, cars, open_window,
                     close_window, launches)
     check_current_device(torch, record, card)
+    record["quad_stem"]["phase_s"] = time.perf_counter() - t15
+    print(f"15. the quad stem's phase took "
+          f"{record['quad_stem']['phase_s']:.1f} s [{card}]", flush=True)
 
     # 9. the other detector families
     kernel["ms_class_aware_v8_step"] = other_families(
