@@ -63,7 +63,7 @@ from aerial_image_recognition_tpu_torch.pipeline.serve import DetectionServer
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
 from aerial_image_recognition_tpu_torch.utils import native
 from test_quadstem import _quad_layout_reference
-from test_torch_families import V8_FIXTURE, V8_SIZE, v8_tiles
+from test_torch_families import V8_FIXTURE, v8_tiles
 from test_torch_int8 import FIXTURE, SIZE, scene_tiles
 
 CPU = torch.device("cpu")
