@@ -272,6 +272,10 @@ def yolov7_detect_from_torch(state_dict, variables, *,
     return variables
 
 
+# the tiny-specific spelling of the reference's earlier call sites
+yolov7_tiny_detect_from_torch = yolov7_detect_from_torch
+
+
 def yolov7_detect_to_torch(variables, *,
                            detect_idx: int = _V7_TINY_DETECT_IDX
                            ) -> Dict[str, np.ndarray]:

@@ -1159,7 +1159,7 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
     from aerial_image_recognition_tpu_torch.models.layers import ConvBN
     from aerial_image_recognition_tpu_torch.models.yolov8 import Bottleneck
     from aerial_image_recognition_tpu_torch.ops.preprocess import (
-        matmul_resize_float, preprocess_batch)
+        preprocess_batch, resize)
     size = model_size or bundle.spec.input_size
     module = bundle.module
     running: Dict[str, torch.Tensor] = {}
@@ -1190,7 +1190,7 @@ def calibrate_absmax(bundle, batches: Sequence[Any],
                 else:
                     x = x.to(torch.float32).permute(0, 3, 1, 2)
                     if x.shape[2] != size or x.shape[3] != size:
-                        x = matmul_resize_float(x, size, "bilinear")
+                        x = resize(x, size, "bilinear")
                 module(x.to(_module_dtype(module)))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32

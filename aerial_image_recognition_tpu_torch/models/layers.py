@@ -209,3 +209,18 @@ def maxpool2(x: torch.Tensor) -> torch.Tensor:
 def upsample2(x: torch.Tensor) -> torch.Tensor:
     """2× nearest-neighbour upsample (FPN path)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """[B,C,H,W] → [B,4C,H/2,W/2] (the 'Focus' rearrangement), channel
+    order (dy, dx, c) as the reference's NHWC reshape gives it —
+    ``F.pixel_unshuffle`` orders them (c, dy, dx), which would scramble the
+    12-channel stem kernel of ``YOLOv7(s2d_stem=True)``. Row-sharded
+    activations (``parallel/spatial.RowShards``) take it through their own
+    rule."""
+    if torch.overrides.has_torch_function_unary(x):
+        return torch.overrides.handle_torch_function(space_to_depth2, (x,),
+                                                     x)
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, 4 * c, h // 2, w // 2)

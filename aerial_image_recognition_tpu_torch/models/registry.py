@@ -137,10 +137,11 @@ class ModelBundle:
     def _s2d2_meta(self) -> Optional[Dict]:
         """The quad-stem lowering's stem scopes, activation and BN epsilon,
         or None where it does not apply (``ops/quadstem.stem_meta``:
-        yolov7-tiny and every yolov8 scale)."""
+        yolov7-tiny without ``s2d_stem`` and every yolov8 scale)."""
         from aerial_image_recognition_tpu_torch.ops.quadstem import stem_meta
         return stem_meta(self.spec.family,
-                         getattr(self.module, "variant", ""))
+                         getattr(self.module, "variant", ""),
+                         getattr(self.module, "s2d_stem", False))
 
     def supports_s2d2(self) -> bool:
         """True when the quad-stem inference lowering applies."""

@@ -1,8 +1,8 @@
 """The YOLOv7 family — tiny (the ITCVD car detector) and base — as a torch
 ``nn.Module``.
 
-Counterpart of ``aerial_image_recognition_tpu/models/yolov7.py`` (``YOLOv7``,
-``_tiny``, ``_base``, ``ELANTiny``, ``SPPCSPCTiny``, ``ELAN``, ``MPConv``,
+Counterpart of ``aerial_image_recognition_tpu/models/yolov7.py`` (``YOLOv7``
+with its ``s2d_stem`` option, ``_tiny``, ``_base``, ``ELANTiny``, ``SPPCSPCTiny``, ``ELAN``, ``MPConv``,
 ``SPPCSPC``). Submodule names equal the flax scope names (``elan1.cv1``,
 ``sppcspc.out``, ``mp3.down_cv``, ``rep3``, ``detect0`` …), so the weight
 bridge maps the flax tree leaf for leaf.
@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from aerial_image_recognition_tpu_torch.models.layers import (
-    ConvBN, concat, max_pool_same, maxpool2, upsample2)
+    ConvBN, concat, max_pool_same, maxpool2, space_to_depth2, upsample2)
 
 # Upstream anchor priors (pixels at 640 input).
 ANCHORS_TINY = (
@@ -164,19 +164,29 @@ class SPPCSPC(nn.Module):
 
 class YOLOv7(nn.Module):
     """Full detector, variant 'tiny' or 'base'; ``forward`` returns the
-    three raw head maps, NHWC f32."""
+    three raw head maps, NHWC f32.
 
-    def __init__(self, num_classes: int = 1, variant: str = "tiny"):
+    s2d_stem (tiny only, as in the reference): the strided 3-channel stem0
+    becomes ``space_to_depth2`` and a 12→32 3×3 stride-1 ConvBN (same output
+    shape; a stem kernel of another shape, so upstream weights need a kernel
+    transform). The quad stem and int8 do not take such a model."""
+
+    def __init__(self, num_classes: int = 1, variant: str = "tiny",
+                 s2d_stem: bool = False):
         super().__init__()
         if variant not in ("tiny", "base"):
             raise ValueError(f"unknown yolov7 variant {variant!r}")
         self.num_classes = num_classes
         self.variant = variant
+        self.s2d_stem = s2d_stem
         no = 3 * (5 + num_classes)
         if variant == "base":
             self._build_base(no)
             return
-        self.stem0 = _conv(3, 32, 3, 2)                       # P1/2
+        if s2d_stem:
+            self.stem0 = _conv(12, 32, 3, 1)                  # P1/2, s2d
+        else:
+            self.stem0 = _conv(3, 32, 3, 2)                   # P1/2
         self.stem1 = _conv(32, 64, 3, 2)                      # P2/4
         self.elan1 = ELANTiny(64, 32, 64)
         self.elan2 = ELANTiny(64, 64, 128)                    # P3/8
@@ -261,6 +271,8 @@ class YOLOv7(nn.Module):
                                  "yolov7-tiny; yolov7-base has none")
             return self._base_trunk(x)
         if not from_p2:
+            if self.s2d_stem:
+                x = space_to_depth2(x)
             x = self.stem1(self.stem0(x))
         x = self.elan1(x)
         p3 = self.elan2(maxpool2(x))

@@ -267,11 +267,13 @@ def quad_stem_forward(variables, xq: torch.Tensor, *, act: str = "leaky",
     return stem(xq, in_scale)
 
 
-def stem_meta(family: str, variant: str = "") -> Optional[Dict]:
+def stem_meta(family: str, variant: str = "",
+              s2d_stem: bool = False) -> Optional[Dict]:
     """(stem scope names, activation, bn_eps) of the quad-stem lowering for
     a model, or None where it does not apply: any model whose entry is two
-    stride-2 3×3 ConvBNs qualifies (yolov7-tiny, every yolov8 scale)."""
-    if family == "yolov7" and variant == "tiny":
+    stride-2 3×3 ConvBNs qualifies (yolov7-tiny, every yolov8 scale), not
+    yolov7-tiny with its ``s2d_stem`` (a 12-channel stride-1 stem0)."""
+    if family == "yolov7" and variant == "tiny" and not s2d_stem:
         return {"stems": ("stem0", "stem1"), "act": "leaky", "bn_eps": 1e-5}
     if family == "yolov8":
         return {"stems": ("stem", "down2"), "act": "silu", "bn_eps": 1e-3}

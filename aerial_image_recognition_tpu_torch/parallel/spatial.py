@@ -15,6 +15,8 @@ operations shard by shard:
   top and bottom padded as the operation pads (zeros; −inf for a pool);
 * nearest ``interpolate``, channel ``cat``/``chunk``/``split``, the
   activations, casts and elementwise arithmetic run on each shard's rows;
+  ``space_to_depth2`` (``YOLOv7(s2d_stem=True)``'s entry) relays an even
+  count of rows per output shard, taken from the shards that hold them;
 * the heads' NHWC ``permute`` is where the rows meet: the whole map is
   gathered on the first device there, so decode, NMS and lon/lat run once,
   on replicated outputs, as the reference's ``out_shardings``;
@@ -40,6 +42,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from aerial_image_recognition_tpu_torch.models.layers import space_to_depth2
 from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
 
 
@@ -273,6 +276,14 @@ def _interpolate(func, x, size=None, scale_factor=None, mode="nearest",
     return x.like(parts)
 
 
+def _space_to_depth2(func, x):
+    """Each output shard's rows from input rows ``2·o0:2·o1`` (an even
+    count, taken from whichever shards hold them), relaid on its device."""
+    edges = row_edges(x.edges[-1] // 2, len(x.devices))
+    return x.like([func(x.rows(2 * edges[k], 2 * edges[k + 1], dev, 0.0))
+                   for k, dev in enumerate(x.devices)])
+
+
 def _cat(func, tensors, dim=0, *, out=None):
     tensors = list(tensors)
     if out is not None or dim not in (1, -3) \
@@ -312,7 +323,8 @@ def _each(func, *args, **kwargs):
 
 
 _HANDLERS = {F.conv2d: _conv2d, F.max_pool2d: _max_pool2d,
-             F.interpolate: _interpolate, torch.cat: _cat,
+             F.interpolate: _interpolate, space_to_depth2: _space_to_depth2,
+             torch.cat: _cat,
              torch.chunk: _chunks, torch.Tensor.chunk: _chunks,
              torch.split: _chunks, torch.Tensor.split: _chunks}
 _EACH = {F.silu, F.relu, F.leaky_relu, torch.sigmoid, torch.Tensor.sigmoid,

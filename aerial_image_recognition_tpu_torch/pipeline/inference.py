@@ -48,7 +48,7 @@ from aerial_image_recognition_tpu_torch.models.registry import (
     ModelBundle, create_model)
 from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
 from aerial_image_recognition_tpu_torch.ops.preprocess import (
-    matmul_resize_float, preprocess_batch)
+    matmul_resize_float, preprocess_batch, resize)
 from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
 from aerial_image_recognition_tpu_torch.post.georef import lonlat, to_numpy
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
@@ -207,8 +207,9 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
     rounded to multiples of 32, boxes rescaled to the base frame and
     joined before NMS; ``multiscale_weights``, default 0.8 for every
     non-native scale so that the native box wins ties against a misfit
-    off-scale one; with ``resize_matmul`` false it raises
-    NotImplementedError, as the non-matrix resize is not ported);
+    off-scale one; the off-native scales resize by two matrix products
+    (``matmul_resize_float``), or with ``resize_matmul`` false by the
+    reference's ``jax.image.resize`` lowering, ``ops/preprocess.resize``);
     ``box_voting`` (see ``_resolve_vote_iou``);
     ``nms_suppression``. ``bundle`` may be an ``Int8Bundle``: every mode
     only calls ``bundle.forward``.
@@ -225,12 +226,6 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
             f"multiscale_weights has {len(extra['multiscale_weights'])} "
             f"entries for {len(extra['multiscale'])} scales")
     vote_iou = _resolve_vote_iou(cfg)
-    if extra.get("multiscale") and not extra.get("resize_matmul", True):
-        # the reference resizes the off-native scales with jax.image.resize
-        # there; the port has only the matrix-product resize
-        raise NotImplementedError(
-            "multiscale with resize_matmul=False is not ported: the port "
-            "resizes by matrix products, bilinear or lanczos3")
     if extra.get("tta_clahe_backend", "auto") not in _CLAHE_BACKENDS:
         raise ValueError(
             f"unknown tta_clahe_backend {extra['tta_clahe_backend']!r} "
@@ -272,11 +267,16 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
         ms_wts = extra.get("multiscale_weights")
         if ms_wts is None:
             ms_wts = [1.0 if float(sc) == 1.0 else 0.8 for sc in scales]
+        use_mm = bool(extra.get("resize_matmul", True))
         boxes_l, scores_l = [], []
         for sc, wt in zip(scales, ms_wts):
             size_s = max(32, int(round(model_size * sc / 32)) * 32)
-            xs = x if size_s == model_size \
-                else matmul_resize_float(x, size_s, "bilinear")
+            if size_s == model_size:
+                xs = x
+            elif use_mm:
+                xs = matmul_resize_float(x, size_s, "bilinear")
+            else:
+                xs = resize(x, size_s, "bilinear")
             bb, ss = bundle.forward(xs)
             boxes_l.append(bb * (model_size / size_s))
             if float(wt) != 1.0:

@@ -193,13 +193,12 @@ def test_rejects_unsupported_families(both):
     same call; tests/test_torch_segment.py holds its qparams). yolov7-base
     and yolov8 quantize (tests/test_torch_families_int8.py)."""
     import dataclasses
+    from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
     pb = both["pb"]
-
-    class S2D(torch.nn.Module):
-        variant, s2d_stem = "tiny", True
-
+    s2d = YOLOv7(num_classes=1, variant="tiny", s2d_stem=True)
+    assert s2d.stem0.conv.in_channels == 12
     with pytest.raises(NotImplementedError, match="s2d_stem experiment"):
-        P.quantize_bundle(dataclasses.replace(pb, module=S2D()), [])
+        P.quantize_bundle(dataclasses.replace(pb, module=s2d), [])
     from aerial_image_recognition_tpu.models.registry import (
         REGISTRY as JAX_REGISTRY, ModelBundle as JaxModelBundle)
     xb = create_model("xunet_256", dtype=torch.float32, device="cpu",

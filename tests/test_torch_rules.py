@@ -213,13 +213,34 @@ def test_unported_options_raise(tmp_path):
     assert dq.quantize_state == "calibrating"
     assert dq.input_shardings == mesh.rows(2)
     # the reference resizes multiscale's off-native scales with
-    # jax.image.resize when resize_matmul is false; the port has only the
-    # matrix-product resize, so the combination is refused, not swapped
-    for scales in ([0.85, 1.0, 1.15], [1.0]):
-        with pytest.raises(NotImplementedError, match="resize_matmul"):
-            build_detect_step(DetectorConfig(extra={
-                "multiscale": scales, "resize_matmul": False}),
-                device="cpu", model_size=64)
+    # jax.image.resize when resize_matmul is false: the port's counterpart
+    # of it (ops/preprocess.resize) runs there, never the matrix resize
+    from aerial_image_recognition_tpu_torch.ops import preprocess
+    from aerial_image_recognition_tpu_torch.pipeline import inference
+    calls = {"resize": 0, "matmul_resize_float": 0}
+
+    def counted(name):
+        fn = getattr(inference, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+    img = np.zeros((2, 128, 128, 3), np.uint8)   # scales 96, 128, 160 px
+    bnd = np.tile(np.float32([[21.0, 52.0, 21.001, 52.001]]), (2, 1))
+    with pytest.MonkeyPatch.context() as mp:
+        for name in calls:
+            mp.setattr(inference, name, counted(name))
+        for scales, mm, want in (([0.85, 1.0, 1.15], False, (2, 0)),
+                                 ([0.85, 1.0, 1.15], True, (0, 2)),
+                                 ([1.0], False, (0, 0))):
+            calls.update(resize=0, matmul_resize_float=0)
+            step = build_detect_step(DetectorConfig(extra={
+                "multiscale": scales, "resize_matmul": mm}),
+                device="cpu", batch=2, model_size=128)
+            step(img, bnd)
+            assert (calls["resize"], calls["matmul_resize_float"]) == want
+    assert preprocess.resize is inference.resize
     build_detect_step(DetectorConfig(extra={"resize_matmul": False}),
                       device="cpu", model_size=64)      # single-scale: fine
     # the scan's data-parallel mesh and the quad stem's batch layout, both

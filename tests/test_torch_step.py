@@ -207,8 +207,13 @@ MODES = {
     "scan": dict(nms_suppression="scan"),
     "src96": dict(),
     "src128-crop96": dict(),
+    # the reference's jax.image.resize lowering instead of the matrix path
+    "src96-resize-matmul-false": dict(resize_matmul=False),
+    "multiscale-resize-matmul-false": dict(multiscale=[0.5, 1.0, 1.5],
+                                           resize_matmul=False),
 }
-SRC = {"src96": (96, None), "src128-crop96": (128, 96)}
+SRC = {"src96": (96, None), "src128-crop96": (128, 96),
+       "src96-resize-matmul-false": (96, None)}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
