@@ -513,8 +513,10 @@ class SelfQuantizingStep:
       Scans known to start sparse (ocean approach, cloud deck) should raise
       ``quantize_calib_wait_batches``.
     * A checkpoint that cannot be quantized (``quantize_bundle`` raises
-      ``KeyError``/``ValueError``) or a parity miss ⇒ the scan continues in
-      the float step (state 'bf16-fallback', reason recorded and printed).
+      ``KeyError``/``ValueError``, or ``NotImplementedError`` for a model
+      int8 does not cover, as ``YOLOv7(s2d_stem=True)``) or a parity miss ⇒
+      the scan continues in the float step (state 'bf16-fallback', reason
+      recorded and printed), as the reference's does.
       Nothing else is caught: an error of the int8 step itself (a kernel
       that does not build or launch, a refused integer product) propagates
       to the caller.
@@ -666,9 +668,10 @@ class SelfQuantizingStep:
         try:
             qb = quantize_bundle(self._base.bundle, calib,
                                  model_size=self._base.model_size)
-        except (KeyError, ValueError) as e:
+        except (KeyError, ValueError, NotImplementedError) as e:
             # the checkpoint cannot be quantized (a calibration record or
-            # the f32 variables are missing, the transcription does not fit)
+            # the f32 variables are missing, the transcription does not fit,
+            # or int8 does not cover the model: the s2d_stem experiment)
             self._fall_back(repr(e))
             return
         # outside the try: a kernel that does not build or launch, or an

@@ -202,8 +202,31 @@ Phases (any failure exits nonzero, and no result line is printed):
      leaves the current device changed: with two cards each kernel
      launches on cuda:1 while cuda:0 is current; with one the script says
      the check was not possible.
+ 16. the last modules of the port, run after 15: (a) ``preprocess_batch``'s
+     ``jax.image.resize`` lowering at B=64 on the scan's 1280 → 640 WMS
+     tiles, SimpleDetector's 699 → 640 and the XYZ path's 1024-px tiles
+     cropped to 864: bilinear, lanczos3 and cubic with ``matmul=False`` in
+     f32 and bf16 outputs, and nearest, each on the card against the CPU on
+     the batch's first 4 tiles (nearest tolerance 0, f32 within 4e-6 with
+     TF32 off, bf16 within 1/128 and a mean below 1e-4) and timed beside the
+     matrix path of its geometry; ``assemble_mosaic`` of 256-px tiles on a
+     3×3 grid equal to the CPU's; (b) the trained YOLOv7-tiny step with
+     ``resize_matmul: false`` on 64 1280-px tiles at 0.25 m/px against the
+     same step with the matrix resize (matched ≥ 0.9 at IoU 0.5, recall ≥
+     0.8 within 2 m), both timed; (c) multiscale [0.85, 1.0, 1.15] with
+     ``resize_matmul: false`` against phase 7's step: every detection
+     matched, bit-equality recorded, timed; (d) ``YOLOv7(s2d_stem=True)``
+     with the trained stem embedded in its 12-channel kernel at phase 4's
+     shape: against the plain-stem step (matched ≥ 0.9, recall ≥ 0.8), f32
+     raw maps card vs CPU within 1e-3 of their largest (TF32 off), no quad
+     stem, int8 refused with the reference's message and turnkey int8
+     staying bf16, timed in turns with the quad and plain steps; (e) the
+     packed XUnet-256 (trained fixture, B=16, phase 12's held-out tiles):
+     bf16 masks against the standard forward's at IoU ≥ 0.99, f32 logits
+     card vs CPU within 1e-3 of their largest (TF32 off), ms a batch of
+     each and ``host_s2d``'s.
 Launch counts are zeroed just before each path (4–5, 10a, 10b, 6, 7, 8c–d,
-15a, 9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after
+15a, 16b–d, 9a, 9b, 9c, 9d, 11i, 12a–e, 13a–c, 14a–b, 14g) and read just after
 it, or read from the child that ran the path (11b–h, 12e, 13d, 14c);
 every kernel of a path must have launched in its window. The steps are profiled after every timed step (YOLOv8l's at
 the end of phase 9); the multiscale step is then timed once more, to show
@@ -234,7 +257,10 @@ int8 epilogue kernels against their plain versions and phase 14 (record in
 ``python3 chip_smoke.py --quad-only`` runs phases 1–2, the NMS and int8
 epilogue kernels against their plain versions and phase 15, with a turnkey
 int8 step on packed s2d2 batches for 15b (record in
-``chiprun_out/chip_smoke_quad.json``).
+``chiprun_out/chip_smoke_quad.json``);
+``python3 chip_smoke.py --lowerings-only`` runs phases 1–3's kernel checks
+(NMS, CLAHE) and phase 16 (record in
+``chiprun_out/chip_smoke_lowerings.json``).
 """
 
 import contextlib
@@ -4989,6 +5015,371 @@ def turnkey_quad_int8(torch, record, card, images, bounds, open_window,
           f"{agree} [{card}]", flush=True)
 
 
+# ------------------------------------------------ 16. the resize lowerings,
+# assemble_mosaic, the s2d stem and the packed XUnet
+
+LOW_GEOMETRIES = {                  # name → (tile px, centre crop or None)
+    "wms_1280": (1280, None),       # the scan's WMS tiles
+    "simple_699": (699, None),      # SimpleDetector's windows
+    "xyz_1024_crop864": (1024, 864),    # the XYZ path's 1024 → 864 crop
+}
+LOW_METHODS = ("bilinear", "lanczos3", "cubic")
+LOW_CPU_TILES = 4           # rows of each card batch redone on the CPU
+LOW_TIMED = 10              # timed calls of each lowering
+LOW_F32_BAR = 4e-6          # f32 contractions, card against CPU
+MOSAIC_TILE, MOSAIC_GRID = 256, (3, 3)
+WMS_PX, WMS_PX_PER_M = 1280, 4.0    # 16b: tiles of 320 m, 0.25 m/px
+S2D_TIMED = 10
+
+
+def embed_stem(variables):
+    """Test-side weights for ``YOLOv7(s2d_stem=True)``: the trained tree
+    with stem0's [3,3,3,32] stride-2 kernel embedded in the s2d stem's
+    [3,3,12,32] stride-1 kernel (ky = 0 → cell row 0, subrow 1; ky = 1 →
+    row 1, subrow 0; ky = 2 → row 1, subrow 1; the same for columns; zeros
+    elsewhere; input channels in (dy, dx, c) order), so the s2d model
+    computes the trained detector's function."""
+    import numpy as np
+    k = np.asarray(variables["params"]["stem0"]["conv"]["kernel"],
+                   np.float32)
+    c = k.shape[2]
+    cell = {0: (0, 1), 1: (1, 0), 2: (1, 1)}
+    out = np.zeros((3, 3, 4 * c, k.shape[3]), np.float32)
+    for ky, (u, dy) in cell.items():
+        for kx, (v, dx) in cell.items():
+            lo = (2 * dy + dx) * c
+            out[u, v, lo:lo + c] = k[ky, kx]
+    params = dict(variables["params"])
+    params["stem0"] = dict(params["stem0"], conv={"kernel": out})
+    return dict(variables, params=params)
+
+
+def s2d_bundle(variables, dtype, device="cuda"):
+    """A yolov7_itcvd bundle (BN folded) whose module is
+    ``YOLOv7(s2d_stem=True)``, as the reference's tests build one: the
+    registry spec with its ``make_module`` swapped."""
+    import dataclasses
+    from unittest import mock
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        REGISTRY, create_model)
+    from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
+    spec = dataclasses.replace(REGISTRY["yolov7_itcvd"],
+                               make_module=lambda: YOLOv7(s2d_stem=True))
+    with mock.patch.dict(REGISTRY, {"yolov7_itcvd_s2d": spec}):
+        return create_model("yolov7_itcvd_s2d", variables=variables,
+                            dtype=dtype, device=device, fold_bn=True)
+
+
+def resize_lowerings(torch, record, card):
+    """16a: each ``preprocess_batch`` lowering at B=64 on the card against
+    the CPU on the batch's first ``LOW_CPU_TILES`` tiles, timed beside the
+    matrix path of its geometry; ``assemble_mosaic`` of 256-px tiles."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        assemble_mosaic, preprocess_batch)
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("16a: f32 matmuls are not full precision")
+    rec = record.setdefault("lowerings", {})["resize"] = {}
+    rng = np.random.default_rng(16)
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for geom, (src, crop) in LOW_GEOMETRIES.items():
+        imgs = rng.integers(0, 256, (B, src, src, 3), np.uint8)
+        dev = torch.from_numpy(imgs).cuda()
+        cpu = torch.from_numpy(imgs[:LOW_CPU_TILES])
+        kw = dict(out_size=SIZE, crop_size=crop)
+        g = rec[geom] = {"src": src, "crop": crop, "batch": B,
+                         "matrix_ms": cuda_ms(lambda: preprocess_batch(
+                             dev, method="bilinear", **kw), LOW_TIMED)}
+        for method, tname in [(m, t) for m in LOW_METHODS + ("nearest",)
+                              for t in types]:
+            args = dict(kw, method=method, matmul=False, dtype=types[tname])
+            got = preprocess_batch(dev, **args)[:LOW_CPU_TILES].cpu().float()
+            want = preprocess_batch(cpu, **args).float()
+            err = float((got - want).abs().max())
+            mean = float((got - want).abs().mean())
+            bar = 0.0 if method == "nearest" else (
+                LOW_F32_BAR if tname == "float32" else 1 / 128)
+            if got.shape != want.shape or err > bar or (
+                    tname == "bfloat16" and mean >= 1e-4):
+                fail(f"16a {geom} {method} {tname}: card vs CPU max "
+                     f"{err:.3e} (bar {bar}), mean {mean:.2e}")
+            g[f"{method}_{tname}"] = {
+                "max_abs_err": err, "mean_abs_err": mean, "bar": bar,
+                "ms": cuda_ms(lambda: preprocess_batch(dev, **args),
+                              LOW_TIMED)}
+        del dev
+        print(f"16a {geom} ({src} px{f', crop {crop}' if crop else ''} → "
+              f"{SIZE}, B={B}): matrix path {g['matrix_ms']:.3f} ms; "
+              + ", ".join(f"{k} {v['ms']:.3f} ms (err {v['max_abs_err']:.2e})"
+                          for k, v in g.items() if isinstance(v, dict))
+              + f" [{card}]", flush=True)
+    gy, gx = MOSAIC_GRID
+    tiles = rng.integers(0, 256, (B, gy * gx, MOSAIC_TILE, MOSAIC_TILE, 3),
+                         np.uint8)
+    dev = torch.from_numpy(tiles).cuda()
+    kw = dict(grid=MOSAIC_GRID, tile_px=MOSAIC_TILE)
+    got = assemble_mosaic(dev, **kw).cpu()
+    if not torch.equal(got, assemble_mosaic(torch.from_numpy(tiles), **kw)):
+        fail("16a: assemble_mosaic on the card differs from the CPU's")
+    m_ms = cuda_ms(lambda: assemble_mosaic(dev, **kw), LOW_TIMED)
+    rec["mosaic"] = {"batch": B, "grid": list(MOSAIC_GRID),
+                     "tile_px": MOSAIC_TILE, "shape": list(got.shape),
+                     "equal_to_cpu": True, "ms": m_ms,
+                     "bytes": 2 * tiles.nbytes}
+    print(f"16a assemble_mosaic: {B} × {gy}×{gx} tiles of {MOSAIC_TILE} px "
+          f"→ {tuple(got.shape)}, equal to the CPU's; {m_ms:.3f} ms "
+          f"({2 * tiles.nbytes / m_ms / 1e6:.0f} GB/s) [{card}]", flush=True)
+
+
+def lowerings(torch, record, card, images, bounds, cars, open_window,
+              close_window, ms_step=None):
+    """16. The last modules of the port at full width: (a) the resize
+    lowerings; (b) the single-scale step with ``resize_matmul: false`` on
+    1280-px tiles; (c) multiscale with ``resize_matmul: false`` against
+    phase 7's step; (d) ``YOLOv7(s2d_stem=True)``; (e) the packed XUnet.
+    ``ms_step`` is phase 7's multiscale step (built here when absent)."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        quantize_bundle)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        load_params)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step, detection_sets_agree)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    t16 = time.perf_counter()
+    rec = record.setdefault("lowerings", {})
+    resize_lowerings(torch, record, card)
+    base = dict(params_path=FIXTURE, device_batch=B, dtype="bfloat16")
+
+    # 16b: the scan's WMS geometry through jax.image.resize's lowering
+    wms, wms_bounds, wms_cars = render_tiles(
+        np.random.default_rng(2), B, WMS_PX, px_per_m=WMS_PX_PER_M)
+    dev_wms = torch.from_numpy(wms).cuda()
+    dev_wms_bounds = torch.from_numpy(wms_bounds).cuda()
+    steps = {mm: build_detect_step(DetectorConfig.from_dict(
+        dict(base, resize_matmul=mm)), src_size=WMS_PX)
+        for mm in (True, False)}
+    b = rec["resize_matmul_false_step"] = {"src": WMS_PX, "batch": B,
+                                           "px_per_m": WMS_PX_PER_M}
+    outs = {}
+    for mm, path in ((False, "16b_resize_matmul_false"),
+                     (True, "16b_resize_matmul")):
+        open_window()
+        outs[mm], host_ms = timed_steps(torch, steps[mm], wms, wms_bounds, 5)
+        _, dev_ms = timed_steps(torch, steps[mm], dev_wms, dev_wms_bounds,
+                                S2D_TIMED)
+        close_window(path, ["nms_suppress"])
+        b["matrix" if mm else "resize"] = {"step_ms_host_input": host_ms,
+                                           "step_ms_device_input": dev_ms}
+    check_output(torch, "16b resize_matmul false step", outs[False])
+    ok, agree = detection_sets_agree(outs[False], outs[True])
+    rec_b = recall(outs[False], wms_bounds, wms_cars)
+    if not ok or rec_b < 0.8:
+        fail(f"16b: against the matrix step {agree}, recall {rec_b:.3f}")
+    b.update(agree_matrix_step=agree, recall=rec_b,
+             deltas=detection_deltas(outs[False], outs[True]),
+             detections=int(outs[False][0].valid.sum()))
+    print(f"16b resize_matmul false on {B} {WMS_PX}-px tiles: "
+          f"{b['resize']['step_ms_device_input']:.2f} ms a step on the card "
+          f"({b['resize']['step_ms_host_input']:.2f} host input) against "
+          f"the matrix step's {b['matrix']['step_ms_device_input']:.2f} "
+          f"({b['matrix']['step_ms_host_input']:.2f}); agreement {agree}, "
+          f"recall {rec_b:.3f} [{card}]", flush=True)
+    del steps, dev_wms, outs
+
+    # 16c: multiscale with resize_matmul false against phase 7's step
+    ms_cfg = dict(base, multiscale=[0.85, 1.0, 1.15])
+    if ms_step is None:
+        ms_step = build_detect_step(DetectorConfig.from_dict(ms_cfg))
+    ms_false = build_detect_step(DetectorConfig.from_dict(
+        dict(ms_cfg, resize_matmul=False)))
+    open_window()
+    out_f, ms_f = timed_steps(torch, ms_false, images, bounds, 5)
+    close_window("16c_multiscale_resize_false", ["nms_suppress"])
+    out_m, ms_m = timed_steps(torch, ms_step, images, bounds, 5)
+    check_output(torch, "16c multiscale resize_matmul false", out_f)
+    deltas = detection_deltas(out_f, out_m)
+    bit_equal = same_detections(torch, out_f, out_m)
+    if deltas["unmatched"]:
+        fail(f"16c: against phase 7's multiscale step {deltas}")
+    rec["multiscale_resize_matmul_false"] = {
+        "step_ms_host_input": ms_f, "matrix_step_ms_host_input": ms_m,
+        "deltas": deltas, "bit_equal": bit_equal,
+        "detections": int(out_f[0].valid.sum())}
+    print(f"16c multiscale resize_matmul false: {ms_f:.2f} ms a step against "
+          f"{ms_m:.2f} for the matrix resize; every detection matched "
+          f"({deltas}); bit-equal: {bit_equal} [{card}]", flush=True)
+    del ms_false
+
+    # 16d: YOLOv7(s2d_stem=True), the trained stem embedded
+    variables = embed_stem(load_params(FIXTURE))
+    s2d = s2d_bundle(variables, torch.bfloat16)
+    if s2d.supports_s2d2():
+        fail("16d: an s2d-stem bundle claims the quad-stem lowering")
+    try:
+        quantize_bundle(s2d, [images[:8]])
+        fail("16d: int8 quantized an s2d-stem bundle")
+    except NotImplementedError as e:
+        if "s2d_stem experiment" not in str(e):
+            fail(f"16d: int8 refused with {e}")
+        int8_message = str(e)
+    turnkey = build_detect_step(DetectorConfig.from_dict(dict(
+        base, quantize="int8", quantize_calib_batches=1)), bundle=s2d)
+    turnkey(images, bounds)
+    torch.cuda.synchronize()
+    turnkey_state = (turnkey.quantize_state, turnkey.fallback_reason)
+    if turnkey_state[0] != "bf16-fallback" \
+            or "s2d_stem experiment" not in (turnkey_state[1] or ""):
+        fail(f"16d turnkey int8: {turnkey_state}")
+    del turnkey
+    s2d_step = build_detect_step(DetectorConfig.from_dict(base), bundle=s2d)
+    quad = build_detect_step(DetectorConfig.from_dict(base))
+    plain = build_detect_step(DetectorConfig.from_dict(
+        dict(base, quad_stem=False)))
+    if (s2d_step.input_layout, quad.input_layout) != ("hwc", "s2d2"):
+        fail(f"16d: layouts {s2d_step.input_layout}, {quad.input_layout}")
+    dev_images = torch.from_numpy(images).cuda()
+    dev_bounds = torch.from_numpy(bounds).cuda()
+    times, outs = {}, {}
+    open_window()
+    for label, step in (("s2d", s2d_step), ("quad", quad), ("plain", plain),
+                        ("s2d", s2d_step)):
+        outs[label], ms = timed_steps(torch, step, dev_images, dev_bounds,
+                                      S2D_TIMED)
+        times.setdefault(label, []).append(ms)
+    close_window("16d_s2d_stem", ["nms_suppress"])
+    if s2d.quad is not None:
+        fail("16d: the s2d-stem step built a quad stem")
+    check_output(torch, "16d s2d-stem step", outs["s2d"])
+    ok, agree = detection_sets_agree(outs["s2d"], outs["plain"])
+    rec_d = recall(outs["s2d"], bounds, cars)
+    if not ok or rec_d < 0.8:
+        fail(f"16d: against the plain-stem step {agree}, recall {rec_d:.3f}")
+    # f32 raw maps, card against CPU, cuDNN's TF32 off
+    x = torch.from_numpy(images[:2]).permute(0, 3, 1, 2).float() / 255.0
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        want = s2d_bundle(variables, torch.float32, "cpu").module(x)
+        got = [o.cpu() for o in s2d_bundle(
+            variables, torch.float32).module(x.cuda())]
+    torch.backends.cudnn.allow_tf32 = tf32
+    rel = [float((g - w).abs().max() / w.abs().max())
+           for g, w in zip(got, want)]
+    if max(rel) > 1e-3:
+        fail(f"16d: f32 raw maps card vs CPU {rel} of the largest")
+    rec["s2d_stem"] = {
+        "step_ms_device_input": times["s2d"], "quad_ms": times["quad"],
+        "plain_ms": times["plain"], "agree_plain_stem": agree,
+        "recall": rec_d, "deltas": detection_deltas(outs["s2d"],
+                                                    outs["plain"]),
+        "raw_maps_f32_card_vs_cpu_rel": rel, "supports_s2d2": False,
+        "int8_refusal": int8_message, "turnkey_int8": turnkey_state}
+    print(f"16d s2d stem: {min(times['s2d']):.2f} ms a step (device input) "
+          f"against quad {times['quad'][0]:.2f}, plain {times['plain'][0]:.2f}"
+          f"; against the plain stems {agree}, recall {rec_d:.3f}; f32 raw "
+          f"maps card vs CPU {max(rel):.2e} of the largest; no quad stem, "
+          f"int8 refused, turnkey stays bf16 [{card}]", flush=True)
+    del s2d, s2d_step, quad, plain, outs
+
+    # 16e: the packed XUnet against the standard forward
+    packed_xunet(torch, record, card)
+    rec["phase_s"] = time.perf_counter() - t16
+    print(f"16. the lowerings' phase took {rec['phase_s']:.1f} s [{card}]",
+          flush=True)
+
+
+def packed_xunet(torch, record, card):
+    """16e: the packed XUnet-256 (trained fixture, 256 px, B=16, phase 12's
+    held-out tiles) against the standard forward: bf16 masks IoU ≥ 0.99,
+    f32 logits card vs CPU within 1e-3 of their largest magnitude (TF32
+    off); ms a batch of each, and ``host_s2d``'s."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.fetch.fake import FakeWorld
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        load_params)
+    from aerial_image_recognition_tpu_torch.ops.packed_unet import (
+        PackedXUnet, host_s2d, s2d_unpack)
+    from aerial_image_recognition_tpu_torch.ops.preprocess import (
+        preprocess_batch)
+    tiles, _, _ = seg_tiles(FakeWorld(**SEG_WORLD), SEG_B, seed=123)
+    variables = load_params(XUNET_FIXTURE)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        packed_host = host_s2d(tiles)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    dev_tiles = torch.from_numpy(tiles).cuda()
+    dev_packed = torch.from_numpy(packed_host).cuda()
+    std = create_model("xunet_256", dtype=torch.bfloat16,
+                       params_path=XUNET_FIXTURE, fold_bn=True)
+    packed = PackedXUnet(variables, dtype=torch.bfloat16, device="cuda")
+    x = preprocess_batch(dev_tiles, out_size=SEG_SIZE, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        m_std = (std.forward(x)[..., 0] > 0).cpu().numpy()
+        m_packed = (s2d_unpack(packed(dev_packed))[..., 0] > 0).cpu().numpy()
+        ms = {"standard": [], "packed": []}
+        for _ in range(2):
+            ms["standard"].append(cuda_ms(lambda: std.forward(
+                preprocess_batch(dev_tiles, out_size=SEG_SIZE,
+                                 dtype=torch.bfloat16)), 20))
+            ms["packed"].append(cuda_ms(lambda: packed(dev_packed), 20))
+    iou_b = iou(m_packed, m_std)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        xs = torch.from_numpy(packed_host[:2])
+        want = PackedXUnet(variables, dtype=torch.float32)(xs)
+        got = PackedXUnet(variables, dtype=torch.float32,
+                          device="cuda")(xs.cuda()).cpu()
+    torch.backends.cudnn.allow_tf32 = tf32
+    rel = float((got - want).abs().max() / want.abs().max())
+    if iou_b < 0.99 or rel > 1e-3 or tuple(got.shape) != (
+            2, SEG_SIZE // 2, SEG_SIZE // 2, 4):
+        fail(f"16e packed XUnet: bf16 masks IoU {iou_b:.4f} against the "
+             f"standard forward, f32 card vs CPU {rel:.2e}, shape "
+             f"{tuple(got.shape)}")
+    record["lowerings"]["packed_xunet"] = {
+        "batch": SEG_B, "size": SEG_SIZE, "mask_iou_standard_bf16": iou_b,
+        "logits_f32_card_vs_cpu_rel": rel, "packed_ms": ms["packed"],
+        "standard_ms": ms["standard"], "host_s2d_ms": host_ms}
+    print(f"16e packed XUnet-256: {min(ms['packed']):.3f} ms a batch of "
+          f"{SEG_B} (uint8 s2d on the card) against the standard forward's "
+          f"{min(ms['standard']):.3f} (with its /255 preprocess); masks IoU "
+          f"{iou_b:.4f}; f32 logits card vs CPU {rel:.2e} of the largest; "
+          f"host_s2d {host_ms:.2f} ms a batch [{card}]", flush=True)
+
+
+def lowerings_only(torch, record, card) -> None:
+    """``--lowerings-only``: phase 3's kernel checks (NMS, CLAHE), then
+    phase 16. The kernel line holds the NMS and CLAHE kernels."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.clahe_kernel import (
+        apply_luts)
+    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
+        nms_suppress)
+    nms = check_nms_kernel(torch, record)
+    clahe = check_clahe_kernel(torch, record)
+    print(f"nms_suppress: bit-identical to plain on "
+          f"{len(record['nms_cases'])} cases; clahe_apply: raw f32 equal to "
+          f"plain on {len(record['clahe_cases'])} cases [{card}]", flush=True)
+    images, bounds, cars = render_tiles(np.random.default_rng(1), B, SIZE)
+    launches = {}
+    open_window, close_window = launch_window(
+        {"nms_suppress": nms_suppress, "clahe_apply": apply_luts}, launches)
+    lowerings(torch, record, card, images, bounds, cars, open_window,
+              close_window)
+    record["launches_by_path"] = launches
+    record["kernels"] = [nms, clahe]
+    for entry in record["kernels"]:
+        entry["launches"] = sum(p.get(entry["name"], 0)
+                                for p in launches.values())
+        entry["launches_by_path"] = {path: p.get(entry["name"], 0)
+                                     for path, p in launches.items()}
+
+
 def quad_only(torch, record, card) -> None:
     """``--quad-only``: the NMS and int8 epilogue kernels against their
     plain versions, then phase 15 (a–d). The kernel line holds the NMS
@@ -5201,15 +5592,16 @@ def main() -> None:
              "--segment-only": "chip_smoke_segment.json",
              "--train-only": "chip_smoke_train.json",
              "--parallel-only": "chip_smoke_parallel.json",
-             "--quad-only": "chip_smoke_quad.json"}
+             "--quad-only": "chip_smoke_quad.json",
+             "--lowerings-only": "chip_smoke_lowerings.json"}
     mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in modes:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
              "--scan-only for the city scan's phases alone, with "
              "--front-ends-only for the CLI's, with --segment-only for "
              "segmentation's, with --train-only for training's, with "
-             "--parallel-only for multi-GPU's or with --quad-only for the "
-             "quad stem's")
+             "--parallel-only for multi-GPU's, with --quad-only for the "
+             "quad stem's or with --lowerings-only for phase 16's")
     try:
         import torch
     except ImportError as e:
@@ -5278,6 +5670,10 @@ def main() -> None:
         return
     if mode == "--quad-only":
         quad_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
+        return
+    if mode == "--lowerings-only":
+        lowerings_only(torch, record, card)
         finish(torch, record, name, modes[mode])
         return
 
@@ -5630,6 +6026,11 @@ def main() -> None:
     record["quad_stem"]["phase_s"] = time.perf_counter() - t15
     print(f"15. the quad stem's phase took "
           f"{record['quad_stem']['phase_s']:.1f} s [{card}]", flush=True)
+
+    # 16. the resize lowerings, assemble_mosaic, the s2d stem, the packed
+    # XUnet
+    lowerings(torch, record, card, images, bounds, cars, open_window,
+              close_window, ms_step=ms_step)
 
     # 9. the other detector families
     kernel["ms_class_aware_v8_step"] = other_families(

@@ -259,3 +259,33 @@ def test_spatial_detect_equals_one_device(shards, trained):
     x = torch.arange(2 * 3 * 10 * 4, dtype=torch.float32).reshape(2, 3, 10, 4)
     r = SP.RowShards.split(x, [torch.device("cpu")] * 4)     # rows 2,3,2,3
     assert torch.equal(space_to_depth2(r).whole(), space_to_depth2(x))
+
+
+def test_turnkey_int8_falls_back_as_jax(trained, tiles):
+    """Turnkey int8 on an s2d-stem bundle: the reference's
+    ``SelfQuantizingStep`` catches the refusal and stays float, with the
+    message as its reason; the port's does the same (it catches
+    ``quantize_bundle``'s NotImplementedError beside KeyError/ValueError)."""
+    from aerial_image_recognition_tpu.pipeline.inference import (
+        build_detect_step as jax_build_detect_step)
+    from aerial_image_recognition_tpu.runtime.config import (
+        DetectorConfig as JaxDetectorConfig)
+    variables = embed_stem(trained)
+    extra = dict(CFG, quantize="int8", quantize_calib_batches=1)
+    images, bounds = tiles
+    jb = jax_create_model("yolov7_itcvd", dtype=jnp.float32)
+    jb = dataclasses.replace(
+        jb, module=JaxYOLOv7(num_classes=1, variant="tiny",
+                             dtype=jnp.float32, s2d_stem=True),
+        params=jax.tree_util.tree_map(jnp.asarray, variables))
+    jstep = jax_build_detect_step(JaxDetectorConfig.from_dict(extra),
+                                  bundle=jb, batch=2, model_size=S)
+    jstep(images, bounds)
+    step = build_detect_step(DetectorConfig.from_dict(extra),
+                             bundle=s2d_bundle(variables), batch=2,
+                             model_size=S, device="cpu")
+    det = step(images, bounds)[0]
+    assert step.quantize_state == jstep.quantize_state == "bf16-fallback"
+    for reason in (step.fallback_reason, jstep.fallback_reason):
+        assert "s2d_stem experiment" in reason
+    assert int(det.valid.sum()) >= 2
