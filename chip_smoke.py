@@ -4739,7 +4739,10 @@ def stem_chain_ms(torch, step, dev_images):
     """(ms by CUDA events, torch.profiler's device time by kernel) of the
     step's stem chain alone, from the uint8 batch on the card to the P2
     feature: the quad stem on the packed batch, or the preprocess (cast,
-    /255) and the two plain stems."""
+    /255) and the two plain stems (``space_to_depth2`` before them for
+    ``YOLOv7(s2d_stem=True)``)."""
+    from aerial_image_recognition_tpu_torch.models.layers import (
+        space_to_depth2)
     from aerial_image_recognition_tpu_torch.ops.preprocess import (
         preprocess_batch)
     bundle = step.bundle
@@ -4755,6 +4758,8 @@ def stem_chain_ms(torch, step, dev_images):
 
         def chain():
             x = preprocess_batch(dev_images, out_size=SIZE, dtype=dtype)
+            if getattr(module, "s2d_stem", False):
+                x = space_to_depth2(x)
             return module.stem1(module.stem0(x))
     with torch.inference_mode():
         return cuda_ms(chain, 20), profile_calls(torch, chain, 3)
@@ -5251,6 +5256,9 @@ def lowerings(torch, record, card, images, bounds, cars, open_window,
     close_window("16d_s2d_stem", ["nms_suppress"])
     if s2d.quad is not None:
         fail("16d: the s2d-stem step built a quad stem")
+    chains = {label: stem_chain_ms(torch, step, dev_images)
+              for label, step in (("s2d", s2d_step), ("quad", quad),
+                                  ("plain", plain))}
     check_output(torch, "16d s2d-stem step", outs["s2d"])
     ok, agree = detection_sets_agree(outs["s2d"], outs["plain"])
     rec_d = recall(outs["s2d"], bounds, cars)
@@ -5275,12 +5283,19 @@ def lowerings(torch, record, card, images, bounds, cars, open_window,
         "recall": rec_d, "deltas": detection_deltas(outs["s2d"],
                                                     outs["plain"]),
         "raw_maps_f32_card_vs_cpu_rel": rel, "supports_s2d2": False,
-        "int8_refusal": int8_message, "turnkey_int8": turnkey_state}
+        "int8_refusal": int8_message, "turnkey_int8": turnkey_state,
+        "stem_chain_ms": {k: v[0] for k, v in chains.items()},
+        "stem_chain_profile": {k: v[1] for k, v in chains.items()}}
     print(f"16d s2d stem: {min(times['s2d']):.2f} ms a step (device input) "
           f"against quad {times['quad'][0]:.2f}, plain {times['plain'][0]:.2f}"
           f"; against the plain stems {agree}, recall {rec_d:.3f}; f32 raw "
           f"maps card vs CPU {max(rel):.2e} of the largest; no quad stem, "
-          f"int8 refused, turnkey stays bf16 [{card}]", flush=True)
+          f"int8 refused, turnkey stays bf16; stem chain "
+          + ", ".join(f"{k} {v[0]:.3f} ms" for k, v in chains.items())
+          + "; s2d chain's top kernels: " + "; ".join(
+              f"{r['ms_per_step']:.3f} ms {r['name'][:50]}"
+              for r in chains["s2d"][1].get("top", [])[:4])
+          + f" [{card}]", flush=True)
     del s2d, s2d_step, quad, plain, outs
 
     # 16e: the packed XUnet against the standard forward
