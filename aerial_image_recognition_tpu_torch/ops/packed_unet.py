@@ -88,6 +88,12 @@ def _oihw(w, dtype: torch.dtype, device) -> torch.Tensor:
     return w.permute(3, 2, 0, 1).contiguous().to(device, dtype)
 
 
+def _bias(b, dtype: torch.dtype, device) -> torch.Tensor:
+    """A [C] bias as a [C,1,1] tensor of ``dtype``, to add to NCHW maps."""
+    return torch.from_numpy(np.array(b, np.float32)).to(
+        device, dtype)[:, None, None]
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -123,8 +129,7 @@ def s2d_conv3x3(x: torch.Tensor, kernels, bias=None, act=None):
     s2d_conv3x3_kernel. Returns [B,H2,W2,4Cout] in s2d order."""
     k = {ab: _oihw(w, x.dtype, x.device) for ab, w in kernels.items()}
     if bias is not None:
-        bias = torch.from_numpy(np.array(bias, np.float32)).to(
-            x.device, x.dtype)[:, None, None]
+        bias = _bias(bias, x.dtype, x.device)
     return _s2d_conv3x3_oihw(x, k, bias, act)
 
 
@@ -135,14 +140,19 @@ def _s2d_pool_to_standard(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h2, w2, 4, c4 // 4).amax(dim=3)
 
 
+def _conv_oihw(x: torch.Tensor, w: torch.Tensor, bias, act,
+               stride: int = 1) -> torch.Tensor:
+    """``_conv`` over a kernel already OIHW in ``x``'s dtype and a bias
+    already in it."""
+    o = F.conv2d(_nchw(x), w, None, stride, w.shape[-1] // 2)
+    return _nhwc(_bias_act(o, bias, act))
+
+
 def _conv(x: torch.Tensor, w, bias, act, stride: int = 1) -> torch.Tensor:
     """NHWC conv with symmetric k//2 padding, + bias, act (the reference's
     ``_conv``); ``w`` HWIO."""
-    wt = _oihw(w, x.dtype, x.device)
-    bt = torch.from_numpy(np.array(bias, np.float32)).to(
-        x.device, x.dtype)[:, None, None]
-    o = F.conv2d(_nchw(x), wt, None, stride, wt.shape[-1] // 2)
-    return _nhwc(_bias_act(o, bt, act))
+    return _conv_oihw(x, _oihw(w, x.dtype, x.device),
+                      _bias(bias, x.dtype, x.device), act, stride)
 
 
 def fold_xunet(variables: Dict, eps: float = 1e-3) -> Dict:
@@ -177,9 +187,6 @@ class PackedXUnet:
         self.dtype, self.device = dtype, torch.device(device)
         scale = np.float32(1.0 / 255.0)
 
-        def bias(b):
-            return torch.from_numpy(b).to(self.device, dtype)[:, None, None]
-
         def packed(scope, cin_scale=None):
             convs = []
             for name in ("cv1", "cv2"):
@@ -188,29 +195,26 @@ class PackedXUnet:
                     w = w * cin_scale       # the /255 rides enc0's first conv
                 convs.append(({(a, c): _oihw(s2d_conv3x3_kernel(w, a, c),
                                              dtype, self.device)
-                               for a in (0, 1) for c in (0, 1)}, bias(b)))
+                               for a in (0, 1) for c in (0, 1)},
+                              _bias(b, dtype, self.device)))
             return convs
-
-        def std(name):
-            w, b = f[name]
-            return _oihw(w, dtype, self.device), bias(b)
 
         self.enc0 = packed("enc0", scale)
         self.dec3 = packed("dec3")
-        self.std = {f"{s}/{n}": std(f"{s}/{n}")
-                    for s in ("enc1", "enc2", "enc3", "bottleneck", "dec0",
-                              "dec1", "dec2") for n in ("cv1", "cv2")}
-        self.up = [std(f"up{i}") for i in range(4)]
+        self.std = {k: (_oihw(w, dtype, self.device),
+                        _bias(b, dtype, self.device))
+                    for k, (w, b) in f.items()
+                    if k.split("/")[0] not in ("enc0", "dec3", "mask_out")}
         wm, bm = f["mask_out"]
         self.wm = torch.from_numpy(wm.reshape(wm.shape[-2], -1)).to(
             self.device)
         self.bm = torch.from_numpy(bm).to(self.device)
 
-    def _conv(self, x, name_or_wb, act=torch.relu):
-        w, b = self.std[name_or_wb] if isinstance(name_or_wb, str) \
-            else name_or_wb
-        o = F.conv2d(_nchw(x), w, None, 1, w.shape[-1] // 2)
-        return _nhwc(_bias_act(o, b, act))
+    def _conv(self, x, name, act=torch.relu):
+        return _conv_oihw(x, *self.std[name], act)
+
+    def _block(self, x, scope):
+        return self._conv(self._conv(x, f"{scope}/cv1"), f"{scope}/cv2")
 
     def _packed_block(self, v, convs):
         for kernels, b in convs:
@@ -233,19 +237,19 @@ class PackedXUnet:
         v = _s2d_pool_to_standard(enc0)                     # [B,h,w,c]
         skips = []
         for scope in ("enc1", "enc2", "enc3"):
-            v = self._conv(self._conv(v, f"{scope}/cv1"), f"{scope}/cv2")
+            v = self._block(v, scope)
             skips.append(v)
             v = _nhwc(F.max_pool2d(_nchw(v), 2, 2))
-        v = self._conv(self._conv(v, "bottleneck/cv1"), "bottleneck/cv2")
+        v = self._block(v, "bottleneck")
         for i, scope in enumerate(("dec0", "dec1", "dec2")):
             v = _nhwc(F.interpolate(_nchw(v), scale_factor=2,
                                     mode="nearest"))
-            v = self._conv(v, self.up[i])
+            v = self._conv(v, f"up{i}")
             v = torch.cat([v, skips[-(i + 1)]], dim=-1)
-            v = self._conv(self._conv(v, f"{scope}/cv1"), f"{scope}/cv2")
+            v = self._block(v, scope)
         # dec3 packed: the 2× upsample is a channel tile in s2d layout, so
         # up3's 1×1 conv runs once per source pixel
-        u3 = self._conv(v, self.up[3], act=None).relu()     # [B,h,w,c]
+        u3 = self._conv(v, "up3", act=None).relu()          # [B,h,w,c]
         e = enc0.reshape(*enc0.shape[:3], 4, -1)
         u = u3[:, :, :, None, :].expand(e.shape)
         v = torch.cat([u, e], dim=-1).reshape(*enc0.shape[:3], -1)

@@ -117,6 +117,15 @@ def _device_matrix(src: int, dst: int, method: str, scale: Optional[float],
     return _on_device[key]
 
 
+def _refuse_tf32(x: torch.Tensor) -> None:
+    """An f32 resize on the card runs only at full f32 precision."""
+    if x.device.type == "cuda" \
+            and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the f32 resize needs torch.set_float32_matmul_precision("
+            "'highest'): TF32 would round the operands to 10 bits")
+
+
 def _separable_resize_core(x: torch.Tensor, out_size: int, method: str,
                            out_dtype: torch.dtype, *,
                            scale: Optional[float],
@@ -133,11 +142,8 @@ def _separable_resize_core(x: torch.Tensor, out_size: int, method: str,
     h, w = x.shape[-2:]
     ry = _device_matrix(h, out_size, method, scale, compute_dtype, x.device)
     rx = _device_matrix(w, out_size, method, None, compute_dtype, x.device)
-    if compute_dtype == torch.float32 and x.device.type == "cuda" \
-            and torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError(
-            "the f32 resize needs torch.set_float32_matmul_precision("
-            "'highest'): TF32 would round the operands to 10 bits")
+    if compute_dtype == torch.float32:
+        _refuse_tf32(x)
     y = torch.matmul(ry, x.to(compute_dtype))               # [B,C,out,W]
     if out_dtype != compute_dtype:
         # the last product keeps its f32 sums: low-precision operands are
@@ -220,11 +226,8 @@ def resize(x: torch.Tensor, out_size: int, method: str) -> torch.Tensor:
     kind = _method(method)
     if kind == "nearest":
         return _resize_nearest(x, out_size)
-    if x.dtype == torch.float32 and x.device.type == "cuda" \
-            and torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError(
-            "the f32 resize needs torch.set_float32_matmul_precision("
-            "'highest'): TF32 would round the operands to 10 bits")
+    if x.dtype == torch.float32:
+        _refuse_tf32(x)
     h, w = x.shape[-2:]
     if h != out_size:
         x = torch.matmul(_device_matrix(h, out_size, method, None, x.dtype,

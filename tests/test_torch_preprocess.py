@@ -37,7 +37,8 @@ torch.set_num_threads(2)        # xdist workers share the cores
 PAIRS = [(864, 640), (640, 544), (640, 736), (64, 32), (64, 96)]
 
 
-@pytest.mark.parametrize("method", ["bilinear", "lanczos3"])
+@pytest.mark.parametrize("method", ["bilinear", "lanczos3", "cubic",
+                                    "lanczos5", "tricubic", "triangle"])
 @pytest.mark.parametrize("src,dst", PAIRS)
 def test_resize_matrix_matches_jax(src, dst, method):
     want = J._resize_matrix(src, dst, method)
@@ -174,16 +175,6 @@ def test_preprocess_every_method_matches_jax(method, geometry, matmul, dtype):
         assert np.abs(got - want).mean() < 1e-4
 
 
-@pytest.mark.parametrize("method", ["cubic", "lanczos5", "tricubic",
-                                    "triangle"])
-@pytest.mark.parametrize("src,dst", PAIRS)
-def test_resize_matrix_new_kernels_match_jax(src, dst, method):
-    want = J._resize_matrix(src, dst, method)
-    got = P._resize_matrix(src, dst, method)
-    np.testing.assert_allclose(got, want, atol=2.5e-7, rtol=0)
-    np.testing.assert_array_equal(got == 0, want == 0)
-
-
 def test_nearest_index_is_the_compiled_reference():
     """XLA folds the reference's ``(i + 0.5)·m / n`` into
     ``(i + 0.5)·(m·(1/n))``; the port's host index vector is that, on every
@@ -241,12 +232,12 @@ def test_resize_matches_jax_image_resize(src, dst, method):
         np.testing.assert_allclose(_nhwc(got), exact, atol=5e-7, rtol=0)
 
 
-def test_multiscale_resize_is_not_the_matrix_path_in_f32():
-    """``resize`` contracts f32 in f32; ``matmul_resize_float`` too, but the
-    preprocess's matrix path (``_matmul_resize``) rounds the pixels and
-    weights to bf16: on the 1280 → 640 geometry ``matmul=False`` and
-    ``matmul=True`` differ by up to ~3e-3, and each equals its own
-    reference lowering."""
+def test_matmul_false_is_not_the_matrix_path():
+    """The preprocess's matrix path (``_matmul_resize``) rounds the pixels
+    and weights to bf16, ``matmul=False`` contracts x/255 in f32: on the
+    1280 → 640 geometry they differ by more than 1e-3 (the reference's own
+    two lowerings differ by up to 3.2e-3 there), so the one is no stand-in
+    for the other."""
     img = _tiles(6, 1, 1280)
     a = P.preprocess_batch(torch.from_numpy(img), out_size=640,
                            dtype=torch.float32, matmul=False)
