@@ -23,11 +23,17 @@ operations shard by shard:
 * any other operation on row-sharded activations raises
   NotImplementedError: a mesh never quietly becomes its first device.
 
-An ``Int8Bundle``'s float stems run on ``RowShards``; its int8 trunk runs
-on ``_Rows`` (NHWC codes split by rows) through ``_RowsRun``, which gives
-each trunk operation (convolution, the pools, the upsample, the residual
-add, the channel split) its halo rows in the same way, on each device's
-copy of the int8 qparams; the head taps meet on the first device.
+An ``Int8Bundle``'s float stems run whole on the first device and their
+P2 codes are split by rows: a float sum over a slab of rows may round
+otherwise than over the whole image (cuDNN picks its algorithm by shape;
+on an H100, four slabs of 160 rows of a 64-tile batch flip 100 of
+YOLOv7-tiny's P2 codes), and the integer trunk carries a flipped code to
+the detections. Its int8
+trunk runs on ``_Rows`` (NHWC codes split by rows) through ``_RowsRun``,
+which gives each trunk operation (convolution, the pools, the upsample,
+the residual add, the channel split) its halo rows in the same way, on
+each device's copy of the int8 qparams, exactly on any slab; the head
+taps meet on the first device.
 
 Every activation of a given height is split the same way (``row_edges``),
 so two of them always line up. The weights of a conv live on the bundle's
@@ -448,9 +454,9 @@ class _RowsRun:
 class _SpatialBundle:
     """A bundle whose trunk runs on ``RowShards``: ``forward`` splits the
     preprocessed images by rows over the mesh, and the outputs come back
-    whole on the first device. An ``Int8Bundle``'s trunk runs on
-    ``_Rows`` (``_RowsRun``) over a replica of its int8 qparams on each
-    device."""
+    whole on the first device. An ``Int8Bundle``'s float stems run whole
+    on its device, and its int8 trunk on ``_Rows`` (``_RowsRun``) over a
+    replica of its int8 qparams on each device."""
 
     def __init__(self, bundle, devices: Sequence[torch.device]):
         from aerial_image_recognition_tpu_torch.models.int8 import (
@@ -472,19 +478,23 @@ class _SpatialBundle:
                  for d, r in replicas.items()}, self.devices))
 
     def forward(self, images: torch.Tensor):
-        x = RowShards.split(images, self.devices, self.weights)
         if self.int8 is None:
-            return _whole(self.bundle.forward(x))
+            return _whole(self.bundle.forward(
+                RowShards.split(images, self.devices, self.weights)))
         from aerial_image_recognition_tpu_torch.models.int8 import (
             QT, _module_dtype)
-        replicas, run = self.int8
+        _, run = self.int8
         b = self.bundle
-        p2 = b.module.stems(x.to(_module_dtype(b.module)))
-        with torch._C.DisableTorchFunctionSubclass():
-            codes = _Rows([replicas[d]._p2_quantize(p)
-                           for d, p in zip(p2.devices, p2.parts)],
-                          p2.devices)
-        taps = b.trunk_codes(codes, g=run)
+        # the float stems run whole: on the card their sums depend on the
+        # slab's height (cuDNN picks its algorithm by shape), and a P2 code
+        # that flips there moves the integer trunk's outputs; from the
+        # codes on, every operation is exact on any slab
+        codes = b._p2_quantize(b.module.stems(
+            images.to(_module_dtype(b.module))))
+        e = row_edges(codes.shape[1], len(self.devices))
+        taps = b.trunk_codes(_Rows([codes[:, e[k]:e[k + 1]].to(d)
+                                    for k, d in enumerate(self.devices)],
+                                   self.devices), g=run)
         return b.decode(b.raw_from_taps([QT(t.v.whole(), t.s, t.c)
                                          for t in taps]))
 

@@ -13,18 +13,22 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """None → ``cuda`` (raises without CUDA); anything else as given."""
+    """None → the caller's current card (raises without CUDA); anything
+    else as given. A card is returned with its index (``canonical``): the
+    current card belongs to the thread, and a new thread starts on card 0,
+    so a bare ``cuda`` would name card 0 in the server's batch thread or
+    the device monitor's thread of a process driving card k."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available and no device was given; pass "
                 "device='cpu' to run on the CPU explicitly")
-        return torch.device("cuda")
+        return canonical("cuda")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
-    return device
+    return canonical(device)
 
 
 def canonical(device) -> torch.device:

@@ -165,25 +165,44 @@ Phases (any failure exits nonzero, and no result line is printed):
      JPEG tiles of a COCO json) and ``val`` on its checkpoint as counted
      children: exit 0, their JSON, val's mAP50 equal to an in-process
      ``evaluate`` of the checkpoint, one NMS launch an eval batch in each.
- 14. multi-GPU, run last (``multi_gpu``; the card count is printed): (a)
-     the data-parallel detect step at phase 4's width over ``make_mesh()``
-     and over two shards of one card, against the single-device step; NMS
-     launches = shards × steps, ms and host syncs a step; turnkey int8
-     under each mesh reaching ``int8``, 55 epilogue launches a shard a
-     step (53 trunk convs and the quad stem's two); (b) the upload ring
-     over the two-shard step, a ``CarDetector`` scan with
-     ``data_parallel: true`` of 10b's world bit-equal to a
-     single-device scan, and the two-shard step's raw records of 11b's AOI;
-     (c) ``detect --data-parallel`` and ``serve --data-parallel`` as
+ 14. multi-GPU, run last (``multi_gpu``; every card's name and power limit
+     are printed, and with two cards or more the links between them). Two
+     meshes: ``make_mesh()``, every visible card, and two shards of
+     cuda:0. On one card ``make_mesh()`` is one shard: (a)–(d) and (g) run
+     over both meshes as on several cards, and each case that needs two
+     cards or more prints one line saying it could not run, and why. On
+     four cards every case runs on distinct cards. (a) the data-parallel
+     detect step at phase 4's width over each mesh against the
+     single-device step; NMS launches = shards × steps, ms and host syncs
+     (none) a step; turnkey int8 under each mesh reaching ``int8``, 55
+     epilogue launches a shard a step (53 trunk convs and the quad stem's
+     two); with two cards or more the float and int8 steps against one card
+     at the same global batch, 64 tiles and 64 a card; (b) the upload ring
+     over one device's step and each mesh's (ms a batch), a
+     ``CarDetector`` scan with ``data_parallel: true`` of
+     10b's world bit-equal to one card's scan over the same shards (on one
+     card the single-device scan) and, with several cards, matching the
+     single-device scan as the two-shard scan must, tiles/s of each, and
+     the two-shard step's raw records of 11b's AOI; (c) ``detect
+     --data-parallel`` and ``serve --data-parallel`` (every card) as
      counted children against the same runs in this process; (d)
-     ``halo_dedup_host`` at ``k_slots`` 4096 on (b)'s raw records equal to
-     ``dedup_host``; (e) a world of one on NCCL, then two processes sharing
-     the card over gloo (one process per card on NCCL with two cards or
-     more), 13a's fine-tune as a data-parallel train step: bit-equal
-     across processes, within 2·lr a step of one process; (f) YOLOv8l's
-     train step (768 px, batch 8, batch BN) over two shards of one card
-     against one device; (g) spatial inference, the trunk's rows over each
-     mesh, against the unsharded detect function.
+     ``halo_dedup_host`` over each mesh at ``k_slots`` 4096 on (b)'s raw
+     records equal to ``dedup_host``, ms a shard; (e) a world of one on
+     NCCL, then a world of every card on NCCL (a process a card; on one
+     card two processes share it over gloo instead), 13a's fine-tune as a
+     data-parallel train step: bit-equal across processes, within 2·lr a
+     step of one process; with two cards or more a stripe scan on NCCL,
+     each process scanning its stripe of 10b's AOI through
+     ``CarDetector(tile_filter=...)``: tiles adding up to the single
+     scan's, raw records bit-equal as a set, the merge equal to the single
+     scan's dedup; (f) YOLOv8l's train step (768 px, batch 8, batch BN)
+     over two shards of one card and, with two cards or more, over
+     ``make_mesh()`` (also timed at 8 rows a card), against one device
+     with f64 BN statistics, remat each; (g) spatial inference, the
+     trunk's rows over each mesh and over four shards of cuda:0, against
+     the unsharded detect function (int8 bit-equal).
+     A gate of phase 14 that fails is printed at once; the phase fails at
+     its end, so that one run on several cards reads every case.
  15. the quad stem, run after phase 8 (the default step of phases 4, 5, 8,
      10 and 14 is the quad stem already): (a) the default step against the
      same config with ``quad_stem: false`` at phase 4's shape, in turns
@@ -753,10 +772,10 @@ def timed_steps(torch, step, images, bounds, n: int):
     return out, (time.perf_counter() - t0) / n * 1e3
 
 
-def check_output(torch, label, out):
-    """Shapes and finiteness of a step's (Detections, lon, lat)."""
+def check_output(torch, label, out, b: int = B):
+    """Shapes ([b, D]) and finiteness of a step's (Detections, lon, lat)."""
     det, lon, lat = out
-    if tuple(det.boxes.shape) != (B, D, 4) or tuple(lon.shape) != (B, D):
+    if tuple(det.boxes.shape) != (b, D, 4) or tuple(lon.shape) != (b, D):
         fail(f"{label}: output shapes {tuple(det.boxes.shape)} "
              f"{tuple(lon.shape)}")
     for name, t in (("boxes", det.boxes), ("scores", det.scores),
@@ -1461,8 +1480,7 @@ def city_scan(torch, record, card, open_window, close_window):
     import numpy as np
     from aerial_image_recognition_tpu_torch.fetch.fake import (
         FakeTileServer, FakeWorld)
-    from aerial_image_recognition_tpu_torch.gio.geojson import (
-        read_geojson, write_geojson)
+    from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
     from aerial_image_recognition_tpu_torch.gio.shapefile import (
         read_shapefile)
     from aerial_image_recognition_tpu_torch.ops import nms_kernel
@@ -1473,11 +1491,7 @@ def city_scan(torch, record, card, open_window, close_window):
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     w, s, e, n = SCAN_AOI
-    frame = os.path.join(base, "aoi.geojson")
-    write_geojson({"type": "FeatureCollection", "features": [{
-        "type": "Feature", "properties": {}, "geometry": {
-            "type": "Polygon", "coordinates": [[[w, s], [e, s], [e, n],
-                                                [w, n], [w, s]]]}}]}, frame)
+    frame = aoi_frame(os.path.join(base, "aoi.geojson"), SCAN_AOI)
     world = FakeWorld(**SCAN_WORLD)
     srv = FakeTileServer(world)
     srv.start()
@@ -1488,15 +1502,9 @@ def city_scan(torch, record, card, open_window, close_window):
         shapes.append((tuple(boxes_t.shape), kw["max_det"]))
         return kernel(boxes_t, scores, classes, **kw)
 
-    det = CarDetector(base, {
-        "frame_path": frame, "use_xyz": False,
-        "wms_url": srv.base_url + "/wms", "wms_layer": "fake",
-        "wms_size": (SIZE, SIZE), "tile_size_meters": SCAN_TILE_M,
-        "tile_overlap": SCAN_OVERLAP, "confidence_threshold": 0.4,
-        "duplicate_distance": 2.0, "checkpoint_interval": 100,
-        "params_path": FIXTURE, "dtype": "bfloat16", "device_batch": B,
-        "batch_size": B, "num_workers": 16, "submit_spacing": 0.0,
-        "event_log": os.path.join(base, "events.jsonl")})
+    det = CarDetector(base, scan_config(
+        srv.base_url, frame, checkpoint_interval=100,
+        event_log=os.path.join(base, "events.jsonl")))
     torch.cuda.reset_peak_memory_stats()
     # the wrapper counts its launches on the module's nms_suppress, the spy
     # while it stands there; they go back on the wrapper's count after
@@ -3906,14 +3914,16 @@ DP_SCORE_MAX, DP_BOX_MAX = 5e-3, 0.1
 # unmatched within 0.5 m in every run on the H100 80GB HBM3 at 700 W (0.99891)
 DP_SCAN_MATCH = 0.998
 
+DP_PER_CARD_B = 64               # 14a: the per-card production batch
+DP_TRAIN_PER_CARD = 8            # 14f: the train verb's batch, a card
 DIST_CHILD = f"""
-import json, os, sys
+import json, os, sys, time
 sys.path.insert(0, {ROOT!r})
 import numpy as np, torch
 import chip_smoke as cs
 from {PORT}.parallel import distributed as D
 from {PORT}.parallel.mesh import make_mesh
-coord, rank, world, backend, out = sys.argv[1:6]
+coord, rank, world, backend, out, mode = sys.argv[1:7]
 rank, world = int(rank), int(world)
 ctx = D.initialize(coord, world, rank, backend=backend)
 dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -3921,17 +3931,99 @@ D.process_allgather(np.zeros(1, np.int32))
 mesh = make_mesh()                 # under the group: this process's card
 assert list(mesh.devices) == [dev] and mesh.size == world, mesh
 assert (ctx.local_devices, ctx.global_devices) == (1, world), ctx
-params, losses, ms = cs.dist_train(torch, mesh, dev, rank, world)
-sums = D.process_allgather(np.asarray([float(np.abs(v).sum())
-                                       for v in params.values()]))
-np.savez(out, **params)
-print(json.dumps({{"rank": ctx.process_index, "world": ctx.process_count,
-                  "backend": torch.distributed.get_backend(),
-                  "device": str(dev), "global_devices": ctx.global_devices,
-                  "losses": losses, "step_ms": ms,
-                  "sums_equal": bool((sums == sums[0]).all())}}), flush=True)
+assert torch.cuda.current_device() == dev.index
+report = {{"rank": ctx.process_index, "world": ctx.process_count,
+           "backend": torch.distributed.get_backend(), "device": str(dev),
+           "global_devices": ctx.global_devices}}
+if mode == "train":
+    params, losses, ms = cs.dist_train(torch, mesh, dev, rank, world)
+    sums = D.process_allgather(np.asarray([float(np.abs(v).sum())
+                                           for v in params.values()]))
+    np.savez(out, **params)
+    report.update(losses=losses, step_ms=ms,
+                  sums_equal=bool((sums == sums[0]).all()))
+else:
+    t0 = time.perf_counter()
+    tiles, recs, stripe = cs.dist_scan(os.path.dirname(out), sys.argv[7],
+                                       sys.argv[8], ctx, dev)
+    wall = time.perf_counter() - t0
+    counts = D.process_allgather(np.asarray([len(recs)], np.int64))
+    with open(out, "w") as f:
+        json.dump({{"tiles": tiles, "records": recs, "wall_s": wall,
+                   "host_stripe": stripe,
+                   "counts_allgather": counts.reshape(-1).tolist()}}, f)
+    report.update(tiles=tiles, records=len(recs), wall_s=wall)
+print(json.dumps(report), flush=True)
 D.shutdown()
 """
+
+
+def scan_config(server_url, frame, **extra):
+    """10b's scan (WMS JPEG, 640 px a 320 m tile, the trained fixture,
+    bf16, B=64) over ``frame``, with ``extra`` on top."""
+    return dict({
+        "frame_path": frame, "use_xyz": False,
+        "wms_url": server_url + "/wms", "wms_layer": "fake",
+        "wms_size": (SIZE, SIZE), "tile_size_meters": SCAN_TILE_M,
+        "tile_overlap": SCAN_OVERLAP, "confidence_threshold": 0.4,
+        "duplicate_distance": 2.0, "checkpoint_interval": 10**9,
+        "params_path": FIXTURE, "dtype": "bfloat16", "device_batch": B,
+        "batch_size": B, "num_workers": 16, "submit_spacing": 0.0}, **extra)
+
+
+def stripe_tiles(tiles, rank: int, world: int):
+    """The tiles of process ``rank``'s stripe of ``SCAN_AOI``: each tile
+    goes to the stripe whose UTM x range (``split_aoi_stripes`` without
+    its halo) holds the tile's centre, so the stripes split the grid."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.geo.tmerc import tm_forward
+    from aerial_image_recognition_tpu_torch.parallel.stripes import (
+        assign_to_stripes, split_aoi_stripes)
+    _, p, edges = split_aoi_stripes(SCAN_AOI, world, halo_m=0.0)
+    x, _ = tm_forward((tiles[:, 0] + tiles[:, 2]) / 2,
+                      (tiles[:, 1] + tiles[:, 3]) / 2, p)
+    return assign_to_stripes(np.asarray(x), edges, world) == rank
+
+
+def dist_scan(base, server_url, frame, ctx, dev):
+    """14e's stripe scan in one process: a ``CarDetector`` scan with
+    ``data_parallel: true`` of this process's stripe of 10b's AOI
+    (``stripe_tiles``) on its card ``dev``, the dedup off. Returns (tiles scanned, raw records, ``host_stripe``:
+    the halo-widened WGS84 stripe the process fetches from)."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.gio.geojson import (
+        feature_collection_to_detections, read_geojson)
+    from aerial_image_recognition_tpu_torch.parallel.distributed import (
+        host_stripe)
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+    rank, world = ctx.process_index, ctx.process_count
+    stripe = host_stripe(SCAN_AOI, ctx)
+
+    def keep(tiles):
+        # the grid overhangs the AOI: a tile's centre clamped to the AOI
+        # lies in the stripe this process fetches from
+        mask = stripe_tiles(tiles, rank, world)
+        cx = np.clip((tiles[mask, 0] + tiles[mask, 2]) / 2, SCAN_AOI[0],
+                     SCAN_AOI[2])
+        if not ((cx >= stripe[0]) & (cx <= stripe[2])).all():
+            raise AssertionError(f"a tile of stripe {rank} lies outside "
+                                 f"its host_stripe {stripe}")
+        return mask
+
+    det = CarDetector(os.path.join(base, f"stripe{rank}"),
+                      scan_config(server_url, frame, duplicate_distance=0.0,
+                                  data_parallel=True), tile_filter=keep)
+    out = det.detect(force_restart=True)
+    # data_parallel under the group: a mesh of this process's card that
+    # spans the processes
+    mesh = det.last_step.mesh
+    where = next(det.last_step.bundle.module.parameters()).device
+    if where != dev or mesh.devices != (dev,) or mesh.size != world:
+        raise AssertionError(f"process {rank} scanned on {where} over "
+                             f"{mesh}, not on {dev}")
+    recs = feature_collection_to_detections(read_geojson(out["output"]))
+    return out["tiles"], recs, [float(v) for v in np.asarray(stripe)]
 
 
 def dist_batches(n: int = DIST_STEPS):
@@ -4001,58 +4093,110 @@ def records_of(base, name):
     return recs
 
 
+def issue_ms(torch, step, images, bounds, n: int = DP_TIMED) -> float:
+    """Mean host time for one call of ``step`` to return, its launches
+    issued, each call made with the cards idle: the host's part of a step
+    (a step no longer than this is bound by the host)."""
+    step(images, bounds)
+    total = 0.0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, bounds)
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / n * 1e3
+
+
+def links(torch, n_cards: int) -> dict:
+    """What joins the cards: peer access between each pair, a 256 MiB copy
+    cuda:0 → cuda:1 and a pinned host → cuda:1 copy in GB/s (NVLink moves
+    hundreds, PCIe tens), and ``nvidia-smi nvlink --status``."""
+    nbytes = 1 << 28
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda:0")
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda:1")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    peer_ms = cuda_ms(lambda: dst.copy_(src), 10)
+    with torch.cuda.device(1):
+        h2d_ms = cuda_ms(lambda: dst.copy_(host, non_blocking=True), 10)
+    smi = subprocess.run(["nvidia-smi", "nvlink", "--status"],
+                         capture_output=True, text=True, timeout=60)
+    return {"peer_access": [[i == j or torch.cuda.can_device_access_peer(
+                i, j) for j in range(n_cards)] for i in range(n_cards)],
+            "peer_copy_gb_s": nbytes / peer_ms / 1e6,
+            "h2d_pinned_gb_s": nbytes / h2d_ms / 1e6,
+            "nvlink_status": (smi.stdout or smi.stderr)[-3000:]}
+
+
 def multi_gpu(torch, record, card, launches, open_window, close_window):
-    """14. Multi-GPU on the card: (a) the data-parallel detect step
-    (YOLOv7-tiny, trained fixture, 640 px, batch 64, bf16) over
-    ``make_mesh()`` (every card) and over two shards of one card
-    (``Mesh([cuda:0, cuda:0])``): detections against the single-device
-    step (one shard: bit-equal; more: ``detection_deltas`` within
-    ``DP_SCORE_MAX``, ``DP_BOX_MAX``), NMS launches = shards × steps, ms a
-    step and host syncs a step; turnkey int8 under each mesh must reach
-    ``int8``, every shard running the epilogue kernel, the two-shard int8
-    step held to the one over ``make_mesh()`` as the float steps are; (b)
-    the upload ring over the two-shard step (detections equal, tolerance
-    0, to the step called per batch), and ``CarDetector`` scans of phase
-    10b's FakeWorld: ``data_parallel: true`` (bit-equal to a single-device
-    scan's records) and, over 11b's AOI, the two-shard step injected with
-    the dedup off (its records deduped matching the single-device scan's
-    at ``DP_SCAN_MATCH`` within 0.5 m); (c) ``detect --data-parallel`` and
-    ``serve --data-parallel`` as counted children, equal to the same run
-    in this process (the scan bit-equal; the served records within 1e-7°
-    and 1e-3 of confidence, as concurrent requests may batch otherwise);
-    (d) ``halo_dedup_host`` on the card at ``k_slots`` 4096 over (b)'s raw
+    """14. Multi-GPU on the cards: ``make_mesh()`` (every visible card)
+    and ``two_shards_one_card`` (``Mesh([cuda:0, cuda:0])``). On one card
+    ``make_mesh()`` is one shard, and each case that needs two cards or
+    more prints that it could not run, and why (``not_run`` in the
+    record). Every case records its devices. A gate that fails is printed
+    at once and the phase fails at its end, after every case has run (an
+    error still stops it). (a) the data-parallel detect step (YOLOv7-tiny,
+    trained fixture, 640 px, batch 64, bf16) over each mesh: detections
+    against the single-device step (one shard: bit-equal; more:
+    ``detection_deltas`` within ``DP_SCORE_MAX``, ``DP_BOX_MAX``), NMS
+    launches = shards × steps, ms a step and host syncs a step; turnkey
+    int8 under each mesh must reach ``int8``, every shard running the
+    epilogue kernel, the two-shard int8 step held to the one over
+    ``make_mesh()`` as the float steps are; with two cards or more, the
+    float and int8 steps over ``make_mesh()`` against one card at the same
+    global batch, at ``B`` and at ``DP_PER_CARD_B`` tiles a card; (b) the
+    upload ring over one device's step and each mesh's (detections equal,
+    tolerance 0, to the step called per batch; ms a batch), and ``CarDetector`` scans of phase 10b's
+    FakeWorld: ``data_parallel: true`` bit-equal to one card's scan over
+    the same shards (``Mesh([cuda:0] × cards)``, with one card the
+    single-device scan) and, with several cards, matching the
+    single-device scan as the two-shard scan must; over 11b's AOI, the
+    two-shard step injected with the dedup off (its records deduped
+    matching the single-device scan's at ``DP_SCAN_MATCH`` within 0.5 m);
+    (c) ``detect --data-parallel`` and ``serve --data-parallel`` as
+    counted children (every card), equal to the same run in this process
+    (the scan bit-equal; the served records within 1e-7° and 1e-3 of
+    confidence, as concurrent requests may batch otherwise); (d)
+    ``halo_dedup_host`` over each mesh at ``k_slots`` 4096 on (b)'s raw
     records of 11b's AOI, equal to ``dedup_host``, timed; (e)
-    torch.distributed: a world of one on NCCL, then two processes sharing
-    the card over gloo (or, with two cards or more, one process per card on
-    NCCL), each process's mesh from ``make_mesh()`` (its one card), running
-    13a's fine-tune as a data-parallel train step for ``DIST_STEPS`` steps:
-    parameters bit-equal between the processes and within 2·lr a step of
-    one process on the global batch; (f) the in-process data-parallel
-    train step over two shards of one card for YOLOv8l at the train verb's
-    defaults (768 px, batch 8, ``batch`` BN; seeded unit-variance
-    weights) against the single-device step with its BN statistics in f64
-    (``f64_bn_statistics``): loss within rtol 1e-4, running statistics
-    within ``TRAIN_GRAD_LIMIT``, each gradient leaf no further from it
-    than the plain f32 single-device step is plus ``TRAIN_GRAD_LIMIT`` of
-    the leaf's largest (the plain step's distance recorded); remat over the
-    two shards against the step without it (loss and statistics within
-    1e-6, gradients within ``TRAIN_GRAD_LIMIT``), each step timed; (g)
-    spatial inference (``make_spatial_detect``: the trunk's rows over each
-    mesh, halos gathered from the neighbouring shards; the float bundle
-    and (a)'s int8 one) on phase 4's batch against the unsharded detect
-    function as in (a), the gathers counted (only the heads' permutes),
-    timed."""
+    torch.distributed, each process's mesh from ``make_mesh()`` (its one
+    card): a world of one on NCCL, then, with two cards or more, a world
+    of every card on NCCL (one process a card), on one card two
+    processes sharing it over gloo, running 13a's fine-tune as a
+    data-parallel train step for ``DIST_STEPS`` steps: parameters
+    bit-equal between the processes, within 2·lr a step of one process on
+    the global batch, losses within rtol 1e-3; with two cards or more, a
+    stripe scan: a process a card on NCCL, each scanning its stripe of
+    10b's AOI (``stripe_tiles``, inside its ``host_stripe``) with the
+    dedup off, this process serving the tiles and merging: the stripes'
+    tiles add up to the single scan's, their raw records are the single
+    scan's as a set, bit for bit, and ``merge_host_detections`` equals
+    ``dedup_records`` of the single scan; (f) the in-process
+    data-parallel train step for YOLOv8l at the train verb's defaults
+    (768 px, batch 8, ``batch`` BN; seeded unit-variance weights) over
+    two shards of one card and, with two cards or more, over
+    ``make_mesh()``, against the single-device step with its BN
+    statistics in f64 (``f64_bn_statistics``): loss within rtol 1e-4,
+    running statistics within ``TRAIN_GRAD_LIMIT``, each gradient leaf no
+    further from it than the plain f32 single-device step is plus
+    ``TRAIN_GRAD_LIMIT`` of the leaf's largest (the plain step's distance
+    recorded); remat over each mesh against the step without it (loss
+    and statistics within 1e-6, gradients within ``TRAIN_GRAD_LIMIT``),
+    each step timed, over ``make_mesh()`` also at ``DP_TRAIN_PER_CARD``
+    rows a card beside one card at that global batch; (g) spatial
+    inference (``make_spatial_detect``: the trunk's rows over each mesh
+    and over four shards of cuda:0, halos gathered from the neighbouring
+    shards; the float bundle and (a)'s int8 one) on phase 4's batch
+    against the unsharded detect function (float as in (a), int8
+    bit-equal), the gathers counted (only the heads' permutes), timed."""
     import shutil
     import socket
     import tempfile
     import numpy as np
     from aerial_image_recognition_tpu_torch.fetch.fake import (
         FakeTileServer, FakeWorld)
-    from aerial_image_recognition_tpu_torch.gio.geojson import read_geojson
     from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
         requantize)
-    from aerial_image_recognition_tpu_torch.ops.nms_kernel import (
-        nms_suppress)
     from aerial_image_recognition_tpu_torch.parallel.mesh import (
         Mesh, make_mesh)
     from aerial_image_recognition_tpu_torch.parallel.stripes import (
@@ -4072,8 +4216,39 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     n_cards = torch.cuda.device_count()
-    rec = record["multi_gpu"] = {"cards": n_cards, "card": card}
-    print(f"14. multi-GPU: {n_cards} card(s) visible [{card}]", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    rec = record["multi_gpu"] = {"cards": n_cards, "card": card,
+                                 "nvidia_smi": smi, "not_run": {}}
+    print(f"14. multi-GPU: {n_cards} card(s) visible: {smi}", flush=True)
+    if n_cards >= 2:
+        rec["links"] = links(torch, n_cards)
+        print(f"14. links: peer access {rec['links']['peer_access']}, "
+              f"cuda:0 → cuda:1 {rec['links']['peer_copy_gb_s']:.1f} GB/s, "
+              f"pinned host → cuda:1 {rec['links']['h2d_pinned_gb_s']:.1f} "
+              f"GB/s; nvidia-smi nvlink: "
+              f"{rec['links']['nvlink_status'][:300]!r}", flush=True)
+    failures = []
+
+    def gate(ok, msg):
+        """A gate of this phase: a failure is printed now and fails the
+        phase at its end."""
+        if not ok:
+            print(f"chip_smoke: FAILED (phase 14 goes on): {msg}",
+                  file=sys.stderr, flush=True)
+            failures.append(msg)
+        return ok
+
+    def not_run(case, why):
+        rec["not_run"][case] = why
+        print(f"{case}: not run: {why} [{card}]", flush=True)
+
+    def names(mesh):
+        return [str(d) for d in mesh.devices]
+
+    one_card = f"needs two cards or more; {n_cards} visible"
     meshes = {"cards": make_mesh(),
               "two_shards_one_card": Mesh(["cuda:0", "cuda:0"])}
     rng = np.random.default_rng(1)
@@ -4089,16 +4264,19 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
                                    DP_TIMED)
     single_syncs = host_syncs_in_one_step(torch, single, dev_images,
                                           dev_bounds)
-    rec["14a"] = {"single": {"step_ms_host_input": single_ms,
+    single_issue = issue_ms(torch, single, dev_images, dev_bounds)
+    rec["14a"] = {"single": {"devices": names(single.mesh),
+                             "step_ms_host_input": single_ms,
                              "step_ms_device_input": single_dev_ms,
+                             "issue_ms_device_input": single_issue,
                              "host_syncs": len(single_syncs)}}
     dp_steps = {}
     for label, mesh in meshes.items():
         shards = mesh.local_size
         step = build_detect_step(DetectorConfig.from_dict(cfg), mesh=mesh)
         dp_steps[label] = step
-        if [d for d, _, _ in step.input_shardings] != list(mesh.devices):
-            fail(f"14a {label}: shardings {step.input_shardings}")
+        gate([d for d, _, _ in step.input_shardings] == list(mesh.devices),
+             f"14a {label}: shardings {step.input_shardings}")
         parts = step.place(images, bounds)
         path = f"dp_{label}"
         open_window()
@@ -4106,32 +4284,37 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
         _, dev_ms = timed_steps(torch, step, *parts, DP_TIMED)
         close_window(path, ["nms_suppress"])
         steps_run = 2 * (DP_TIMED + 1)
-        if launches[path]["nms_suppress"] != shards * steps_run:
-            fail(f"14a {label}: {launches[path]['nms_suppress']} NMS "
-                 f"launches in {steps_run} steps of {shards} shards")
+        gate(launches[path]["nms_suppress"] == shards * steps_run,
+             f"14a {label}: {launches[path]['nms_suppress']} NMS launches "
+             f"in {steps_run} steps of {shards} shards")
         syncs = host_syncs_in_one_step(torch, step, *parts)
+        gate(not syncs, f"14a {label}: host syncs in a step {syncs[:2]}")
+        issue = issue_ms(torch, step, *parts)
         check_output(torch, f"14a {label}", out)
         _, agree = detection_sets_agree(out, ref)
         deltas = detection_deltas(out, ref)
         equal = same_detections(torch, out, ref)
-        if not (equal if shards == 1 else
-                held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX)):
-            fail(f"14a {label}: against the single-device step {deltas}, "
-                 f"equal {equal}")
+        gate(equal if shards == 1 else
+             held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX),
+             f"14a {label}: against the single-device step {deltas}, "
+             f"equal {equal}")
         rec["14a"][label] = {
-            "devices": [str(d) for d in mesh.devices], "shards": shards,
+            "devices": names(mesh), "shards": shards,
             "step_ms_host_input": ms, "step_ms_device_input": dev_ms,
+            "issue_ms_device_input": issue,
             "tiles_per_s_host_input": B / ms * 1e3,
             "slower_than_single_device_input": dev_ms / single_dev_ms,
             "nms_launches": launches[path]["nms_suppress"],
             "host_syncs": len(syncs), "host_sync_messages": syncs[:4],
             "agree_single": agree, "deltas_single": deltas,
             "equal_single": equal}
-        print(f"14a {label} ({shards} shard(s) on {mesh.devices}): "
+        print(f"14a {label} ({shards} shard(s) on {names(mesh)}): "
               f"{ms:.2f} ms a step (host input), {dev_ms:.2f} with the "
               f"shards' rows on their devices, against {single_ms:.2f} / "
-              f"{single_dev_ms:.2f} for one device; {len(syncs)} host "
-              f"syncs a step (one device: {len(single_syncs)}); "
+              f"{single_dev_ms:.2f} for one device; the host issues a "
+              f"step in {issue:.2f} ms (one device {single_issue:.2f}); "
+              f"{len(syncs)} host syncs a step (one device: "
+              f"{len(single_syncs)}); "
               f"{launches[path]['nms_suppress']} NMS launches in "
               f"{steps_run} steps; against one device {agree}, {deltas}, "
               f"equal {equal} [{card}]", flush=True)
@@ -4153,13 +4336,12 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
         q_out, q_ms = timed_steps(torch, q, images, bounds, DP_TIMED)
         close_window(qpath, ["nms_suppress", "int8_epilogue"])
         per_step = (requantize.launches - before) / (DP_TIMED + 1)
-        if per_step != int8_epilogues_a_forward(q) * shards \
-                or q.input_shardings != step.input_shardings:
-            fail(f"14a int8 {label}: {per_step} epilogue launches a step "
-                 f"over {shards} shards, shardings {q.input_shardings}")
+        gate(per_step == int8_epilogues_a_forward(q) * shards
+             and q.input_shardings == step.input_shardings,
+             f"14a int8 {label}: {per_step} epilogue launches a step over "
+             f"{shards} shards, shardings {q.input_shardings}")
         ok_q, agree_q = detection_sets_agree(ref, q_out)
-        if not ok_q:
-            fail(f"14a int8 {label}: against the bf16 step {agree_q}")
+        gate(ok_q, f"14a int8 {label}: against the bf16 step {agree_q}")
         # the int8 steps of the two meshes calibrated on the same batches:
         # the same qparams, so they are held to each other as the float
         # steps are to the single-device step
@@ -4168,9 +4350,9 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             q_deltas = None
         else:
             q_deltas = detection_deltas(q_out, q_ref)
-            if not held_to(q_deltas, DP_SCORE_MAX, DP_BOX_MAX):
-                fail(f"14a int8 {label}: against the int8 step over "
-                     f"make_mesh() {q_deltas}")
+            gate(held_to(q_deltas, DP_SCORE_MAX, DP_BOX_MAX),
+                 f"14a int8 {label}: against the int8 step over "
+                 f"make_mesh() {q_deltas}")
         rec["14a"][label]["int8"] = {
             "states": states, "parity": q.parity, "step_ms_host_input": q_ms,
             "epilogue_launches_a_step": per_step,
@@ -4182,45 +4364,67 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
               f"bf16 step {agree_q}, against the "
               f"int8 step over make_mesh() {q_deltas} [{card}]", flush=True)
         del q
+    if n_cards >= 2:
+        rec["14a"]["against_one_card"] = {
+            str(big): dp_against_one_card(
+                torch, cfg, meshes["cards"], images, bounds, q_bundle, big,
+                card, launches, open_window, close_window, gate)
+            for big in (B, DP_PER_CARD_B * n_cards)}
+    else:
+        not_run(f"14a, float and int8, against one card at a global batch "
+                f"of {B} and at {DP_PER_CARD_B} tiles a card", one_card)
 
-    # (b) the ring over the two-shard step, then scans of 10b's world
+    # (b) the ring over each mesh's step, then scans of 10b's world
     from aerial_image_recognition_tpu_torch.ingest.pipeline import (
         TileBatch, run_pipeline)
-    two = dp_steps["two_shards_one_card"]
     batches = [TileBatch(np.arange(B) + k * B, np.roll(images, k, axis=0),
                          np.roll(bounds, k, axis=0), B) for k in range(4)]
-    want = [readback(two(b.images, b.bounds)) for b in batches]
-    got = []
-    open_window()
-    stats = run_pipeline(iter(batches), two,
-                         lambda b, o: got.append(readback(o)))
-    close_window("dp_ring", ["nms_suppress"])
-    if stats["batches"] != 4 or any(
-            not all(np.array_equal(x, y) for x, y in zip(g, w))
-            for g, w in zip(got, want)):
-        fail("14b: the ring's detections differ from the step's")
+    rings = {}
+    for label, step in dict(single=single, **dp_steps).items():
+        want = [readback(step(b.images, b.bounds)) for b in batches]
+        got = []
+        open_window()
+        stats = run_pipeline(iter(batches), step,
+                             lambda b, o: got.append(readback(o)))
+        close_window(f"dp_ring_{label}", ["nms_suppress"])
+        same = stats["batches"] == 4 and all(
+            all(np.array_equal(x, y) for x, y in zip(g, w))
+            for g, w in zip(got, want))
+        gate(same, f"14b: the ring's detections over {label} differ from "
+                   f"the step's")
+        # a second pass, timed: the ring's buffers exist by now
+        t0 = time.perf_counter()
+        timed = run_pipeline(iter(batches), step, lambda b, o: readback(o))
+        ring_ms = (time.perf_counter() - t0) / timed["batches"] * 1e3
+        rings[label] = {"devices": names(step.mesh),
+                        "batches": stats["batches"], "equal_step": same,
+                        "ms_a_batch": ring_ms,
+                        "h2d_s": timed["h2d_s"],
+                        "compute_s": timed["compute_s"]}
+    two = dp_steps["two_shards_one_card"]
     world = FakeWorld(**SCAN_WORLD)
     srv = FakeTileServer(world)
     srv.start()
-    w, s, e, n = SCAN_AOI
     frame = aoi_frame(os.path.join(base, "aoi.geojson"), SCAN_AOI)
-    scan_cfg = {
-        "frame_path": frame, "use_xyz": False,
-        "wms_url": srv.base_url + "/wms", "wms_layer": "fake",
-        "wms_size": (SIZE, SIZE), "tile_size_meters": SCAN_TILE_M,
-        "tile_overlap": SCAN_OVERLAP, "confidence_threshold": 0.4,
-        "duplicate_distance": 2.0, "checkpoint_interval": 10**9,
-        "params_path": FIXTURE, "dtype": "bfloat16", "device_batch": B,
-        "batch_size": B, "num_workers": 16, "submit_spacing": 0.0}
+    scan_cfg = scan_config(srv.base_url, frame)
     fe_frame = aoi_frame(os.path.join(base, "fe_aoi.geojson"), FE_AOI)
     scans = {}
     # the single-device scan of 10b's world: 10b's own, where it ran
     single_dir = os.path.join(ROOT, "chiprun_out", "scan") \
         if "scan" in record else os.path.join(base, "single")
+    same_shards = None
+    if n_cards >= 2:
+        # one card over the shards make_mesh() makes: the same arithmetic
+        # as the data-parallel scan, on one card
+        probe = CarDetector(os.path.join(base, "probe"), scan_cfg)
+        same_shards = build_detect_step(
+            probe._step_config(), batch=B, src_size=SIZE,
+            mesh=Mesh(["cuda:0"] * n_cards))
     try:
         for name, extra, step in (
                 ("single", {}, None),
                 ("dp_cards", {"data_parallel": True}, None),
+                ("cards_shards_one_card", {}, same_shards),
                 ("fe_single", {"frame_path": fe_frame}, None),
                 ("fe_two_shards_raw", {"frame_path": fe_frame,
                                        "duplicate_distance": 0.0}, two)):
@@ -4228,7 +4432,9 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
                 scans[name] = {"tiles": record["scan"]["tiles"],
                                "wall_s": record["scan"]["wall_s"],
                                "records": record["scan"]["detections"],
-                               "shardings": None, "from": "10b"}
+                               "devices": ["cuda:0"], "from": "10b"}
+                continue
+            if name == "cards_shards_one_card" and step is None:
                 continue
             det = CarDetector(os.path.join(base, name),
                               dict(scan_cfg, **extra), detect_step=step)
@@ -4238,17 +4444,31 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             wall = time.perf_counter() - t0
             close_window(f"scan_{name}", ["nms_suppress"])
             scans[name] = {"tiles": out["tiles"], "wall_s": wall,
+                           "tiles_per_s": out["tiles"] / wall,
                            "records": out["detections"],
+                           "devices": names(det.last_step.mesh),
                            "shardings": None if det.last_step.input_shardings
                            is None else len(det.last_step.input_shardings)}
     finally:
         srv.stop()
     r_single, _ = scan_records(single_dir)
     r_dp = records_of(base, "dp_cards")
-    if scans["dp_cards"]["shardings"] != n_cards \
-            or not np.array_equal(r_single, r_dp):
-        fail(f"14b: data_parallel scan over {scans['dp_cards']} differs "
-             f"from the single-device scan")
+    gate(scans["dp_cards"]["shardings"] == n_cards,
+         f"14b: the data_parallel scan ran over {scans['dp_cards']}")
+    if n_cards == 1:
+        r_same = r_single
+        dp_vs_single = 1.0 if np.array_equal(r_single, r_dp) else 0.0
+    else:
+        r_same = records_of(base, "cards_shards_one_card")
+        dp_vs_single = matched_within(r_single, r_dp, 0.5)
+        gate(dp_vs_single >= DP_SCAN_MATCH and abs(len(r_dp)
+             - len(r_single)) <= (1 - DP_SCAN_MATCH) * len(r_single),
+             f"14b: the data_parallel scan's {len(r_dp)} records match "
+             f"{dp_vs_single:.4f} of the single-device scan's "
+             f"{len(r_single)}")
+    dp_equal = np.array_equal(r_same, r_dp)
+    gate(dp_equal, f"14b: the data_parallel scan over {n_cards} card(s) "
+                   f"differs from one card's over the same shards")
     # 11b's AOI: its raw records fit one 4096-slot stripe (10b's AOI
     # gives ~9000, more than the two stripes of two shards hold)
     fe_single = records_of(base, "fe_single")
@@ -4256,18 +4476,24 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     keep = dedup_host(raw[:, 0], raw[:, 1], raw[:, 2], 2.0)
     deduped = raw[keep]
     matched = matched_within(fe_single, deduped, 0.5)
-    if matched < DP_SCAN_MATCH or abs(len(deduped) - len(fe_single)) \
-            > (1 - DP_SCAN_MATCH) * len(fe_single):
-        fail(f"14b: the two-shard scan's {len(deduped)} deduped records "
-             f"match {matched:.3f} of the single scan's {len(fe_single)}")
-    rec["14b"] = {"ring_batches": stats["batches"], "scans": scans,
-                  "dp_cards_equal_single": True,
+    gate(matched >= DP_SCAN_MATCH and abs(len(deduped) - len(fe_single))
+         <= (1 - DP_SCAN_MATCH) * len(fe_single),
+         f"14b: the two-shard scan's {len(deduped)} deduped records "
+         f"match {matched:.3f} of the single scan's {len(fe_single)}")
+    rec["14b"] = {"rings": rings, "scans": scans,
+                  "dp_cards_equal_same_shards_one_card": dp_equal,
+                  "dp_cards_matched_single_0_5m": dp_vs_single,
                   "two_shards_matched_single_0_5m": matched}
-    print(f"14b: ring over the two-shard step: {stats['batches']} batches "
-          f"equal to the step; scans of {scans['single']['tiles']} tiles: "
-          f"single {scans['single']['wall_s']:.2f} s, data_parallel "
-          f"({n_cards} card(s)) {scans['dp_cards']['wall_s']:.2f} s, "
-          f"records bit-equal ({len(r_single)}); 11b's AOI "
+    print(f"14b: ring over " + ", ".join(
+              f"{k} {r['ms_a_batch']:.2f} ms a batch" for k, r in
+              rings.items()) + f", every batch equal to the step; scans of {scans['single']['tiles']} tiles: single "
+          f"{scans['single']['wall_s']:.2f} s, data_parallel over "
+          f"{scans['dp_cards']['devices']} "
+          f"{scans['dp_cards']['wall_s']:.2f} s "
+          f"({scans['dp_cards']['tiles_per_s']:.1f} tiles/s), "
+          f"{len(r_dp)} records, bit-equal to one card's over the same "
+          f"shards {dp_equal}, matching {dp_vs_single:.4f} of the single "
+          f"scan's {len(r_single)} within 0.5 m; 11b's AOI "
           f"({scans['fe_single']['tiles']} tiles) on two shards of one "
           f"card {scans['fe_two_shards_raw']['wall_s']:.2f} s, {len(raw)} "
           f"raw records, deduped {len(deduped)} matching {matched:.4f} of "
@@ -4285,17 +4511,19 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             raw[:, 0], raw[:, 1], raw[:, 2], SCAN_AOI, mesh, radius_m=2.0,
             k_slots=4096)
         ms = (time.perf_counter() - t0) * 1e3
-        if len(kconf) != len(deduped) or not np.allclose(
-                np.sort(kconf), np.sort(deduped[:, 2]), rtol=1e-6, atol=0):
-            fail(f"14d {label}: halo dedup kept {len(kconf)}, dedup_host "
-                 f"{len(deduped)}")
-        d_rec[label] = {"ms": ms, "kept": len(kconf), "input": len(raw),
+        gate(len(kconf) == len(deduped) and np.allclose(
+            np.sort(kconf), np.sort(deduped[:, 2]), rtol=1e-6, atol=0),
+            f"14d {label}: halo dedup kept {len(kconf)}, dedup_host "
+            f"{len(deduped)}")
+        d_rec[label] = {"devices": names(mesh), "ms": ms,
+                        "ms_a_shard": ms / mesh.local_size,
+                        "kept": len(kconf), "input": len(raw),
                         "rounds_per_shard": 3 * 4096,
                         "shards": mesh.local_size}
-        print(f"14d halo_dedup_host on {label} ({mesh.local_size} "
-              f"shard(s)), k_slots 4096: {len(raw)} records → "
-              f"{len(kconf)} kept, equal to dedup_host, {ms:.1f} ms "
-              f"[{card}]", flush=True)
+        print(f"14d halo_dedup_host on {label} ({names(mesh)}), k_slots "
+              f"4096: {len(raw)} records → {len(kconf)} kept, equal to "
+              f"dedup_host, {ms:.1f} ms ({ms / mesh.local_size:.1f} a "
+              f"shard) [{card}]", flush=True)
     rec["14d"] = d_rec
 
     # (c) detect and serve with --data-parallel as children
@@ -4317,9 +4545,9 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
                     _overrides(ns)).detect(force_restart=True)
         got_c = records_of(base, "cli_detect")
         want_c = records_of(base, "cli_detect_in_process")
-        if len(got_c) == 0 or not np.array_equal(got_c, want_c):
-            fail(f"14c detect --data-parallel: {got_c.shape} records, "
-                 f"{want_c.shape} in process, not equal")
+        gate(len(got_c) > 0 and np.array_equal(got_c, want_c),
+             f"14c detect --data-parallel: {got_c.shape} records, "
+             f"{want_c.shape} in process, not equal")
     finally:
         srv.stop()
     tiles_s = [world.render((SCAN_WORLD["center_lon"] + (k - 4) * 330 * M2LON
@@ -4359,10 +4587,11 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     close = all(len(a) == len(b) and (not a or bool((np.abs(
         np.asarray(a) - np.asarray(b)).max(axis=0)
         <= [1e-7, 1e-7, 1e-3]).all())) for a, b in zip(key, key_w))
-    if rc != 0 or not close or not any(key):
-        fail(f"14c serve --data-parallel: exit {rc}, replies close to the "
-             f"in-process server's {close}")
-    rec["14c"] = {"detect_wall_s": wall, "detect_records": len(got_c),
+    gate(rc == 0 and close and any(key),
+         f"14c serve --data-parallel: exit {rc}, replies close to the "
+         f"in-process server's {close}")
+    rec["14c"] = {"devices": names(meshes["cards"]),
+                  "detect_wall_s": wall, "detect_records": len(got_c),
                   "serve_equal_in_process": key == key_w,
                   "detect_launches": counts, "serve_address": line,
                   "serve_counts": [b["count"] for _, b in replies],
@@ -4370,7 +4599,8 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     print(f"14c: detect --data-parallel ({wall:.1f} s, {len(got_c)} "
           f"records, launches {counts}) and serve --data-parallel (8 JPEG "
           f"POSTs, exit {rc} after SIGINT, launches {s_counts}) equal to "
-          f"the same runs in this process [{card}]", flush=True)
+          f"the same runs in this process, over {names(meshes['cards'])} "
+          f"[{card}]", flush=True)
 
     # (e) torch.distributed
     def free_port():
@@ -4378,170 +4608,111 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             sk.bind(("127.0.0.1", 0))
             return sk.getsockname()[1]
 
+    def processes(label, backend, world_n, mode, *args):
+        """``world_n`` DIST_CHILD processes of ``mode`` on one fresh
+        address: (their JSON reports, their output files, wall s). Their
+        output goes to ``<base>/<label>_<rank>.log`` and ``.err``; when
+        one fails the others are ended at once (they would wait for it in
+        their next collective), and the phase fails naming it."""
+        coord = f"127.0.0.1:{free_port()}"
+        ext = "npz" if mode == "train" else "json"
+        outs = [os.path.join(tmp, f"{label}_{r}.{ext}")
+                for r in range(world_n)]
+        logs = [os.path.join(base, f"{label}_{r}") for r in range(world_n)]
+        env = dict(os.environ, NCCL_DEBUG="WARN")
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(world_n):
+                with open(logs[r] + ".log", "w") as so, \
+                        open(logs[r] + ".err", "w") as se:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", DIST_CHILD, coord, str(r),
+                         str(world_n), backend, outs[r], mode, *args],
+                        cwd=ROOT, env=env, stdout=so, stderr=se))
+            while any(p.poll() is None for p in procs) \
+                    and all(p.poll() in (None, 0) for p in procs) \
+                    and time.perf_counter() - t0 < 300:
+                time.sleep(0.2)
+        finally:
+            ended = [p.poll() for p in procs]
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        # a process that exited in error first, then one still running
+        for r in sorted(range(world_n), key=lambda r: ended[r] is None):
+            rc = ended[r]
+            if rc != 0:
+                with open(logs[r] + ".err") as f:
+                    err = f.read()
+                fail(f"14e {label}: process {r} "
+                     f"{'still running' if rc is None else f'exit {rc}'} "
+                     f"after {wall:.0f} s: {err[-1500:]}")
+        reports = []
+        for r in range(world_n):
+            with open(logs[r] + ".log") as f:
+                reports.append(last_json(f.read()))
+        return reports, outs, wall
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
         single_params, single_losses, single_ms = dist_train(
             torch, None, torch.device("cuda", 0), 0, 1)
-        e_rec = {"single": {"losses": single_losses, "step_ms": single_ms}}
+        e_rec = {"single": {"devices": ["cuda:0"], "losses": single_losses,
+                            "step_ms": single_ms}}
         runs = [("nccl_world_of_one", "nccl", 1)]
         if n_cards >= 2:
-            runs.append(("nccl_two_cards", "nccl", 2))
+            runs.append(("nccl_world_of_cards", "nccl", n_cards))
         else:
             runs.append(("gloo_two_processes_one_card", "gloo", 2))
+            not_run("14e a world of every card on NCCL", one_card +
+                    " (NCCL refuses two ranks on one card)")
         for label, backend, world_n in runs:
-            coord = f"127.0.0.1:{free_port()}"
-            outs = [os.path.join(tmp, f"{label}_{r}.npz")
-                    for r in range(world_n)]
-            procs = [subprocess.Popen(
-                [sys.executable, "-c", DIST_CHILD, coord, str(r),
-                 str(world_n), backend, outs[r]], cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                for r in range(world_n)]
-            t0 = time.perf_counter()
-            reports = []
-            try:
-                for p in procs:
-                    so, se = p.communicate(timeout=600)
-                    if p.returncode != 0:
-                        fail(f"14e {label}: exit {p.returncode}: "
-                             f"{se[-1500:]}")
-                    reports.append(json.loads(so.strip().splitlines()[-1]))
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            wall = time.perf_counter() - t0
+            reports, outs, wall = processes(label, backend, world_n, "train")
             params = [dict(np.load(o)) for o in outs]
-            for other in params[1:]:
-                for k, v in params[0].items():
-                    if not np.array_equal(v, other[k]):
-                        fail(f"14e {label}: processes differ at {k}")
+            differ = [k for other in params[1:]
+                      for k, v in params[0].items()
+                      if not np.array_equal(v, other[k])]
+            gate(not differ, f"14e {label}: processes differ at "
+                             f"{differ[:3]}")
             worst, far = params_within(params[0], single_params,
                                        DIST_STEPS)
-            np.testing.assert_allclose(reports[0]["losses"], single_losses,
-                                       rtol=1e-3)
-            if not all(r["sums_equal"] for r in reports) \
-                    or {r["backend"] for r in reports} != {backend}:
-                fail(f"14e {label}: {reports}")
+            losses_ok = np.allclose(reports[0]["losses"], single_losses,
+                                    rtol=1e-3, atol=0)
+            gate(losses_ok, f"14e {label}: losses {reports[0]['losses']} "
+                            f"against {single_losses}")
+            gate(all(r["sums_equal"] for r in reports)
+                 and {r["backend"] for r in reports} == {backend}
+                 and len({r["device"] for r in reports})
+                 == (world_n if backend == "nccl" else 1),
+                 f"14e {label}: {reports}")
             e_rec[label] = {"reports": reports, "wall_s": wall,
+                            "devices": [r["device"] for r in reports],
                             "max_abs_vs_single": worst,
                             "frac_beyond_1e-6": far}
             print(f"14e {label}: {world_n} process(es) on {backend}, "
                   f"devices {[r['device'] for r in reports]}, {DIST_STEPS} "
                   f"steps of 13a's fine-tune (global batch {DIST_B}): "
-                  f"params bit-equal across processes, within {worst:.2e} "
-                  f"of one process ({far:.4f} beyond 1e-6); losses "
-                  f"{reports[0]['losses']}, {reports[0]['step_ms']:.1f} ms "
-                  f"a step against {single_ms:.1f} in one process; "
-                  f"{wall:.1f} s of wall [{card}]", flush=True)
+                  f"params bit-equal across processes {not differ}, within "
+                  f"{worst:.2e} of one process ({far:.4f} beyond 1e-6); "
+                  f"losses {reports[0]['losses']}, step ms "
+                  f"{[round(r['step_ms'], 1) for r in reports]} against "
+                  f"{single_ms:.1f} in one process; {wall:.1f} s of wall "
+                  f"[{card}]", flush=True)
+        if n_cards >= 2:
+            e_rec["stripe_scan"] = stripe_scan(processes, base, n_cards,
+                                               gate, card)
+        else:
+            not_run("14e the NCCL stripe scan", one_card +
+                    " (NCCL refuses two ranks on one card)")
         rec["14e"] = e_rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # (f) the in-process DP train step, YOLOv8l at the verb's defaults
-    from aerial_image_recognition_tpu_torch.models.registry import (
-        create_model)
-    from aerial_image_recognition_tpu_torch.models.weights import (
-        grads_to_flax)
-    from aerial_image_recognition_tpu_torch.pipeline import train as T
-    rng = np.random.default_rng(14)
-    tiles, tb, tc = render_tiles(rng, V8L_B, V8L_SIZE)
-    batch = next(iter(memory_loader(
-        tiles, tile_targets(tb, tc, V8L_SIZE), V8L_B, False, mosaic=0.0,
-        mixup=0.0, hsv=0.0).epoch(0)))
-    tree = unit_variance_tree(torch, "yolov8_tokyo", tiles[:, :SIZE, :SIZE])
-    bundle = create_model("yolov8_tokyo", dtype=torch.float32,
-                          variables=tree, device="cuda")
-    tx = T.make_optimizer(lr=TRAIN_LR)
-    s0 = T.init_train_state(bundle, tx)
-    one = T.make_train_step(bundle, tx)
-    two_t = T.make_train_step(bundle, tx, mesh=meshes["two_shards_one_card"])
-    if one.bn_mode != "batch" or two_t.bn_mode != "batch":
-        fail("14f: yolov8 did not resolve to batch BN")
-    # the witness: the single-device step with its BN statistics in f64
-    # (f64_bn_statistics). The two-shard step is held to it leaf by leaf as
-    # the CPU tests hold theirs to the reference's f64 step: no further
-    # from it than the plain f32 single-device step is, plus
-    # TRAIN_GRAD_LIMIT of the leaf's largest
-    with f64_bn_statistics(torch):
-        lw, _, gw, bsw = one.loss_and_grads(s0, *batch)
-    gw = grads_to_flax(gw)["params"]
-    lp, _, gp, _ = one.loss_and_grads(s0, *batch)
-    plain_rel = leaf_errors(grads_to_flax(gp)["params"], gw)
-    del gp
-    l2, _, g2, bs2 = two_t.loss_and_grads(s0, *batch)
-    g_rel = leaf_errors(grads_to_flax(g2)["params"], gw)
-    over = {k: v for k, v in g_rel.items()
-            if v > plain_rel[k] + TRAIN_GRAD_LIMIT}
-    # remat over the two shards: recomputed in lockstep, the statistics of
-    # the first forward kept
-    lr_, _, gr, bsr = T.make_train_step(
-        bundle, tx, mesh=meshes["two_shards_one_card"],
-        remat=True).loss_and_grads(s0, *batch)
-    remat_rel = max(leaf_errors(grads_to_flax(gr)["params"],
-                                grads_to_flax(g2)["params"]).values())
-    remat_stats_equal = all(torch.equal(bsr[k], bs2[k]) for k in bs2)
-    remat_stats_rel = max(float((bsr[k] - bs2[k]).abs().max())
-                          / max(float(bs2[k].abs().max()), 1e-30)
-                          for k in bs2)
-    remat_loss_rel = abs(float(lr_) - float(l2)) / abs(float(l2))
-    if remat_loss_rel > 1e-6 or remat_stats_rel > 1e-6 \
-            or remat_rel > TRAIN_GRAD_LIMIT:
-        fail(f"14f: remat over two shards: loss {remat_loss_rel:.2e}, "
-             f"statistics {remat_stats_rel:.2e}, gradients "
-             f"{remat_rel:.2e}")
-    del gr
-    bs_rel = max(float((bs2[k] - bsw[k]).abs().max())
-                 / max(float(bsw[k].abs().max()), 1e-30) for k in bsw)
-    loss_rel = abs(float(l2) - float(lw)) / abs(float(lw))
-    plain_loss_rel = abs(float(lp) - float(lw)) / abs(float(lw))
-    if loss_rel > 1e-4 or over or bs_rel > TRAIN_GRAD_LIMIT:
-        worst = max(over, key=lambda k: over[k] - plain_rel[k]) \
-            if over else None
-        fail(f"14f: two shards against the f64-statistics step: loss "
-             f"{loss_rel:.2e}, {len(over)} gradient leaves further than "
-             f"the plain step + {TRAIN_GRAD_LIMIT} (e.g. {worst}: "
-             f"{over.get(worst)} against {plain_rel.get(worst)}), "
-             f"statistics {bs_rel:.2e}")
-    del g2, gw
-    _, ms1, _ = timed_train_steps(torch, one, s0, batch, 3, warmup=1)
-    _, ms2, losses2 = timed_train_steps(torch, two_t, s0, batch, 3, warmup=1)
-    if not all(math.isfinite(v) for v in losses2):
-        fail(f"14f: losses {losses2}")
-    rec["14f"] = {"size": V8L_SIZE, "batch": V8L_B, "shards": 2,
-                  "against": "single device, BN statistics in f64",
-                  "loss_rel": loss_rel,
-                  "grad_max_rel_to_leaf_max": max(g_rel.values()),
-                  "grad_worst_leaf": max(g_rel, key=g_rel.get),
-                  "grad_leaves_beyond_limit": sum(
-                      v > TRAIN_GRAD_LIMIT for v in g_rel.values()),
-                  "stats_max_rel": bs_rel,
-                  "plain_f32_loss_rel": plain_loss_rel,
-                  "plain_f32_grad_max_rel": max(plain_rel.values()),
-                  "plain_f32_worst_leaf": max(plain_rel, key=plain_rel.get),
-                  "plain_f32_leaves_beyond_limit": sum(
-                      v > TRAIN_GRAD_LIMIT for v in plain_rel.values()),
-                  "leaves": len(g_rel),
-                  "remat_grad_max_rel": remat_rel,
-                  "remat_loss_rel": remat_loss_rel,
-                  "remat_stats_equal": remat_stats_equal,
-                  "step_ms_single": ms1,
-                  "step_ms_two_shards": ms2}
-    print(f"14f yolov8l {V8L_SIZE} px, batch {V8L_B}, batch BN, two "
-          f"shards of one card against one device with its BN statistics "
-          f"in f64: loss {loss_rel:.1e}, gradients within "
-          f"{max(g_rel.values()):.1e} of each leaf's largest at "
-          f"{max(g_rel, key=g_rel.get)} ({rec['14f']['grad_leaves_beyond_limit']}"
-          f" of {len(g_rel)} leaves beyond {TRAIN_GRAD_LIMIT}), statistics "
-          f"{bs_rel:.1e}; the plain f32 step against the same: loss "
-          f"{plain_loss_rel:.1e}, gradients {max(plain_rel.values()):.1e} "
-          f"at {max(plain_rel, key=plain_rel.get)} "
-          f"({rec['14f']['plain_f32_leaves_beyond_limit']} leaves beyond); "
-          f"remat over the shards: loss {remat_loss_rel:.1e}, statistics "
-          f"equal {remat_stats_equal}, gradients within {remat_rel:.1e}; "
-          f"{ms2:.1f} ms a step against {ms1:.1f} [{card}]", flush=True)
-    del bundle, one, two_t, s0
+    rec["14f"] = dp_train(torch, meshes, card, gate, not_run, one_card)
 
     # (g) spatial: one batch's rows over the meshes, at phase 4's width,
     # the float bundle and (a) int8 one; the rows meet only at the heads'
@@ -4551,6 +4722,9 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     from aerial_image_recognition_tpu_torch.pipeline.inference import (
         make_detect_fn)
     sp_cfg = DetectorConfig.from_dict(cfg)
+    # four slabs of 160 rows: on one card too, the float sums of a slab
+    # round otherwise than the whole image's
+    sp_meshes = dict(meshes, four_shards_one_card=Mesh(["cuda:0"] * 4))
     g_rec = {}
     gathered = []
     real_gathered = SP._gathered
@@ -4567,7 +4741,7 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
             sp_ref, plain_ms = timed_steps(torch, plain, dev_images,
                                            dev_bounds, DP_TIMED)
             g_rec[kind] = {"plain_ms_device_input": plain_ms}
-            for label, mesh in meshes.items():
+            for label, mesh in sp_meshes.items():
                 fn = SP.make_spatial_detect(sp_bundle, sp_cfg, mesh)
                 path = f"spatial_{kind}_{label}"
                 shards = mesh.local_size
@@ -4580,23 +4754,27 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
                 epilogues = launches[path]["int8_epilogue"]
                 want_epi = TRUNK_CONVS * shards * (DP_TIMED + 1) \
                     if kind == "int8" else 0
-                if launches[path]["nms_suppress"] != DP_TIMED + 1 \
-                        or epilogues != want_epi:
-                    fail(f"14g {kind} {label}: {launches[path]['nms_suppress']}"
-                         f" NMS and {epilogues} epilogue launches in "
-                         f"{DP_TIMED + 1} steps of {shards} shards")
-                if set(gathered) - {"permute"}:
-                    fail(f"14g {kind} {label}: gathered whole at "
-                         f"{sorted(set(gathered))}")
+                gate(launches[path]["nms_suppress"] == DP_TIMED + 1
+                     and epilogues == want_epi,
+                     f"14g {kind} {label}: "
+                     f"{launches[path]['nms_suppress']} NMS and "
+                     f"{epilogues} epilogue launches in {DP_TIMED + 1} "
+                     f"steps of {shards} shards")
+                gate(not set(gathered) - {"permute"},
+                     f"14g {kind} {label}: gathered whole at "
+                     f"{sorted(set(gathered))}")
                 check_output(torch, f"14g {kind} {label}", sp_out)
                 _, agree = detection_sets_agree(sp_out, sp_ref)
                 deltas = detection_deltas(sp_out, sp_ref)
                 equal = same_detections(torch, sp_out, sp_ref)
-                if not (equal if shards == 1 else
-                        held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX)):
-                    fail(f"14g {kind} {label}: against the unsharded "
-                         f"function {deltas}, equal {equal}")
+                # the int8 trunk is integer from the stems' P2 codes on,
+                # and the stems run whole: bit-equal on any mesh
+                gate(equal if shards == 1 or kind == "int8" else
+                     held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX),
+                     f"14g {kind} {label}: against the unsharded "
+                     f"function {deltas}, equal {equal}")
                 g_rec[kind][label] = {
+                    "devices": names(mesh),
                     "shards": shards, "step_ms_device_input": sp_ms,
                     "slower_than_plain": sp_ms / plain_ms,
                     "gathers_a_step": len(gathered) / (DP_TIMED + 1),
@@ -4604,8 +4782,8 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
                     "agree_plain": agree, "deltas_plain": deltas,
                     "equal_plain": equal}
                 print(f"14g spatial {kind} {label} ({shards} shard(s) of "
-                      f"the rows): {sp_ms:.2f} ms a batch of {B} against "
-                      f"{plain_ms:.2f} unsharded; "
+                      f"the rows on {names(mesh)}): {sp_ms:.2f} ms a batch "
+                      f"of {B} against {plain_ms:.2f} unsharded; "
                       f"{len(gathered) / (DP_TIMED + 1):.0f} gathers a "
                       f"step, all at the heads' permute; {epilogues} "
                       f"epilogue launches; against it {agree}, {deltas}, "
@@ -4613,6 +4791,328 @@ def multi_gpu(torch, record, card, launches, open_window, close_window):
     finally:
         SP._gathered = real_gathered
     rec["14g"] = g_rec
+    if failures:
+        fail(f"phase 14: {len(failures)} gate(s) failed: "
+             + "; ".join(failures))
+
+
+def dp_against_one_card(torch, cfg, mesh, images, bounds, q_bundle, big,
+                        card, launches, open_window, close_window, gate):
+    """14a at a global batch of ``big`` tiles: the float step and the int8
+    step (``q_bundle``, (a)'s qparams) over ``mesh`` against the same step
+    on one card at that batch (phase 4's tiles, rolled), timed on host and
+    device input, issue ms, host syncs and launches counted, the
+    detections held as in (a)."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.ops.int8_kernel import (
+        requantize)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    reps = big // B
+    im = np.concatenate([np.roll(images, k, axis=0) for k in range(reps)])
+    bd = np.concatenate([np.roll(bounds, k, axis=0) for k in range(reps)])
+    per_card = big // mesh.local_size
+    out = {"global_batch": big, "per_card": per_card}
+    for kind, extra, bundle in (("float", {}, None),
+                                ("int8", {"quantize": "int8"}, q_bundle)):
+        c = DetectorConfig.from_dict(dict(cfg, device_batch=big, **extra))
+        one = build_detect_step(c, bundle=bundle, device="cuda:0")
+        dp = build_detect_step(c, bundle=bundle, mesh=mesh)
+        res = {}
+        for label, step in (("one_card", one), ("cards", dp)):
+            parts = step.place(im, bd)
+            path = f"dp_{big}_{kind}_{label}"
+            open_window()
+            before = requantize.launches
+            o, ms = timed_steps(torch, step, im, bd, DP_TIMED)
+            _, dev_ms = timed_steps(torch, step, *parts, DP_TIMED)
+            close_window(path, ["nms_suppress"] + (
+                ["int8_epilogue"] if kind == "int8" else []))
+            shards = step.mesh.local_size
+            steps_run = 2 * (DP_TIMED + 1)
+            nms = launches[path]["nms_suppress"]
+            epi = (requantize.launches - before) / steps_run
+            # one epilogue a conv a shard; on one card the 256-row batch
+            # makes its largest im2cols in chunks, an epilogue a chunk
+            want_epi = int8_epilogues_a_forward(step) * shards \
+                if kind == "int8" else 0
+            gate(nms == shards * steps_run and (
+                epi == want_epi if shards > 1 else epi >= want_epi),
+                 f"14a {kind} at {big}, {label}: {nms} NMS launches, "
+                 f"{epi} epilogue launches a step over {shards} shards")
+            syncs = host_syncs_in_one_step(torch, step, *parts)
+            gate(kind == "int8" or not syncs,
+                 f"14a {kind} at {big}, {label}: host syncs {syncs[:2]}")
+            issue = issue_ms(torch, step, *parts)
+            check_output(torch, f"14a {kind} at {big}, {label}", o, big)
+            res[label] = {"devices": [str(d) for d in step.mesh.devices],
+                          "step_ms_host_input": ms,
+                          "step_ms_device_input": dev_ms,
+                          "issue_ms_device_input": issue,
+                          "tiles_per_s_device_input": big / dev_ms * 1e3,
+                          "nms_launches": nms,
+                          "epilogue_launches_a_step": epi,
+                          "host_syncs": len(syncs), "out": o}
+        deltas = detection_deltas(res["cards"].pop("out"),
+                                  res["one_card"].pop("out"))
+        gate(held_to(deltas, DP_SCORE_MAX, DP_BOX_MAX),
+             f"14a {kind} at {big}: cards against one card {deltas}")
+        res["deltas_one_card"] = deltas
+        res["speedup_device_input"] = (res["one_card"]["step_ms_device_input"]
+                                       / res["cards"]["step_ms_device_input"])
+        out[kind] = res
+        print(f"14a {kind} at {big} tiles ({per_card} a card over "
+              f"{res['cards']['devices']}): "
+              f"{res['cards']['step_ms_host_input']:.2f} ms host input / "
+              f"{res['cards']['step_ms_device_input']:.2f} device input "
+              f"against one card's {res['one_card']['step_ms_host_input']:.2f}"
+              f" / {res['one_card']['step_ms_device_input']:.2f} "
+              f"({res['speedup_device_input']:.2f}×); issued in "
+              f"{res['cards']['issue_ms_device_input']:.2f} / "
+              f"{res['one_card']['issue_ms_device_input']:.2f} ms; host syncs "
+              f"{res['cards']['host_syncs']}; launches NMS "
+              f"{res['cards']['nms_launches']}, epilogue "
+              f"{res['cards']['epilogue_launches_a_step']:.0f} a step; "
+              f"against one card {deltas} [{card}]", flush=True)
+        del one, dp
+        torch.cuda.empty_cache()
+    return out
+
+
+def stripe_scan(processes, base, n_cards, gate, card):
+    """14e's stripe scan: ``n_cards`` NCCL processes, a card each, scan
+    their stripes of 10b's AOI (``dist_scan``) from a FakeTileServer in
+    this process; this process scans the whole AOI on cuda:0 with the
+    dedup off and merges the stripes (``merge_host_detections``)."""
+    from aerial_image_recognition_tpu_torch.fetch.fake import (
+        FakeTileServer, FakeWorld)
+    from aerial_image_recognition_tpu_torch.gio.geojson import (
+        feature_collection_to_detections, read_geojson)
+    from aerial_image_recognition_tpu_torch.parallel.distributed import (
+        merge_host_detections)
+    from aerial_image_recognition_tpu_torch.pipeline.detector import (
+        CarDetector)
+    from aerial_image_recognition_tpu_torch.post.dedup import dedup_records
+    srv = FakeTileServer(FakeWorld(**SCAN_WORLD))
+    srv.start()
+    try:
+        frame = aoi_frame(os.path.join(base, "stripe_aoi.geojson"),
+                          SCAN_AOI)
+        reports, outs, wall = processes("nccl_stripe_scan", "nccl",
+                                        n_cards, "scan", srv.base_url,
+                                        frame)
+        det = CarDetector(os.path.join(base, "stripe_single"),
+                          scan_config(srv.base_url, frame,
+                                      duplicate_distance=0.0))
+        t0 = time.perf_counter()
+        summary = det.detect(force_restart=True)
+        single_wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    parts = [json.load(open(o)) for o in outs]
+    single_raw = feature_collection_to_detections(
+        read_geojson(summary["output"]))
+    all_recs = [r for p in parts for r in p["records"]]
+
+    def key(recs):
+        return sorted((r["lon"], r["lat"], r["confidence"]) for r in recs)
+
+    tiles = [p["tiles"] for p in parts]
+    merged = merge_host_detections(all_recs, radius_m=2.0)
+    single = dedup_records(single_raw, radius_m=2.0)
+    counts = [len(p["records"]) for p in parts]
+    raw_equal = key(all_recs) == key(single_raw)
+    merge_equal = key(merged) == key(single)
+    gate(sum(tiles) == summary["tiles"] and all(t > 0 for t in tiles),
+         f"14e stripe scan: stripes of {tiles} tiles against the single "
+         f"scan's {summary['tiles']}")
+    gate(all(p["counts_allgather"] == counts for p in parts),
+         f"14e stripe scan: allgathered counts {parts[0]['counts_allgather']}"
+         f" against {counts}")
+    gate(raw_equal, f"14e stripe scan: {len(all_recs)} raw records, the "
+                    f"single scan {len(single_raw)}, not equal as sets")
+    gate(merge_equal and len(merged) < len(all_recs),
+         f"14e stripe scan: merged {len(merged)}, the single scan deduped "
+         f"{len(single)}")
+    out = {"devices": [r["device"] for r in reports],
+           "backend": sorted({r["backend"] for r in reports}),
+           "tiles": tiles, "single_tiles": summary["tiles"],
+           "records": counts, "single_records": len(single_raw),
+           "raw_equal": raw_equal, "merged": len(merged),
+           "merge_equal_single_dedup": merge_equal,
+           "host_stripes": [p["host_stripe"] for p in parts],
+           "process_walls_s": [p["wall_s"] for p in parts],
+           "wall_s": wall, "single_wall_s": single_wall}
+    print(f"14e stripe scan: {n_cards} processes on NCCL over "
+          f"{out['devices']}, stripes of {tiles} tiles (single "
+          f"{summary['tiles']}), raw records {counts} equal to the single "
+          f"scan's {len(single_raw)} as a set {raw_equal}, merged "
+          f"{len(merged)} equal to its dedup {merge_equal}; {wall:.1f} s "
+          f"of wall for the processes (each scan "
+          f"{[round(w, 2) for w in out['process_walls_s']]} s) against "
+          f"{single_wall:.2f} s for one process's scan [{card}]",
+          flush=True)
+    return out
+
+
+def dp_train(torch, meshes, card, gate, not_run, one_card):
+    """14f: YOLOv8l's data-parallel train step (768 px, batch 8, batch
+    BN) over two shards of one card and, with two cards or more, over
+    ``make_mesh()``, against the single-device step with its BN
+    statistics in f64; remat over each mesh; timed, over the cards also
+    at ``DP_TRAIN_PER_CARD`` rows a card beside one card at that global
+    batch."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        grads_to_flax)
+    from aerial_image_recognition_tpu_torch.pipeline import train as T
+    rng = np.random.default_rng(14)
+    tiles, tb, tc = render_tiles(rng, V8L_B, V8L_SIZE)
+    batch = next(iter(memory_loader(
+        tiles, tile_targets(tb, tc, V8L_SIZE), V8L_B, False, mosaic=0.0,
+        mixup=0.0, hsv=0.0).epoch(0)))
+    tree = unit_variance_tree(torch, "yolov8_tokyo", tiles[:, :SIZE, :SIZE])
+    bundle = create_model("yolov8_tokyo", dtype=torch.float32,
+                          variables=tree, device="cuda:0")
+    tx = T.make_optimizer(lr=TRAIN_LR)
+    s0 = T.init_train_state(bundle, tx)
+    one = T.make_train_step(bundle, tx)
+    if one.bn_mode != "batch":
+        fail("14f: yolov8 did not resolve to batch BN")
+    # the witness: the single-device step with its BN statistics in f64
+    # (f64_bn_statistics). Each mesh's step is held to it leaf by leaf as
+    # the CPU tests hold theirs to the reference's f64 step: no further
+    # from it than the plain f32 single-device step is, plus
+    # TRAIN_GRAD_LIMIT of the leaf's largest
+    with f64_bn_statistics(torch):
+        lw, _, gw, bsw = one.loss_and_grads(s0, *batch)
+    gw = grads_to_flax(gw)["params"]
+    lp, _, gp, _ = one.loss_and_grads(s0, *batch)
+    plain_rel = leaf_errors(grads_to_flax(gp)["params"], gw)
+    del gp
+    plain_loss_rel = abs(float(lp) - float(lw)) / abs(float(lw))
+    _, ms1, _ = timed_train_steps(torch, one, s0, batch, 3, warmup=1)
+    out = {"size": V8L_SIZE, "batch": V8L_B,
+           "against": "single device, BN statistics in f64",
+           "plain_f32_loss_rel": plain_loss_rel,
+           "plain_f32_grad_max_rel": max(plain_rel.values()),
+           "plain_f32_worst_leaf": max(plain_rel, key=plain_rel.get),
+           "plain_f32_leaves_beyond_limit": sum(
+               v > TRAIN_GRAD_LIMIT for v in plain_rel.values()),
+           "leaves": len(plain_rel), "step_ms_single": ms1}
+    labels = ["two_shards_one_card"]
+    if meshes["cards"].local_size >= 2:
+        labels.append("cards")
+    else:
+        not_run("14f over make_mesh()", one_card + " (make_mesh() is the "
+                "single device, which is the witness's step)")
+    for label in labels:
+        mesh = meshes[label]
+        step = T.make_train_step(bundle, tx, mesh=mesh)
+        if step.bn_mode != "batch":
+            fail(f"14f {label}: yolov8 did not resolve to batch BN")
+        l2, _, g2, bs2 = step.loss_and_grads(s0, *batch)
+        g_rel = leaf_errors(grads_to_flax(g2)["params"], gw)
+        over = {k: v for k, v in g_rel.items()
+                if v > plain_rel[k] + TRAIN_GRAD_LIMIT}
+        # remat over the shards: recomputed in lockstep, the statistics
+        # of the first forward kept
+        lr_, _, gr, bsr = T.make_train_step(
+            bundle, tx, mesh=mesh, remat=True).loss_and_grads(s0, *batch)
+        remat_rel = max(leaf_errors(grads_to_flax(gr)["params"],
+                                    grads_to_flax(g2)["params"]).values())
+        remat_stats_equal = all(torch.equal(bsr[k], bs2[k]) for k in bs2)
+        remat_stats_rel = max(float((bsr[k] - bs2[k]).abs().max())
+                              / max(float(bs2[k].abs().max()), 1e-30)
+                              for k in bs2)
+        remat_loss_rel = abs(float(lr_) - float(l2)) / abs(float(l2))
+        gate(remat_loss_rel <= 1e-6 and remat_stats_rel <= 1e-6
+             and remat_rel <= TRAIN_GRAD_LIMIT,
+             f"14f {label}: remat: loss {remat_loss_rel:.2e}, statistics "
+             f"{remat_stats_rel:.2e}, gradients {remat_rel:.2e}")
+        del gr
+        bs_rel = max(float((bs2[k] - bsw[k]).abs().max())
+                     / max(float(bsw[k].abs().max()), 1e-30) for k in bsw)
+        loss_rel = abs(float(l2) - float(lw)) / abs(float(lw))
+        worst = max(over, key=lambda k: over[k] - plain_rel[k]) \
+            if over else None
+        gate(loss_rel <= 1e-4 and not over and bs_rel <= TRAIN_GRAD_LIMIT,
+             f"14f {label}: against the f64-statistics step: loss "
+             f"{loss_rel:.2e}, {len(over)} gradient leaves further than "
+             f"the plain step + {TRAIN_GRAD_LIMIT} (e.g. {worst}: "
+             f"{over.get(worst)} against {plain_rel.get(worst)}), "
+             f"statistics {bs_rel:.2e}")
+        del g2
+        _, ms2, losses2 = timed_train_steps(torch, step, s0, batch, 3,
+                                            warmup=1)
+        gate(all(math.isfinite(v) for v in losses2),
+             f"14f {label}: losses {losses2}")
+        out[label] = {
+            "devices": [str(d) for d in mesh.devices],
+            "shards": mesh.local_size, "loss_rel": loss_rel,
+            "grad_max_rel_to_leaf_max": max(g_rel.values()),
+            "grad_worst_leaf": max(g_rel, key=g_rel.get),
+            "grad_leaves_beyond_limit": sum(
+                v > TRAIN_GRAD_LIMIT for v in g_rel.values()),
+            "stats_max_rel": bs_rel, "remat_grad_max_rel": remat_rel,
+            "remat_loss_rel": remat_loss_rel,
+            "remat_stats_equal": remat_stats_equal, "step_ms": ms2}
+        print(f"14f yolov8l {V8L_SIZE} px, batch {V8L_B}, batch BN, "
+              f"{label} ({[str(d) for d in mesh.devices]}) against one "
+              f"device with its BN statistics in f64: loss "
+              f"{loss_rel:.1e}, gradients within {max(g_rel.values()):.1e} "
+              f"of each leaf's largest at {max(g_rel, key=g_rel.get)} "
+              f"({out[label]['grad_leaves_beyond_limit']} of {len(g_rel)} "
+              f"leaves beyond {TRAIN_GRAD_LIMIT}), statistics "
+              f"{bs_rel:.1e}; the plain f32 step against the same: loss "
+              f"{plain_loss_rel:.1e}, gradients "
+              f"{max(plain_rel.values()):.1e} at "
+              f"{max(plain_rel, key=plain_rel.get)} "
+              f"({out['plain_f32_leaves_beyond_limit']} leaves beyond); "
+              f"remat: loss {remat_loss_rel:.1e}, statistics equal "
+              f"{remat_stats_equal}, gradients within {remat_rel:.1e}; "
+              f"{ms2:.1f} ms a step against {ms1:.1f} [{card}]",
+              flush=True)
+        del step
+    if "cards" in labels:
+        # the per-card batch: DP_TRAIN_PER_CARD rows on each card, beside
+        # one card at that global batch (where it fits)
+        big = DP_TRAIN_PER_CARD * meshes["cards"].local_size
+        tiles, tb, tc = render_tiles(np.random.default_rng(15), big,
+                                     V8L_SIZE)
+        big_batch = next(iter(memory_loader(
+            tiles, tile_targets(tb, tc, V8L_SIZE), big, False, mosaic=0.0,
+            mixup=0.0, hsv=0.0).epoch(0)))
+        cards_step = T.make_train_step(bundle, tx, mesh=meshes["cards"])
+        _, ms_cards, losses_c = timed_train_steps(torch, cards_step, s0,
+                                                  big_batch, 3, warmup=1)
+        gate(all(math.isfinite(v) for v in losses_c),
+             f"14f cards at {big}: losses {losses_c}")
+        del cards_step
+        torch.cuda.empty_cache()
+        try:
+            _, ms_one, _ = timed_train_steps(torch, one, s0, big_batch, 3,
+                                             warmup=1)
+        except torch.cuda.OutOfMemoryError as e:
+            ms_one = f"not measured: out of memory on one card ({e})"[:200]
+        torch.cuda.empty_cache()
+        out["per_card_batch"] = {
+            "global_batch": big, "per_card": DP_TRAIN_PER_CARD,
+            "step_ms_cards": ms_cards, "step_ms_one_card": ms_one,
+            "images_per_s_cards": big / ms_cards * 1e3}
+        print(f"14f yolov8l at {big} ({DP_TRAIN_PER_CARD} a card over "
+              f"{len(meshes['cards'].devices)} cards): {ms_cards:.1f} ms a "
+              f"step ({big / ms_cards * 1e3:.1f} images/s) against one "
+              f"card's {ms_one if isinstance(ms_one, str) else f'{ms_one:.1f}'}"
+              f" at that batch and {ms1:.1f} at {V8L_B} [{card}]",
+              flush=True)
+    del bundle, one, s0
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------- 15. quad stem

@@ -1,14 +1,14 @@
 """Processes on ``torch.distributed`` (``parallel/distributed.py``): the
-helpers against the JAX package's, then two port processes on one gloo
-group, spawned from the test as tests/test_distributed_multihost.py spawns
-the JAX package's (tests/torch_dist_worker.py):
+helpers against the JAX package's, then two and four port processes on one
+gloo group, spawned from the test as tests/test_distributed_multihost.py
+spawns the JAX package's (tests/torch_dist_worker.py):
 
 * a stripe scan: each process scans its stripe of the global tile grid;
   the merged, deduped records equal a single-process port scan of the
   whole grid exactly, and the counts cross ``process_allgather``;
 * training: three data-parallel XUnet steps (frozen BN) and one yolov8n
   step in ``batch`` BN mode (the BN sync on the cross-process path), each
-  process on its own rows: the two processes end bit-equal, and equal to
+  process on its own rows: the processes end bit-equal, and equal to
   one process on the global batch within the 2·lr-a-step rule
   (tests/test_torch_train.py: every element within 2·lr a step, fewer than
   1 % of all elements beyond 1e-6), the losses within rtol 1e-4 and the
@@ -53,15 +53,16 @@ def _free_port() -> int:
 
 
 def _spawn(mode, tmp_path, outs, *extra):
-    """Run two workers on one fresh coordinator address; their logs if
-    either fails."""
+    """Run a worker for each of ``outs`` on one fresh coordinator address;
+    their logs if any fails."""
     env = dict(os.environ, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     coord = f"127.0.0.1:{_free_port()}"
+    n = len(outs)
     procs = [subprocess.Popen(
-        [sys.executable, WORKER, mode, coord, str(i), "2", outs[i], *extra],
-        env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for i in range(2)]
+        [sys.executable, WORKER, mode, coord, str(i), str(n), outs[i],
+         *extra], env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for i in range(n)]
     logs = []
     try:
         for p in procs:
@@ -147,7 +148,9 @@ def _write_frame(path):
         "geometry": {"type": "Polygon", "coordinates": [ring]}}]}, path)
 
 
-def test_two_process_stripe_scan_merges_to_single_process_result(tmp_path):
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_process_stripe_scan_merges_to_single_process_result(tmp_path,
+                                                                 world):
     from aerial_image_recognition_tpu_torch.fetch.fake import (
         FakeTileServer, FakeWorld)
     from aerial_image_recognition_tpu_torch.post.dedup import dedup_records
@@ -156,12 +159,12 @@ def test_two_process_stripe_scan_merges_to_single_process_result(tmp_path):
     srv = FakeTileServer(FakeWorld(**WORLD))
     srv.start()
     try:
-        outs = [str(tmp_path / f"host{i}.json") for i in range(2)]
+        outs = [str(tmp_path / f"host{i}.json") for i in range(world)]
         _spawn("scan", tmp_path, outs, srv.base_url, frame)
         results = sorted((json.load(open(o)) for o in outs),
                          key=lambda r: r["process_index"])
-        assert [r["process_index"] for r in results] == [0, 1]
-        assert all(r["process_count"] == 2 for r in results)
+        assert [r["process_index"] for r in results] == list(range(world))
+        assert all(r["process_count"] == world for r in results)
         counts = [len(r["records"]) for r in results]
         assert all(r["counts_allgather"] == counts for r in results)
         assert all(c > 0 for c in counts)
@@ -183,19 +186,21 @@ def test_two_process_stripe_scan_merges_to_single_process_result(tmp_path):
     assert len(merged) < len(all_recs)                # the merge deduped
 
 
-def test_two_process_training_matches_one_process(tmp_path):
-    outs = [str(tmp_path / f"train{i}.npz") for i in range(2)]
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_process_training_matches_one_process(tmp_path, world):
+    outs = [str(tmp_path / f"train{i}.npz") for i in range(world)]
     _spawn("train", tmp_path, outs)
     got = [dict(np.load(o)) for o in outs]
-    # both processes end with the same parameters and statistics, bit for
-    # bit, and saw each other's sums
+    # every process ends with the same parameters and statistics, bit for
+    # bit, and saw the others' sums
     keys = [k for k in got[0] if ":" in k]
-    for k in keys:
-        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
-    np.testing.assert_array_equal(got[0]["sums_allgather"][0],
-                                  got[0]["sums_allgather"][1])
-    np.testing.assert_array_equal(got[0]["sums_allgather"],
-                                  got[1]["sums_allgather"])
+    for other in got[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(got[0][k], other[k], err_msg=k)
+        np.testing.assert_array_equal(got[0]["sums_allgather"],
+                                      other["sums_allgather"])
+    for row in got[0]["sums_allgather"][1:]:
+        np.testing.assert_array_equal(got[0]["sums_allgather"][0], row)
     # one process, one device, the global batch
     losses, want = W.train()
     np.testing.assert_allclose(got[0]["losses"], losses, rtol=1e-4)

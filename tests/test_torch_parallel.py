@@ -88,6 +88,45 @@ def test_pad_to_multiple_equals_jax(shape, multiple, axis, fill):
     np.testing.assert_array_equal(got, want)
 
 
+def test_entry_points_pin_the_callers_card(monkeypatch):
+    """A process that drives card 1 (``initialize`` makes a process's card
+    current in its main thread) and builds with the default device: the
+    device it resolves names card 1, so that the threads that use it (the
+    server's batch thread, the device monitor's) stay there. CUDA's
+    current card belongs to the thread and a new thread starts on card 0,
+    which the stand-in ``current_device`` mirrors."""
+    import threading
+    import time
+    from aerial_image_recognition_tpu_torch.runtime import device as RD
+    from aerial_image_recognition_tpu_torch.runtime.observability import (
+        DeviceMonitor)
+    main = threading.main_thread()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: int(
+        threading.current_thread() is main))
+    asked = []
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: asked.append(dev) or (1, 2))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: "card")
+    card = torch.device("cuda", 1)
+    assert RD.resolve_device() == RD.resolve_device("cuda") == card
+    assert RD.resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert RD.resolve_device("cpu") == torch.device("cpu")
+    # CarDetector gives its monitor the resolved device; the monitor
+    # samples from its own thread
+    mon = DeviceMonitor(interval=0.01, device=RD.resolve_device(),
+                        print_line=False)
+    mon.start()
+    try:
+        deadline = time.monotonic() + 5.0
+        while not asked and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        mon.stop()
+    assert asked and all(torch.device(d) == card for d in asked), asked
+
+
 def test_mesh_flags_never_repeat_a_card(monkeypatch):
     assert PM.mesh_from_flag(None) is None and PM.mesh_from_flag(0) is None
     assert PM.mesh_from_flag(False, "cpu") is None
@@ -668,11 +707,48 @@ def test_spatial_rows_and_refusals():
                             PM.Mesh([torch.device("meta")]))
 
 
+def test_spatial_int8_exact_when_float_sums_depend_on_the_slab(monkeypatch):
+    """On the card a float convolution's sums over a slab of rows may round
+    otherwise than over the whole image (cuDNN picks its algorithm by
+    shape): on an H100, over four shards of 160 rows of a 64-tile batch,
+    100 of YOLOv7-tiny's P2 codes flipped, and the integer trunk carried
+    them to the detections (0.0138 in score, 0.64 px). A stand-in makes every float convolution that
+    spatial inference runs on a slab depend on the slab's height: the int8
+    spatial function must still equal the unsharded int8 function, bit
+    for bit."""
+    import types
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        quantize_bundle)
+    from aerial_image_recognition_tpu_torch.parallel import spatial as SP
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        make_detect_fn)
+    from test_torch_int8 import SIZE as QSIZE, scene_tiles
+    tiles = torch.from_numpy(scene_tiles()[:8])
+    cfg = DetectorConfig.from_dict(dict(CFG, confidence_threshold=0.4))
+    base = build_detect_step(cfg, batch=8, model_size=QSIZE, device="cpu")
+    qb = quantize_bundle(base.bundle, [tiles.numpy()], model_size=QSIZE)
+    bnds = torch.tensor([[20.999, 52.199, 21.001, 52.201]] * 8)
+    want = make_detect_fn(qb, cfg, model_size=QSIZE)(tiles, bnds)
+    real = torch.nn.functional
+
+    def slab_conv2d(x, w, *args, **kw):
+        return real.conv2d(x, w, *args, **kw) + 0.01 * (x.shape[2] % 5 + 1)
+    monkeypatch.setattr(SP, "F", types.SimpleNamespace(
+        conv2d=slab_conv2d, max_pool2d=real.max_pool2d,
+        interpolate=real.interpolate))
+    got = SP.make_spatial_detect(qb, cfg, PM.Mesh(["cpu"] * 4),
+                                 model_size=QSIZE)(tiles, bnds)
+    assert int(want[0].valid.sum()) >= 8
+    for a, b in zip(want[0], got[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(want[1], got[1]) and torch.equal(want[2], got[2])
+
+
 def test_spatial_with_an_int8_bundle(monkeypatch):
-    """An ``Int8Bundle`` under spatial inference: its float stems and its
-    int8 trunk run on the shards' rows (halos of the 3×3 convs, the
-    stride-2 convs and SPP's chained pools included), nothing is gathered
-    before the head taps; the detections equal the unsharded int8
+    """An ``Int8Bundle`` under spatial inference: its float stems run
+    whole and its int8 trunk on the shards' rows (halos of the 3×3 convs,
+    the stride-2 convs and SPP's chained pools included), nothing is
+    gathered before the head taps; the detections equal the unsharded int8
     function's (tolerance 0)."""
     from aerial_image_recognition_tpu_torch.models.int8 import (
         quantize_bundle)

@@ -1,4 +1,4 @@
-"""A process of the port's two-process tests (tests/test_torch_distributed.py).
+"""A process of the port's multi-process tests (tests/test_torch_distributed.py).
 
     python torch_dist_worker.py scan <coordinator> <rank> <n> <out.json> \
         <tile_server_url> <frame.geojson>
@@ -43,30 +43,31 @@ def stripe_filter(frame_path, pid, nproc):
 
 
 def scan(base, server_url, frame_path, tile_filter=None):
-    """A CarDetector scan (the trained fixture, 96 px, f32 on the CPU) of
-    the frame; its records."""
+    """A CarDetector scan (the trained fixture, 96 px, f32 on the CPU,
+    ``data_parallel: true``: one CPU shard, whose mesh spans the processes
+    under a process group) of the frame; its records."""
     from aerial_image_recognition_tpu_torch.fetch.wms import WMSFetcher
     from aerial_image_recognition_tpu_torch.gio.geojson import (
         feature_collection_to_detections, read_geojson)
     from aerial_image_recognition_tpu_torch.pipeline.detector import (
         CarDetector)
-    from aerial_image_recognition_tpu_torch.pipeline.inference import (
-        build_detect_step)
-    from aerial_image_recognition_tpu_torch.runtime.config import (
-        DetectorConfig)
-    cfg = DetectorConfig(confidence_threshold=0.4, nms_iou_threshold=0.45,
-                         duplicate_distance=0.0, params_path=FIXTURE,
-                         dtype="float32")
-    step = build_detect_step(cfg, batch=16, model_size=96, device="cpu")
     fetcher = WMSFetcher(server_url + "/wms", layer="fake", size=(96, 96),
                          num_workers=8, submit_spacing=0.0)
     det = CarDetector(base, {
         "frame_path": frame_path, "tile_size_meters": 48.0,
         "tile_overlap": 0.25, "confidence_threshold": 0.4,
+        "nms_iou_threshold": 0.45, "params_path": FIXTURE,
+        "dtype": "float32", "model_input_size": (96, 96),
         "duplicate_distance": 0.0, "batch_size": 32, "device_batch": 16,
-        "checkpoint_interval": 10**9,
-    }, fetcher=fetcher, detect_step=step, tile_filter=tile_filter)
+        "checkpoint_interval": 10**9, "data_parallel": True,
+    }, fetcher=fetcher, tile_filter=tile_filter, device="cpu")
     summary = det.detect(interactive=False, force_restart=True)
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = det.last_step.mesh
+    if mesh.devices != (torch.device("cpu"),) or mesh.size != world:
+        raise AssertionError(f"the scan ran over {mesh}")
     recs = feature_collection_to_detections(read_geojson(summary["output"]))
     return summary, recs
 
