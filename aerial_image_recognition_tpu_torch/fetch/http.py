@@ -24,6 +24,8 @@ from typing import Dict, Optional
 import requests
 from requests.adapters import HTTPAdapter
 
+from aerial_image_recognition_tpu_torch.runtime.observability import Tracer
+
 
 def _retry_after_seconds(value, default: float) -> float:
     """Retry-After per RFC 7231: delta-seconds OR an HTTP-date. Returns
@@ -49,14 +51,19 @@ from urllib3.util.retry import Retry
 
 @dataclass
 class FetchStats:
-    """Thread-safe running counters (single lock; mutated by worker threads)."""
+    """Thread-safe running counters (single lock; mutated by worker threads).
+
+    ``request_s`` and ``decode_s`` are the seconds of every request attempt
+    and every tile decode on the monotonic clock, summed over the worker
+    threads: thread-seconds, not wall time."""
     requests: int = 0
     successes: int = 0
     failures: int = 0
     timeouts: int = 0
     rate_limited: int = 0
     bytes_fetched: int = 0
-    total_time: float = 0.0
+    request_s: float = 0.0
+    decode_s: float = 0.0
     started: Optional[float] = None      # first-request wall clock
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -64,7 +71,7 @@ class FetchStats:
                timeout: bool = False, ratelimited: bool = False):
         with self._lock:
             self.requests += 1
-            self.total_time += dt
+            self.request_s += dt
             if self.started is None:
                 self.started = time.time()
             if ok:
@@ -74,6 +81,10 @@ class FetchStats:
                 self.failures += 1
                 self.timeouts += timeout
                 self.rate_limited += ratelimited
+
+    def decoded(self, dt: float):
+        with self._lock:
+            self.decode_s += dt
 
     def summary(self) -> Dict:
         with self._lock:
@@ -158,38 +169,52 @@ class TileHTTP:
         delay = self.backoff
         for attempt in range(self.retries):
             last = attempt == self.retries - 1   # no pointless final sleep
-            t0 = time.time()
+            t0 = time.perf_counter()
             try:
-                r = self.session.get(url, params=params, timeout=self.timeout)
+                with Tracer.annotate("tile_request"):
+                    r = self.session.get(url, params=params,
+                                         timeout=self.timeout)
                 if r.status_code == 200:
                     body = r.content
-                    self.stats.record(True, time.time() - t0, len(body))
+                    self.stats.record(True, time.perf_counter() - t0,
+                                      len(body))
                     return body
                 if r.status_code == 429:
-                    self.stats.record(False, time.time() - t0,
+                    self.stats.record(False, time.perf_counter() - t0,
                                       ratelimited=True)
                     self.failures.add(url, f"HTTP429", attempt)
                     if not last:
                         time.sleep(min(_retry_after_seconds(
                             r.headers.get("Retry-After"), delay), 30.0))
                 else:
-                    self.stats.record(False, time.time() - t0)
+                    self.stats.record(False, time.perf_counter() - t0)
                     self.failures.add(url, f"HTTP{r.status_code}", attempt)
                     if not last:
                         time.sleep(delay)
             except requests.Timeout:
-                self.stats.record(False, time.time() - t0, timeout=True)
+                self.stats.record(False, time.perf_counter() - t0,
+                                  timeout=True)
                 self.failures.add(url, "Timeout", attempt)
                 if not last:
                     time.sleep(delay)
             except requests.RequestException as e:
-                self.stats.record(False, time.time() - t0)
+                self.stats.record(False, time.perf_counter() - t0)
                 self.failures.add(url, type(e).__name__ + ":" + str(e)[:80],
                                   attempt)
                 if not last:
                     time.sleep(delay)
             delay = min(delay * 2, 8.0) * (1.0 + random.random() * 0.1)
         return None
+
+    def decode(self, body: bytes):
+        """``gio.decode.decode_rgb(body)`` (native libjpeg, PIL fallback),
+        its seconds added to ``stats.decode_s``: None when undecodable."""
+        from aerial_image_recognition_tpu_torch.gio.decode import decode_rgb
+        t0 = time.perf_counter()
+        with Tracer.annotate("tile_decode"):
+            arr = decode_rgb(body)
+        self.stats.decoded(time.perf_counter() - t0)
+        return arr
 
     def close(self):
         self.session.close()

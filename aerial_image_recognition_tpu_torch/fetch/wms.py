@@ -139,8 +139,7 @@ class WMSFetcher:
         body = self.http.get(self.url, params=self.getmap_params(bbox))
         if body is None:
             return None
-        from aerial_image_recognition_tpu_torch.gio.decode import decode_rgb
-        arr = decode_rgb(body)          # native libjpeg path, PIL fallback
+        arr = self.http.decode(body)    # native libjpeg path, PIL fallback
         if arr is None:
             self.http.failures.add(self.url, "DecodeError", 0)
             return None

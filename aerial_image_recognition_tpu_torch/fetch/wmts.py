@@ -191,8 +191,7 @@ class WMTSFetcher:
             "TILEROW": str(row), "TILECOL": str(col)})
         if body is None:
             return None
-        from aerial_image_recognition_tpu_torch.gio.decode import decode_rgb
-        return decode_rgb(body)         # native libjpeg path, PIL fallback
+        return self.http.decode(body)   # native libjpeg path, PIL fallback
 
     def fetch_neighborhood(self, lon: float, lat: float, matrix_id: str,
                            radius: int = 1) -> Optional[TileImage]:

@@ -77,8 +77,7 @@ class XYZFetcher:
         body = self.http.get(self._tile_url(x, y, z))
         if body is None:
             return None
-        from aerial_image_recognition_tpu_torch.gio.decode import decode_rgb
-        arr = decode_rgb(body)          # native libjpeg path, PIL fallback
+        arr = self.http.decode(body)    # native libjpeg path, PIL fallback
         if arr is None:
             self.http.failures.add(self._tile_url(x, y, z), "DecodeError", 0)
             return None

@@ -17,6 +17,7 @@ buffers, allocated once per scan, with its own copy stream
 ``ThreadedPrefetcher`` are copies of the JAX package's.
 """
 
+import contextlib
 import queue
 import threading
 import time
@@ -28,6 +29,8 @@ import numpy as np
 import torch
 
 from aerial_image_recognition_tpu_torch.fetch.xyz import TileImage
+from aerial_image_recognition_tpu_torch.runtime.observability import (
+    PhaseTimer)
 
 
 @dataclass
@@ -41,7 +44,9 @@ class TileBatch:
 
 def assemble_batches(tiles: Iterable[Tuple[int, Optional[TileImage]]],
                      batch_size: int, src_size: int,
-                     layout: str = "hwc") -> Iterator[TileBatch]:
+                     layout: str = "hwc",
+                     timers: Optional[PhaseTimer] = None
+                     ) -> Iterator[TileBatch]:
     """Pack (index, TileImage) streams into fixed-shape batches.
 
     Failed tiles (None) are recorded, not batched. The final partial batch
@@ -52,7 +57,12 @@ def assemble_batches(tiles: Iterable[Tuple[int, Optional[TileImage]]],
     for the quad stem (``DetectStep.input_layout``): a strided host copy in
     place of the straight one (``ops/quadstem.host_s2d2_into``); the same
     bytes cross to the device and nothing is relaid there.
+
+    timers: the scan's ``PhaseTimer``; each tile's packing and each
+    batch's copies out are its phase ``batch_packing`` (the pulls from
+    ``tiles`` are not). None times nothing.
     """
+    phase = timers.phase if timers is not None else _untimed
     if layout == "s2d2":
         from aerial_image_recognition_tpu_torch.ops.quadstem import (
             host_s2d2_into)
@@ -67,35 +77,46 @@ def assemble_batches(tiles: Iterable[Tuple[int, Optional[TileImage]]],
     fill = 0
     failed: List[int] = []
     for index, tile in tiles:
-        if tile is None:
-            failed.append(index)
-            continue
-        px = tile.pixels
-        if px.shape[0] != src_size or px.shape[1] != src_size:
-            # tolerate ragged tiles the way the reference did — resize to
-            # the expected window (gpu_handler.py:74-76 resized whatever
-            # arrived). Misconfigured fetchers emitting a consistent wrong
-            # size still surface immediately in coverage/throughput, but a
-            # stray odd-sized edge tile no longer kills a city scan.
-            from PIL import Image
-            px = np.asarray(Image.fromarray(px).resize(
-                (src_size, src_size), Image.BILINEAR))
-        if layout == "s2d2":
-            host_s2d2_into(px, imgs[fill])   # one strided copy, no temporary
-        else:
-            imgs[fill] = px
-        bnds[fill] = tile.bounds
-        idxs[fill] = index
-        fill += 1
-        if fill == batch_size:
-            yield TileBatch(idxs.copy(), imgs.copy(), bnds.copy(),
-                            fill, failed)
+        with phase("batch_packing"):
+            if tile is None:
+                failed.append(index)
+                continue
+            px = tile.pixels
+            if px.shape[0] != src_size or px.shape[1] != src_size:
+                # tolerate ragged tiles the way the reference did — resize
+                # to the expected window (gpu_handler.py:74-76 resized
+                # whatever arrived). Misconfigured fetchers emitting a
+                # consistent wrong size still surface immediately in
+                # coverage/throughput, but a stray odd-sized edge tile no
+                # longer kills a city scan.
+                from PIL import Image
+                px = np.asarray(Image.fromarray(px).resize(
+                    (src_size, src_size), Image.BILINEAR))
+            if layout == "s2d2":
+                host_s2d2_into(px, imgs[fill])  # one strided copy
+            else:
+                imgs[fill] = px
+            bnds[fill] = tile.bounds
+            idxs[fill] = index
+            fill += 1
+            if fill < batch_size:
+                continue
+            batch = TileBatch(idxs.copy(), imgs.copy(), bnds.copy(),
+                              fill, failed)
             fill, failed = 0, []
             idxs[:] = -1
+        yield batch
     if fill or failed:
-        imgs[fill:] = 0
-        bnds[fill:] = (0, 0, 1e-6, 1e-6)   # degenerate but finite bounds
-        yield TileBatch(idxs.copy(), imgs.copy(), bnds.copy(), fill, failed)
+        with phase("batch_packing"):
+            imgs[fill:] = 0
+            bnds[fill:] = (0, 0, 1e-6, 1e-6)   # degenerate but finite bounds
+            batch = TileBatch(idxs.copy(), imgs.copy(), bnds.copy(), fill,
+                              failed)
+        yield batch
+
+
+def _untimed(name: str):
+    return contextlib.nullcontext()
 
 
 class ThreadedPrefetcher:
@@ -289,7 +310,8 @@ def run_pipeline(batches: Iterable[TileBatch],
                  step: Callable,
                  on_result: Callable[[TileBatch, tuple], None],
                  prefetch_device: bool = True,
-                 depth: int = 1) -> dict:
+                 depth: int = 1,
+                 timers: Optional[PhaseTimer] = None) -> dict:
     """Drive batches through a device step with H2D/compute overlap.
 
     ``step(images_u8, bounds)`` must return as soon as its work is queued
@@ -323,7 +345,14 @@ def run_pipeline(batches: Iterable[TileBatch],
     h2d_s (host time the uploads took, the pinned copy included; with the
     ring, on its staging thread), compute_s (host time dispatching steps
     and draining results).
+
+    timers: the scan's ``PhaseTimer``, which gets this thread's phases:
+    ``ingest_wait`` (each ``next()`` on ``batches``, so a starved card
+    shows here), ``batch_dispatch`` (an upload and a step's dispatch; the
+    ring's first allocation falls in the first), ``result_drain`` (a
+    batch's readback wait and ``on_result``). None times nothing.
     """
+    phase = timers.phase if timers is not None else _untimed
     stats = {"batches": 0, "tiles": 0, "failed": 0,
              "h2d_s": 0.0, "compute_s": 0.0}
     it = iter(batches)
@@ -368,26 +397,33 @@ def run_pipeline(batches: Iterable[TileBatch],
         return out, dones[device]
 
     def drain(b: TileBatch, o: tuple, done):
-        if done is None:
-            on_result(b, o)                # host readback syncs here
-        else:
-            with torch.cuda.stream(readback):
-                readback.wait_event(done)
-                on_result(b, o)
-                readback.synchronize()
+        with phase("result_drain"):
+            if done is None:
+                on_result(b, o)                # host readback syncs here
+            else:
+                with torch.cuda.stream(readback):
+                    readback.wait_event(done)
+                    on_result(b, o)
+                    readback.synchronize()
         stats["batches"] += 1
         stats["tiles"] += b.n_valid
         stats["failed"] += len(b.failed_indices)
 
+    def wait():
+        with phase("ingest_wait"):
+            return next(it, None)
+
     try:
-        nxt = next(it, None)
-        d_nxt = upload(nxt) if nxt is not None else None
+        nxt = wait()
+        with phase("batch_dispatch"):
+            d_nxt = upload(nxt) if nxt is not None else None
         while nxt is not None:
             cur, d_cur = nxt, d_nxt
-            nxt = next(it, None)
-            d_nxt = upload(nxt) if nxt is not None else None
-            t0 = time.perf_counter()
-            pending.append((cur, *dispatch(d_cur)))  # queued, not done
+            nxt = wait()
+            with phase("batch_dispatch"):
+                d_nxt = upload(nxt) if nxt is not None else None
+                t0 = time.perf_counter()
+                pending.append((cur, *dispatch(d_cur)))  # queued, not done
             # Drain only batches OLDER than the newest `depth` in flight
             # (draining the just-dispatched batch too would kill the
             # overlap every other iteration).

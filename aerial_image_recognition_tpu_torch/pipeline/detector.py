@@ -214,10 +214,11 @@ class CarDetector:
             mesh=self._make_mesh(), device=device)
         self.last_step = step             # observability (int8 state, tests)
 
+        # without an event log the samples would go nowhere
         monitor = DeviceMonitor(interval=c.monitor_interval,
                                 event_log=self.events, print_line=False,
-                                device=device)
-        monitor.start()
+                                device=device).start() \
+            if c.event_log else None
         prev_sig = signal.getsignal(signal.SIGINT)
         signal.signal(signal.SIGINT, self._on_interrupt)
 
@@ -252,6 +253,9 @@ class CarDetector:
             if self._interrupted:
                 raise KeyboardInterrupt
 
+        fetch_stats = getattr(getattr(fetcher, "http", None), "stats", None)
+        if fetch_stats is not None:
+            request_s0, decode_s0 = fetch_stats.request_s, fetch_stats.decode_s
         try:
             with self.timers.phase("processing"):
                 gen = self._tile_stream(fetcher, tiles, start_index, step)
@@ -259,18 +263,26 @@ class CarDetector:
                 # one-batch pipelining (ingest.run_pipeline): upload N+1
                 # and dispatch N before reading back N-1, so fetch, H2D and
                 # the card's compute overlap with host postprocess
-                ingest_stats = run_pipeline(prefetch, step, on_result)
+                ingest_stats = run_pipeline(prefetch, step, on_result,
+                                            timers=self.timers)
         except BaseException as e:        # checkpoint on ANY failure
             exc = e
         finally:
             pbar.close()
             signal.signal(signal.SIGINT, prev_sig)
-            monitor.stop()
+            if monitor is not None:
+                monitor.stop()
             # stop the producer BEFORE tearing down the fetcher it reads
             # from — otherwise the daemon thread keeps fetching into a
             # closing pool (noisy interrupt at city scale)
             if prefetch is not None:
                 prefetch.close()
+            if fetch_stats is not None:
+                # thread-seconds summed over the fetch workers, not wall
+                self.timers.add("tile_request",
+                                fetch_stats.request_s - request_s0)
+                self.timers.add("tile_decode",
+                                fetch_stats.decode_s - decode_s0)
             if exc is not None:
                 self._checkpoint(ckpt, results, processed, len(tiles),
                                  fingerprint, tiles=tiles)
@@ -370,18 +382,18 @@ class CarDetector:
             for i0 in range(start_index, len(tiles), chunk):
                 idxs = list(range(i0, min(i0 + chunk, len(tiles))))
                 bboxes = [tuple(tiles[i]) for i in idxs]
-                t0 = time.perf_counter()
-                prog = getattr(self, "_fetch_progress", None)
-                if isinstance(fetcher, XYZFetcher):
-                    imgs = fetcher.fetch_batch(bboxes, window_px=src,
-                                               progress=prog)
-                else:
-                    imgs = fetcher.fetch_batch(bboxes, progress=prog)
-                self.timers.add("tile_fetching", time.perf_counter() - t0)
+                with self.timers.phase("tile_fetching"):
+                    prog = getattr(self, "_fetch_progress", None)
+                    if isinstance(fetcher, XYZFetcher):
+                        imgs = fetcher.fetch_batch(bboxes, window_px=src,
+                                                   progress=prog)
+                    else:
+                        imgs = fetcher.fetch_batch(bboxes, progress=prog)
                 yield from zip(idxs, imgs)
 
         return assemble_batches(tile_iter(), batch_size=step.batch,
-                                src_size=src, layout=step.input_layout)
+                                src_size=src, layout=step.input_layout,
+                                timers=self.timers)
 
     def _collect(self, batch, out, step):
         det, lon, lat = out
@@ -400,24 +412,23 @@ class CarDetector:
 
     def _checkpoint(self, ckpt, results, processed, total, fingerprint,
                     tiles=None):
-        t0 = time.perf_counter()
-        if tiles is not None and processed < len(tiles):
-            # frontier-aware compaction: destroying a suppressed record is
-            # only safe once nothing near it can still arrive — keeps the
-            # final detection set independent of WHERE checkpoints/interrupts
-            # land (results.compact docstring)
-            import numpy as np
-            rem = np.asarray(tiles[processed:], dtype=np.float64)
-            active = (float(rem[:, 0].min()), float(rem[:, 1].min()),
-                      float(rem[:, 2].max()), float(rem[:, 3].max()))
-            results.compact(active)
-        else:
-            results.compact(None)
-        ckpt.save(CheckpointState(
-            processed_count=processed, total_tiles=total,
-            detections=results.detections,
-            grid_fingerprint=fingerprint))
-        self.timers.add("checkpointing", time.perf_counter() - t0)
+        with self.timers.phase("checkpointing"):
+            if tiles is not None and processed < len(tiles):
+                # frontier-aware compaction: destroying a suppressed record
+                # is only safe once nothing near it can still arrive —
+                # keeps the final detection set independent of WHERE
+                # checkpoints/interrupts land (results.compact docstring)
+                import numpy as np
+                rem = np.asarray(tiles[processed:], dtype=np.float64)
+                active = (float(rem[:, 0].min()), float(rem[:, 1].min()),
+                          float(rem[:, 2].max()), float(rem[:, 3].max()))
+                results.compact(active)
+            else:
+                results.compact(None)
+            ckpt.save(CheckpointState(
+                processed_count=processed, total_tiles=total,
+                detections=results.detections,
+                grid_fingerprint=fingerprint))
         self.events.emit("checkpoint", processed=processed,
                          detections=len(results.detections))
 

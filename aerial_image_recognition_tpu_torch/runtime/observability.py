@@ -14,16 +14,23 @@ are copies; the monitor keeps the field names ``hbm_used_mb`` and
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Optional
 
 
 class PhaseTimer:
-    """Accumulating named-phase wall-clock timers (thread-safe: fetch
-    threads time tile_fetching while the main thread times processing)."""
+    """Accumulating named-phase wall-clock timers (thread-safe: the
+    prefetch thread times tile_fetching and batch_packing while the main
+    thread times processing, ingest_wait, batch_dispatch and result_drain).
+
+    ``phase`` also opens the annotation ``Tracer.annotate(name)``, so every
+    phase shows in a ``torch.profiler`` trace on the clock of the CUDA
+    kernels and copies. ``add`` is for totals with no single start and
+    end (the fetch workers' request and decode seconds)."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -32,11 +39,12 @@ class PhaseTimer:
 
     @contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0)
+        with Tracer.annotate(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.add(name, time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float):
         with self._lock:
@@ -79,6 +87,9 @@ class EventLog:
                 f.write(line + "\n")
 
 
+_UNTRACED = nullcontext()
+
+
 class Tracer:
     """torch.profiler integration — the structured replacement for the
     reference's disabled ORT profiling (_script/gpu_handler.py:57).
@@ -87,6 +98,9 @@ class Tracer:
     trace (``trace.json``, host and, where there is one, CUDA activity)
     into the directory; annotate regions with ``Tracer.annotate(name)``
     (``torch.profiler.record_function``). ``log_dir=None`` traces nothing.
+    The profiler records every thread's annotations (the fetch workers'
+    and the prefetch thread's too), not only those of the thread that
+    entered it.
     """
 
     def __init__(self, log_dir: Optional[str]):
@@ -96,11 +110,13 @@ class Tracer:
     def __enter__(self):
         if self.log_dir:
             import torch
-            from torch.profiler import ProfilerActivity, profile
+            from torch.profiler import (
+                ProfilerActivity, _ExperimentalConfig, profile)
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=acts)
+            self._prof = profile(activities=acts, experimental_config=(
+                _ExperimentalConfig(profile_all_threads=True)))
             self._prof.__enter__()
         return self
 
@@ -115,8 +131,15 @@ class Tracer:
 
     @staticmethod
     def annotate(name: str):
-        from torch.profiler import record_function
-        return record_function(name)
+        """``torch.profiler.record_function(name)`` while a profiler
+        records, in any thread; otherwise a null context, which costs a
+        flag read where record_function costs microseconds. The flag is
+        torch's own, read without loading torch."""
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is None or not prof._is_profiler_enabled:
+            return _UNTRACED
+        import torch
+        return torch.profiler.record_function(name)
 
 
 class DeviceMonitor:

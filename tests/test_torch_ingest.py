@@ -35,6 +35,8 @@ from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
 from aerial_image_recognition_tpu_torch.pipeline.inference import (
     build_detect_step)
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
+from aerial_image_recognition_tpu_torch.runtime.observability import (
+    PhaseTimer)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "yolov7_tiny_fakeworld.npz")
@@ -206,6 +208,39 @@ def test_run_pipeline_plain_callable_and_host_handoff():
                                              .sum(axis=(1, 2, 3)), bd),
                     lambda b, o: jseen.append(float(o[0].sum())))
     assert got[True] == got[False] == jseen
+
+
+def test_timed_ingest_gives_the_untimed_results(steps):
+    """With the scan's ``PhaseTimer`` both return what they return without
+    it; the timer counts a packing phase a tile and one for the tail
+    batch, a wait a batch and one for the end, a dispatch a batch and one
+    for the first upload, a drain a batch."""
+    tiles = list(_tiles(13, fail_every=4))
+    t = PhaseTimer()
+    plain = list(PP.assemble_batches(iter(tiles), batch_size=4,
+                                     src_size=32))
+    _same_batches(plain, list(PP.assemble_batches(
+        iter(tiles), batch_size=4, src_size=32, timers=t)))
+    assert len(plain) == 3 and plain[-1].failed_indices == [12]
+    assert t.counts["batch_packing"] == 13 + 1
+    _, port_step = steps
+    batches = list(PP.assemble_batches(_scene(10), batch_size=BATCH,
+                                       src_size=SIZE))
+    got, stats = _collect(batches, port_step, PP.run_pipeline)
+    got_t, stats_t = _collect(
+        batches, port_step,
+        lambda b, s, f: PP.run_pipeline(b, s, f, timers=t))
+    assert stats_t.keys() == stats.keys()
+    for k in ("batches", "tiles", "failed"):
+        assert stats_t[k] == stats[k]
+    for g, w in zip(got_t, got, strict=True):
+        for a, b in zip(g[1:], w[1:]):
+            np.testing.assert_array_equal(a, b)
+    n = stats["batches"]
+    assert (t.counts["ingest_wait"], t.counts["batch_dispatch"],
+            t.counts["result_drain"]) == (n + 1, n + 1, n)
+    assert all(t.totals[k] > 0 for k in ("batch_packing", "ingest_wait",
+                                         "batch_dispatch", "result_drain"))
 
 
 # ------------------------------------------------ the CUDA ring, on the CPU

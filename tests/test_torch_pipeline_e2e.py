@@ -27,6 +27,7 @@ from aerial_image_recognition_tpu.pipeline.inference import (
 from aerial_image_recognition_tpu.runtime.config import (
     DetectorConfig as JaxDetectorConfig)
 from aerial_image_recognition_tpu_torch.fetch import fake as PF
+from aerial_image_recognition_tpu_torch.fetch.wms import WMSFetcher
 from aerial_image_recognition_tpu_torch.fetch.xyz import XYZFetcher
 from aerial_image_recognition_tpu_torch.gio.geojson import (
     read_geojson, write_geojson)
@@ -162,6 +163,37 @@ def test_scan_equals_jax_scan(env, tmp_path, pinned_xyz_window, route):
     kinds = [json.loads(line)["kind"]
              for line in open(os.path.join(base, "events.jsonl"))]
     assert "grid" in kinds and "done" in kinds
+
+
+def test_scan_times_its_host_phases(env, tmp_path):
+    """A port WMS scan names its host time in ``phase_timings``: the
+    main thread's ingest waits, dispatches and drains, the prefetch
+    thread's packing, the fetch workers' request and decode seconds
+    (the scan's part of the fetcher's ``FetchStats``)."""
+    s, srv, _ = env["port"]
+    base = str(tmp_path)
+    fetcher = WMSFetcher(srv.base_url + "/wms", "fake", size=(SIZE, SIZE),
+                         num_workers=8, submit_spacing=0.0)
+    try:
+        det = CarDetector(base, _config(base, srv, "wms"), fetcher=fetcher,
+                          detect_step=s)
+        det.detect(force_restart=True)
+    finally:
+        fetcher.close()
+    doc, _, _, _ = _outputs(base)
+    phases = ("tile_request", "tile_decode", "batch_packing", "ingest_wait",
+              "batch_dispatch", "result_drain")
+    assert set(phases) <= doc["metadata"]["phase_timings"].keys()
+    assert all(det.timers.totals[k] > 0 for k in phases)
+    batches = doc["metadata"]["ingest_stats"]["batches"]
+    assert batches > 1
+    assert det.timers.counts["result_drain"] == batches
+    assert det.timers.counts["ingest_wait"] == batches + 1
+    st = fetcher.http.stats
+    assert st.request_s > 0 and st.decode_s > 0
+    # the capabilities request is set-up's, before the scan's deltas
+    assert det.timers.totals["tile_request"] < st.request_s
+    assert det.timers.totals["tile_decode"] == st.decode_s
 
 
 class _Aborting:

@@ -13,6 +13,7 @@ import io
 import json
 import os
 import re
+import threading
 import time
 
 import numpy as np
@@ -249,3 +250,51 @@ def test_tracer_writes_a_chrome_trace(tmp_path):
                for ev in doc.get("traceEvents", []))
     with PO.Tracer(None):                          # no directory: no trace
         pass
+
+
+@pytest.mark.parametrize("thread", ["main", "worker"])
+def test_phase_shows_in_the_tracer_trace(tmp_path, thread):
+    """A ``PhaseTimer`` phase is a user annotation of the trace, on the
+    thread that entered it: the main thread or one started by the scan."""
+    import torch
+    timer, tids = PO.PhaseTimer(), []
+
+    def body():
+        tids.append(threading.get_native_id())
+        with timer.phase("ingest_wait"):
+            torch.ones(8).sum()
+
+    with PO.Tracer(str(tmp_path)):
+        if thread == "main":
+            body()
+        else:
+            worker = threading.Thread(target=body)
+            worker.start()
+            worker.join(timeout=60)
+            assert not worker.is_alive()
+    doc = json.load(open(tmp_path / "trace.json"))
+    ev = [e for e in doc["traceEvents"] if e.get("name") == "ingest_wait"]
+    assert [(e["cat"], e["tid"]) for e in ev] == \
+        [("user_annotation", tids[0])]
+    assert timer.counts["ingest_wait"] == 1
+
+
+def test_annotate_skips_record_function_without_a_profiler(
+        monkeypatch, tmp_path):
+    import torch
+    calls, real = [], torch.profiler.record_function
+
+    def counted(name):
+        calls.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    with PO.Tracer.annotate("untraced"):
+        pass
+    with PO.PhaseTimer().phase("untraced_phase"):
+        pass
+    assert calls == []
+    with PO.Tracer(str(tmp_path)):
+        with PO.Tracer.annotate("traced"):
+            pass
+    assert calls == ["traced"]
