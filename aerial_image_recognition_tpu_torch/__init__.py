@@ -44,22 +44,43 @@ from aerial_image_recognition_tpu_torch.runtime.config import (  # noqa: F401
     DEFAULT_CONFIG, DetectorConfig)
 
 __all__ = ["DetectorConfig", "DEFAULT_CONFIG", "__version__"]
-from aerial_image_recognition_tpu_torch.pipeline.detector import (  # noqa: E402,F401
-    CarDetector)
-from aerial_image_recognition_tpu_torch.pipeline.simple import (  # noqa: E402,F401
-    SimpleDetector)
-from aerial_image_recognition_tpu_torch.pipeline.inference import (  # noqa: E402,F401
-    DetectStep, build_detect_step, make_detect_fn,
-)
-from aerial_image_recognition_tpu_torch.gio.geojson import (  # noqa: E402,F401
-    detections_to_feature_collection, feature_collection_to_detections,
-    coverage_to_feature_collection, read_geojson, read_polygons,
-    write_geojson,
-)
-from aerial_image_recognition_tpu_torch.gio.shapefile import (  # noqa: E402,F401
-    ShapeRecord, detections_to_shapefile, read_dbf, read_polygons_shp,
-    read_shapefile, write_shapefile,
-)
-from aerial_image_recognition_tpu_torch.gio.geotiff import (  # noqa: E402,F401
-    GeoTiff, read_geotiff, write_geotiff,
-)
+
+# The rest of the top-level names are imported on first use (PEP 562): a
+# process that needs one light module, such as the fetch workers'
+# forkserver (``fetch/workers.py``), does not import torch with the package.
+_LAZY = {
+    "CarDetector": "pipeline.detector",
+    "SimpleDetector": "pipeline.simple",
+    "DetectStep": "pipeline.inference",
+    "build_detect_step": "pipeline.inference",
+    "make_detect_fn": "pipeline.inference",
+    "detections_to_feature_collection": "gio.geojson",
+    "feature_collection_to_detections": "gio.geojson",
+    "coverage_to_feature_collection": "gio.geojson",
+    "read_geojson": "gio.geojson",
+    "read_polygons": "gio.geojson",
+    "write_geojson": "gio.geojson",
+    "ShapeRecord": "gio.shapefile",
+    "detections_to_shapefile": "gio.shapefile",
+    "read_dbf": "gio.shapefile",
+    "read_polygons_shp": "gio.shapefile",
+    "read_shapefile": "gio.shapefile",
+    "write_shapefile": "gio.shapefile",
+    "GeoTiff": "gio.geotiff",
+    "read_geotiff": "gio.geotiff",
+    "write_geotiff": "gio.geotiff",
+}
+
+
+def __getattr__(name):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

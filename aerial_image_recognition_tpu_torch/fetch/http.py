@@ -19,7 +19,7 @@ import threading
 import time
 from collections import Counter, deque
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import requests
 from requests.adapters import HTTPAdapter
@@ -49,13 +49,18 @@ def _retry_after_seconds(value, default: float) -> float:
 from urllib3.util.retry import Retry
 
 
+_COUNTERS = ("requests", "successes", "failures", "timeouts", "rate_limited",
+             "bytes_fetched", "request_s", "decode_s")
+
+
 @dataclass
 class FetchStats:
     """Thread-safe running counters (single lock; mutated by worker threads).
 
     ``request_s`` and ``decode_s`` are the seconds of every request attempt
     and every tile decode on the monotonic clock, summed over the worker
-    threads: thread-seconds, not wall time."""
+    threads (those of ``fetch/workers.py``'s processes too, merged in by
+    ``merge``): thread-seconds, not wall time."""
     requests: int = 0
     successes: int = 0
     failures: int = 0
@@ -85,6 +90,23 @@ class FetchStats:
     def decoded(self, dt: float):
         with self._lock:
             self.decode_s += dt
+
+    def counters(self) -> Dict:
+        """The counters and ``started``, as a picklable dict for ``merge``."""
+        with self._lock:
+            out = {k: getattr(self, k) for k in _COUNTERS}
+            out["started"] = self.started
+            return out
+
+    def merge(self, counters: Dict):
+        """Add another instance's ``counters()`` (a worker process's for
+        one tile); ``started`` becomes the earlier of the two."""
+        with self._lock:
+            for k in _COUNTERS:
+                setattr(self, k, getattr(self, k) + counters[k])
+            if counters["started"] is not None and (
+                    self.started is None or counters["started"] < self.started):
+                self.started = counters["started"]
 
     def summary(self) -> Dict:
         with self._lock:
@@ -121,6 +143,16 @@ class FailureLog:
     def add(self, url: str, error: str, attempt: int):
         with self._lock:
             self._records.append(FailureRecord(url, error, time.time(), attempt))
+
+    def records(self) -> List[FailureRecord]:
+        with self._lock:
+            return list(self._records)
+
+    def extend(self, records: List[FailureRecord]):
+        """Append records made elsewhere (a worker process's), their
+        times kept."""
+        with self._lock:
+            self._records.extend(records)
 
     def analyze(self) -> Dict:
         """Error-type histogram + burst detection (equivalent in spirit to
@@ -214,6 +246,18 @@ class TileHTTP:
         with Tracer.annotate("tile_decode"):
             arr = decode_rgb(body)
         self.stats.decoded(time.perf_counter() - t0)
+        return arr
+
+    def get_rgb(self, url: str, params: Optional[Dict] = None):
+        """``get`` then ``decode``: uint8 [H, W, 3] RGB, or None when the
+        request fails or the body does not decode (logged as
+        ``DecodeError``)."""
+        body = self.get(url, params=params)
+        if body is None:
+            return None
+        arr = self.decode(body)
+        if arr is None:
+            self.failures.add(url, "DecodeError", 0)
         return arr
 
     def close(self):

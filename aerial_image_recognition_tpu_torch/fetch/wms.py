@@ -1,9 +1,11 @@
 """WMS GetMap fetcher.
 
-A copy of ``aerial_image_recognition_tpu/fetch/wms.py``.
+A copy of ``aerial_image_recognition_tpu/fetch/wms.py``, but for where
+``fetch_batch`` runs its requests: in worker processes
+(``fetch/workers.py``), not in threads of the calling process.
 
 Functional equivalent of the reference WMSHandler (_script/wms_handler.py):
-threaded GetMap requests with retry/backoff (there via owslib + requests
+parallel GetMap requests with retry/backoff (there via owslib + requests
 Retry, here via fetch.http.TileHTTP), submit-spacing rate limiting
 (wms_handler.py:214: 0.05 s between submissions), a failed-tile re-retry
 sweep at increasing delays (wms_handler.py:236-243), fetch stats, and a
@@ -13,10 +15,13 @@ fixed layer/SRS configs.
 """
 
 import concurrent.futures as cf
+import itertools
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from aerial_image_recognition_tpu_torch.fetch.http import TileHTTP
+from aerial_image_recognition_tpu_torch.fetch.workers import FetchPool
 from aerial_image_recognition_tpu_torch.fetch.xyz import TileImage
 
 
@@ -59,6 +64,10 @@ def parse_wms_capabilities(xml_bytes: bytes) -> Dict:
 
 
 class WMSFetcher:
+    """GetMap tiles of one layer. The constructor starts the worker
+    processes of ``fetch_batch`` and ``fetch_chunks`` (``fetch/workers.py``)
+    and ``close()`` ends them."""
+
     def __init__(self, url: str, layer: str, *, srs: str = "EPSG:4326",
                  size: Tuple[int, int] = (1280, 1280),
                  image_format: str = "image/jpeg",
@@ -75,8 +84,15 @@ class WMSFetcher:
         self.version = version
         self.styles = styles
         self.http = TileHTTP(timeout=timeout, retries=retries)
-        self._pool = cf.ThreadPoolExecutor(max_workers=num_workers,
-                                           thread_name_prefix="wms")
+        # ``num_workers`` requests in flight in worker processes, each
+        # tile's pixels back through a slot of a shared ring
+        self._pool = FetchPool(self.http, num_workers,
+                               size[0] * size[1] * 3)
+
+    @property
+    def pooled_tiles(self) -> int:
+        """Tiles ``fetch_batch`` got through the worker processes."""
+        return self._pool.tiles
 
     def getmap_params(self, bbox) -> Dict[str, str]:
         # WMS 1.3.0 axis order for geographic CRS is lat,lon; 1.1.1 is lon,lat.
@@ -136,42 +152,63 @@ class WMSFetcher:
         return caps
 
     def get_single_image(self, bbox) -> Optional[TileImage]:
-        body = self.http.get(self.url, params=self.getmap_params(bbox))
-        if body is None:
-            return None
-        arr = self.http.decode(body)    # native libjpeg path, PIL fallback
-        if arr is None:
-            self.http.failures.add(self.url, "DecodeError", 0)
-            return None
-        return TileImage(pixels=arr, bounds=tuple(bbox),
-                         meta={"source": "wms"})
+        """One tile, fetched and decoded in this process."""
+        return _tile(bbox, self.http.get_rgb(self.url,
+                                             self.getmap_params(bbox)))
 
     def fetch_batch(self, bboxes: Sequence, progress=None,
                     retry_delays: Sequence[float] = (2.0, 4.0, 8.0)
                     ) -> List[Optional[TileImage]]:
-        """Parallel fetch with paced submission, then a re-retry sweep over
-        failures at increasing delays."""
+        """Parallel fetch in the worker processes with paced submission,
+        then a re-retry sweep over failures at increasing delays; the
+        tiles in the order of ``bboxes``, None where a tile failed."""
+        return next(self.fetch_chunks([bboxes], progress, retry_delays))
+
+    def fetch_chunks(self, chunks: Iterable[Sequence], progress=None,
+                     retry_delays: Sequence[float] = (2.0, 4.0, 8.0)
+                     ) -> Iterator[List[Optional[TileImage]]]:
+        """``fetch_batch`` of each chunk in turn, each chunk's tiles
+        submitted before the one before it is waited for. The worker
+        processes' requests then stay in flight across a chunk's end: its
+        slowest tile does not leave the other slots idle, and the next
+        chunk does not open all its connections at once (a burst that
+        overflows a small listen backlog and costs a dropped SYN's second)."""
+        ahead = None
+        for bboxes in itertools.chain(chunks, [None]):
+            submitted = None if bboxes is None else (
+                bboxes, self._submit(bboxes, range(len(bboxes))))
+            if ahead is not None:
+                yield self._finish(*ahead, progress, retry_delays)
+            ahead = submitted
+
+    def _submit(self, bboxes: Sequence, indices) -> Dict[cf.Future, int]:
+        futs = {}
+        for i in indices:
+            futs[self._pool.submit(self.url,
+                                   self.getmap_params(bboxes[i]))] = i
+            if self.submit_spacing:
+                time.sleep(self.submit_spacing)
+        return futs
+
+    def _finish(self, bboxes: Sequence, futs: Dict[cf.Future, int],
+                progress, retry_delays: Sequence[float]
+                ) -> List[Optional[TileImage]]:
         results: List[Optional[TileImage]] = [None] * len(bboxes)
 
-        def submit_all(indices):
-            futs = {}
-            for i in indices:
-                futs[self._pool.submit(self.get_single_image, bboxes[i])] = i
-                if self.submit_spacing:
-                    time.sleep(self.submit_spacing)
+        def collect(futs):
             for fut in cf.as_completed(futs):
                 i = futs[fut]
-                results[i] = fut.result()
+                results[i] = _tile(bboxes[i], fut.result())
                 if progress is not None and results[i] is not None:
                     progress.update(1)
 
-        submit_all(range(len(bboxes)))
+        collect(futs)
         for delay in retry_delays:
             failed = [i for i, r in enumerate(results) if r is None]
             if not failed:
                 break
             time.sleep(delay)
-            submit_all(failed)
+            collect(self._submit(bboxes, failed))
         return results
 
     def preview_geojson(self, bboxes: Sequence) -> Dict:
@@ -190,5 +227,11 @@ class WMSFetcher:
                                "stats": self.http.stats.summary()}}
 
     def close(self):
-        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._pool.close()
         self.http.close()
+
+
+def _tile(bbox, arr) -> Optional[TileImage]:
+    if arr is None:
+        return None
+    return TileImage(pixels=arr, bounds=tuple(bbox), meta={"source": "wms"})

@@ -120,12 +120,14 @@ class CarDetector:
                               num_workers=c.num_workers,
                               timeout=c.fetch_timeout,
                               retries=c.fetch_retries)
-        return WMSFetcher(c.wms_url, c.wms_layer, srs=c.wms_srs,
-                          size=c.wms_size, image_format=c.wms_format,
-                          num_workers=c.num_workers,
-                          timeout=c.fetch_timeout, retries=c.fetch_retries,
-                          submit_spacing=float(
-                              c.extra.get("submit_spacing", 0.05)))
+        with self.timers.phase("fetch_pool_start"):   # its processes
+            return WMSFetcher(c.wms_url, c.wms_layer, srs=c.wms_srs,
+                              size=c.wms_size, image_format=c.wms_format,
+                              num_workers=c.num_workers,
+                              timeout=c.fetch_timeout,
+                              retries=c.fetch_retries,
+                              submit_spacing=float(
+                                  c.extra.get("submit_spacing", 0.05)))
 
     # ------------------------------------------------------------ detect
 
@@ -193,25 +195,32 @@ class CarDetector:
                           f"with {len(state.detections)} detections")
 
         fetcher = self._make_fetcher(center_lat=(bounds[1] + bounds[3]) / 2)
-        if c.extra.get("validate_capabilities", True) \
-                and hasattr(fetcher, "validate"):
-            # startup service negotiation (reference wms_handler.py:83-90
-            # opened an owslib connection before any GetMap): a typo'd
-            # layer/SRS/format fails HERE, not per-tile for the whole scan
-            with self.timers.phase("setup"):
-                caps = fetcher.validate()
-            if caps is not None:
-                self.events.emit("capabilities_ok",
-                                 layers=len(caps.get("layers", ())))
-        # a non-default model_input_size overrides the network input edge
-        # (fully-convolutional models; reduced-resolution scans and
-        # fixture-scale tests) — the 640 default defers to the model spec
-        ms = c.model_input_size[0]
-        step = self._detect_step or build_detect_step(
-            self._step_config(), batch=c.device_batch,
-            src_size=self._src_size(fetcher, bounds),
-            model_size=ms if ms != 640 else None,
-            mesh=self._make_mesh(), device=device)
+        try:
+            if c.extra.get("validate_capabilities", True) \
+                    and hasattr(fetcher, "validate"):
+                # startup service negotiation (reference
+                # wms_handler.py:83-90 opened an owslib connection before
+                # any GetMap): a typo'd layer/SRS/format fails HERE, not
+                # per-tile for the whole scan
+                with self.timers.phase("setup"):
+                    caps = fetcher.validate()
+                if caps is not None:
+                    self.events.emit("capabilities_ok",
+                                     layers=len(caps.get("layers", ())))
+            # a non-default model_input_size overrides the network input
+            # edge (fully-convolutional models; reduced-resolution scans
+            # and fixture-scale tests) — the 640 default defers to the
+            # model spec
+            ms = c.model_input_size[0]
+            step = self._detect_step or build_detect_step(
+                self._step_config(), batch=c.device_batch,
+                src_size=self._src_size(fetcher, bounds),
+                model_size=ms if ms != 640 else None,
+                mesh=self._make_mesh(), device=device)
+        except BaseException:
+            if self._fetcher is None:     # its worker processes with it
+                fetcher.close()
+            raise
         self.last_step = step             # observability (int8 state, tests)
 
         # without an event log the samples would go nowhere
@@ -372,23 +381,32 @@ class CarDetector:
         return self.config.model_input_size[0]
 
     def _tile_stream(self, fetcher, tiles, start_index, step):
-        """Fetch tiles (chunked, parallel inside the fetcher) and stream
-        (index, TileImage) pairs into fixed-shape device batches."""
+        """Fetch tiles (chunked, parallel inside the fetcher; a WMS
+        fetcher's next chunk already in flight) and stream (index,
+        TileImage) pairs into fixed-shape device batches."""
         c = self.config
         src = step.input_size
 
         def tile_iter():
             chunk = max(c.batch_size, 1)
-            for i0 in range(start_index, len(tiles), chunk):
-                idxs = list(range(i0, min(i0 + chunk, len(tiles))))
-                bboxes = [tuple(tiles[i]) for i in idxs]
+            groups = [list(range(i0, min(i0 + chunk, len(tiles))))
+                      for i0 in range(start_index, len(tiles), chunk)]
+            chunks = ([tuple(tiles[i]) for i in idxs] for idxs in groups)
+            prog = getattr(self, "_fetch_progress", None)
+            if isinstance(fetcher, WMSFetcher):
+                # the next chunk's requests go out while this one is
+                # waited for and packed
+                fetched = fetcher.fetch_chunks(chunks, progress=prog)
+            elif isinstance(fetcher, XYZFetcher):
+                fetched = (fetcher.fetch_batch(b, window_px=src,
+                                               progress=prog)
+                           for b in chunks)
+            else:
+                fetched = (fetcher.fetch_batch(b, progress=prog)
+                           for b in chunks)
+            for idxs in groups:
                 with self.timers.phase("tile_fetching"):
-                    prog = getattr(self, "_fetch_progress", None)
-                    if isinstance(fetcher, XYZFetcher):
-                        imgs = fetcher.fetch_batch(bboxes, window_px=src,
-                                                   progress=prog)
-                    else:
-                        imgs = fetcher.fetch_batch(bboxes, progress=prog)
+                    imgs = next(fetched)
                 yield from zip(idxs, imgs)
 
         return assemble_batches(tile_iter(), batch_size=step.batch,

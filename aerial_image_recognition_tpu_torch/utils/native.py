@@ -122,6 +122,14 @@ def load_pack() -> Optional[ctypes.CDLL]:
     return _load("fastpack")
 
 
+def assume_missing(name: str) -> None:
+    """Take the named library as unavailable in this process without
+    running g++: for worker processes whose parent found that it does not
+    build (``fetch/workers.py``)."""
+    with _lock:
+        _libs.setdefault(name, None)
+
+
 def native_paths() -> Dict[str, bool]:
     """Which native libraries this process built or loaded
     ({"fastgeo": bool, "fastdecode": bool, "fastpack": bool}); a name not

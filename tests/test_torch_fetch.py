@@ -10,10 +10,21 @@ from fixed seeds.
 """
 
 import io
+import multiprocessing
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
+import time
 import urllib.request
+from concurrent.futures import CancelledError
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from aerial_image_recognition_tpu.fetch import fake as JF
@@ -23,6 +34,7 @@ from aerial_image_recognition_tpu.fetch.wmts import WMTSFetcher as JWMTS
 from aerial_image_recognition_tpu.fetch.xyz import XYZFetcher as JXYZ
 from aerial_image_recognition_tpu_torch.fetch import fake as PF
 from aerial_image_recognition_tpu_torch.fetch import http as PH
+from aerial_image_recognition_tpu_torch.fetch import workers
 from aerial_image_recognition_tpu_torch.fetch.cache import TileCache
 from aerial_image_recognition_tpu_torch.fetch.wms import (
     WMSFetcher, parse_wms_capabilities)
@@ -32,6 +44,7 @@ from aerial_image_recognition_tpu_torch.fetch.xyz import XYZFetcher
 from aerial_image_recognition_tpu_torch.geo import generate_tiles
 from aerial_image_recognition_tpu_torch.utils.native import native_paths
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORLD = dict(center_lon=21.0, center_lat=52.2, extent_deg=0.01, n_cars=80,
              seed=7, n_buildings=6, hard_fraction=0.3)
 BBOXES = [tuple(t) for t in
@@ -130,9 +143,14 @@ def test_wms_fetchers_return_equal_arrays(servers, size, version):
     try:
         assert pf.getmap_params(BBOXES[0]) == jf.getmap_params(BBOXES[0])
         got, want = pf.fetch_batch(BBOXES), jf.fetch_batch(BBOXES)
-        for g, w in zip(got, want):
-            assert g.bounds == w.bounds
+        assert pf.pooled_tiles == len(BBOXES)     # through the processes
+        for b, g, w in zip(BBOXES, got, want):
+            assert g.bounds == w.bounds == b
             np.testing.assert_array_equal(g.pixels, w.pixels)
+            single = pf.get_single_image(b)       # in this process
+            np.testing.assert_array_equal(g.pixels, single.pixels)
+        st = pf.http.stats                        # the children's merged
+        assert st.requests == st.successes == 2 * len(BBOXES)
         assert pf.validate()["layers"] == {"fake"}
         pv = pf.preview_geojson(BBOXES)
         assert len(pv["features"]) == len(BBOXES)
@@ -266,3 +284,176 @@ def test_fetched_jpeg_pixels_are_the_native_decode(servers):
     np.testing.assert_array_equal(img.pixels, decode_jpeg_native(body))
     pil = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
     assert np.abs(img.pixels.astype(int) - pil.astype(int)).max() <= 2
+
+
+def _clean_pixels(psrv, fetcher):
+    """Each bbox's pixels from the clean server, fetched in this process."""
+    http = PH.TileHTTP()
+    try:
+        return [http.get_rgb(psrv.base_url + "/wms", fetcher.getmap_params(b))
+                for b in BBOXES]
+    finally:
+        http.close()
+
+
+@pytest.mark.parametrize("faults", [
+    {"drop_rate": 0.3},
+    {"rate_limit_rate": 0.5, "retry_after": 0.01}])
+def test_pool_under_faults_keeps_tiles_and_stats(servers, faults):
+    """Through the worker processes each tile is its clean pixels or None
+    (every retry and sweep failed), and the children's counters, merged,
+    account for every request the server saw and every failure logged."""
+    _, psrv = servers
+    srv = PF.FakeTileServer(PF.FakeWorld(**WORLD),
+                            faults=PF.FaultConfig(**faults))
+    srv.start()
+    f = WMSFetcher(srv.base_url + "/wms", "fake", size=(64, 64),
+                   num_workers=4, submit_spacing=0.0, retries=2)
+    try:
+        want = _clean_pixels(psrv, f)
+        got = f.fetch_batch(BBOXES * 2, retry_delays=(0.05,))
+        st, log = f.http.stats, f.http.failures.analyze()
+    finally:
+        f.close()
+        srv.stop()
+    for g, w in zip(got, want * 2):
+        assert g is None or np.array_equal(g.pixels, w)
+    images = sum(g is not None for g in got)
+    assert images > 0 and f.pooled_tiles == images == st.successes
+    assert st.failures == log["total"] > 0
+    assert st.requests == st.successes + st.failures
+    assert st.request_s > 0 and st.decode_s > 0
+    if faults.get("rate_limit_rate"):
+        assert st.rate_limited == log["by_type"]["HTTP429"] > 0
+        # urllib3 retries a 429 with Retry-After once more by itself
+        assert srv.request_count >= st.requests
+    else:
+        assert srv.request_count == st.requests
+
+
+def test_pool_close_with_requests_in_flight():
+    """The fetcher keeps ``num_workers`` requests in flight (not one per
+    child thread); ``close()`` with all of them stuck in the server returns
+    at once, cancels the batch, ends every child and the ring."""
+    srv = PF.FakeTileServer(PF.FakeWorld(**WORLD),
+                            faults=PF.FaultConfig(latency_s=30.0))
+    srv.start()
+    f = WMSFetcher(srv.base_url + "/wms", "fake", size=(64, 64),
+                   num_workers=12, submit_spacing=0.0)
+    pool = f._pool
+    assert pool.processes == min(12, len(os.sched_getaffinity(0)),
+                                 workers.MAX_PROCESSES)
+    raised = []
+
+    def fetch():
+        try:
+            f.fetch_batch(BBOXES * 4)
+        except BaseException as e:
+            raised.append(e)
+
+    t = threading.Thread(target=fetch, daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 20
+        while srv.request_count < 12 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)
+        assert srv.request_count == 12 and len(pool._pending) == 12
+        t0 = time.monotonic()
+        f.close()
+        assert time.monotonic() - t0 < 2.0
+        t.join(5)
+        assert not t.is_alive() and isinstance(raised[0], CancelledError)
+    finally:
+        f.close()
+        srv.stop()
+    assert all(p.exitcode is not None for p in pool._procs)
+    live = {p.pid for p in multiprocessing.active_children()}
+    assert not live & {p.pid for p in pool._procs}
+    assert pool._ring.closed and not os.path.exists(pool.ring_path)
+
+
+def test_pool_children_start_clean(servers, monkeypatch):
+    """The children are the forkserver's, never forks of the calling
+    process: a caller with CUDA initialised (stood in for here) starts
+    children without it, and their parent is not the caller."""
+    _, psrv = servers
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    f = WMSFetcher(psrv.base_url + "/wms", "fake", size=(64, 64),
+                   num_workers=3, submit_spacing=0.0)
+    try:
+        got = f.fetch_batch(BBOXES[:3])
+        for p in f._pool._procs:
+            with open(f"/proc/{p.pid}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+            assert ppid != os.getpid()
+    finally:
+        f.close()
+    assert all(g is not None for g in got)
+
+
+def test_ring_falls_back_to_a_file_under_tempdir(servers, monkeypatch,
+                                                 tmp_path):
+    """Where /dev/shm cannot hold the ring, it is a file under
+    ``tempfile.gettempdir()``, and the tiles are the same."""
+    _, psrv = servers
+    real = os.posix_fallocate
+
+    def full_shm(fd, offset, length):
+        if os.readlink(f"/proc/self/fd/{fd}").startswith(workers.SHM_DIR):
+            raise OSError(28, "No space left on device")
+        return real(fd, offset, length)
+
+    monkeypatch.setattr(os, "posix_fallocate", full_shm)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    f = WMSFetcher(psrv.base_url + "/wms", "fake", size=(64, 64),
+                   num_workers=2, submit_spacing=0.0)
+    try:
+        assert os.path.dirname(f._pool.ring_path) == str(tmp_path)
+        assert not os.path.exists(f._pool.ring_path)   # unlinked, mapped
+        want = _clean_pixels(psrv, f)
+        for g, w in zip(f.fetch_batch(BBOXES), want):
+            np.testing.assert_array_equal(g.pixels, w)
+    finally:
+        f.close()
+    assert not [n for n in os.listdir(tmp_path) if n.startswith("wms-ring")]
+
+
+def test_pool_fails_fast_when_a_child_dies(servers):
+    """A child killed under the fetcher breaks the pool: the batch raises
+    instead of waiting for tiles that will never come."""
+    _, psrv = servers
+    f = WMSFetcher(psrv.base_url + "/wms", "fake", size=(64, 64),
+                   num_workers=2, submit_spacing=0.0)
+    try:
+        os.kill(f._pool._procs[0].pid, signal.SIGKILL)
+        f._pool._procs[0].join(5)
+        with pytest.raises(RuntimeError, match="fetch worker process exited"):
+            f.fetch_batch(BBOXES)
+    finally:
+        f.close()
+
+
+def test_pool_children_skip_the_callers_main_module(servers, tmp_path):
+    """A script without a ``__main__`` guard makes a fetcher: its children
+    run the fetch module alone, never the script (which would start a pool
+    of its own in each child, or import torch there at every pool start)."""
+    _, psrv = servers
+    script = tmp_path / "scan.py"
+    script.write_text(
+        "import sys\n"
+        "print('main module ran', flush=True)\n"
+        "from aerial_image_recognition_tpu_torch.fetch.wms import WMSFetcher\n"
+        "f = WMSFetcher(sys.argv[1], 'fake', size=(64, 64), num_workers=2,\n"
+        "               submit_spacing=0.0)\n"
+        "out = f.fetch_batch([(20.999, 52.199, 21.0, 52.2)] * 3)\n"
+        "print('tiles', sum(o is not None for o in out), f.pooled_tiles)\n"
+        "f.close()\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    done = subprocess.run([sys.executable, str(script), psrv.base_url + "/wms"],
+                          capture_output=True, text=True, timeout=120, env=env,
+                          cwd=tmp_path)
+    assert done.returncode == 0, done.stderr
+    assert done.stdout.count("main module ran") == 1
+    assert "tiles 3 3" in done.stdout
