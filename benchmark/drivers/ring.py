@@ -15,8 +15,9 @@ back as ``CarDetector._collect`` does, through
 
 Set-up renders the pool, makes the weights, builds the step and runs
 ``warm_batches`` batches through the same pipeline. After the window the
-reference (f32, TF32 off) runs over the pool, and the records of a sample
-of the window's tiles drawn from the seed are compared with it.
+configuration's family (f32, TF32 off) runs over the pool, and the
+records of a sample of the window's tiles drawn from the seed are
+compared with it.
 """
 
 import math
@@ -29,7 +30,6 @@ from benchmark.lib import check, program, roofline, tiles, weights
 from benchmark.lib.result import Result
 from benchmark.lib.spans import Spans, StepProxy
 from benchmark.lib.trace import TracedWindow
-from benchmark.reference import models as ref_models
 from benchmark.reference import post as ref_post
 
 MAX_TILES = 1 << 21
@@ -127,8 +127,8 @@ def run(ctx) -> Result:
                                  t["px_per_m"], tuple(t["cars_per_tile"]))
     order = rng.permutation(t["pool_tiles"])
     sample = rng.random(MAX_TILES) < t["sample_share"]
-    flat, tree = weights.make(cfg_model, ctx.seed, devices[0], ctx.root,
-                              pool)
+    flat, tree = weights.make(cfg_model, ctx.family, ctx.seed, devices[0],
+                              ctx.root, pool)
     cfg = program.detector_config(
         cfg_model, confidence_threshold=t["confidence"],
         device_batch=batch, prefetch_batches=t["prefetch_depth"])
@@ -187,8 +187,7 @@ def run(ctx) -> Result:
     finally:
         prefetch.close()
     program.synchronize(devices)
-    flops_per_tile = ref_models.count_flops(
-        cfg_model["reference"], flat, 1, step.model_size)
+    flops_per_tile = ctx.family.flops(cfg_model, flat, 1, step.model_size)
     setup_s = time.perf_counter() - ctx.t_start
 
     stream = TileStream(pool, order, span_m)
@@ -227,10 +226,8 @@ def run(ctx) -> Result:
                 x = ref_post.to_model_input(
                     torch.from_numpy(pool[lo:lo + t["reference_block"]])
                     .to(devices[0]), cfg_model["input_size"])
-                boxes, scores = ref_models.detect(
-                    cfg_model["reference"], weights_f32, x, cfg_model["nc"])
-                kept += ref_post.greedy_nms(
-                    boxes, scores, conf=ctx.check["floor"],
+                kept += ctx.family.answer(
+                    cfg_model, weights_f32, x, conf=ctx.check["floor"],
                     iou_thr=cfg.nms_iou_threshold,
                     max_det=ctx.check["reference_max_det"],
                     pre_topk=ctx.check["reference_pre_topk"])
@@ -265,6 +262,7 @@ def run(ctx) -> Result:
              "nms_calls": nms_calls}
     return Result(attempted=produced, failed=lost,
                   e2e={"detect_tiles_per_s": tiles_done / window_s,
+                       "card_memory_peak_gib": peak / 2 ** 30,
                        "setup_s": setup_s},
                   numbers=numbers, layer=layer, spans=spans, trace=summary,
                   cards=[d.index or 0 for d in devices],

@@ -10,14 +10,17 @@ its own), builds the step as ``CarDetector.detect`` would
 one whole scan: the server's pool renders every tile of the grid then, and
 serves them from memory after. In the window, scans run one after another
 until one ends past ``--seconds``; each writes its GeoJSON and shapefile
-over the previous one's. The rate is the tiles of those scans over the
-time from the window's start to the end of its last scan.
+over the previous one's. The rate (``tiles_per_s.scan``, per layer) is
+the tiles of those scans over the time from the window's start to the
+end of its last scan; end to end the run reports the card's memory peak.
 
 After the window the reference decodes the last scan's tiles as the
-server sends them, resizes them to the model's size, runs the f32
-detector, NMS, lon/lat and dedup, and the records of the last scan's
-GeoJSON are compared with it region by region (each record to the tile
-whose centre is nearest).
+server sends them, resizes them to the model's size, runs the
+configuration's family (its f32 forward, decode and suppression),
+lon/lat and dedup, and the records of the last scan's GeoJSON are
+compared with it region by region (each record to the tile whose centre
+is nearest). The family's FLOPs a tile are counted then too, for
+``step_mfu.scan``.
 """
 
 import contextlib
@@ -39,7 +42,6 @@ from benchmark.lib import check, program, tiles, weights
 from benchmark.lib.result import Result
 from benchmark.lib.spans import Spans, StepProxy
 from benchmark.lib.trace import TracedWindow
-from benchmark.reference import models as ref_models
 from benchmark.reference import post as ref_post
 
 M_PER_DEG = 111319.9
@@ -142,8 +144,8 @@ def _run(ctx, t, cfg_model, devices, base, frame, server, CarDetector):
     conf = scan_config(t, frame, server.url, t["confidence"])
     calib, _ = tiles.render_tiles(np.random.default_rng(ctx.seed),
                                   t["calib_tiles"], cfg_model["input_size"])
-    flat, tree = weights.make(cfg_model, ctx.seed, devices[0], ctx.root,
-                              calib)
+    flat, tree = weights.make(cfg_model, ctx.family, ctx.seed, devices[0],
+                              ctx.root, calib)
     cfg = CarDetector(base, dict(conf, **{
         "model_path": cfg_model["registry"],
         "model_family": cfg_model["family"],
@@ -208,10 +210,8 @@ def _run(ctx, t, cfg_model, devices, base, frame, server, CarDetector):
             block = np.stack(pixels[lo:lo + t["reference_block"]])
             x = ref_post.to_model_input(torch.from_numpy(block)
                                         .to(devices[0]), size)
-            boxes, scores = ref_models.detect(cfg_model["reference"], flat,
-                                              x, cfg_model["nc"])
-            kept = ref_post.greedy_nms(
-                boxes, scores, conf=ctx.check["floor"],
+            kept = ctx.family.answer(
+                cfg_model, flat, x, conf=ctx.check["floor"],
                 iou_thr=cfg.nms_iou_threshold,
                 max_det=ctx.check["reference_max_det"],
                 pre_topk=ctx.check["reference_pre_topk"])
@@ -223,6 +223,7 @@ def _run(ctx, t, cfg_model, devices, base, frame, server, CarDetector):
                 cls_l += [names[c] for c in cls]
     lon, lat, conf_r = (np.concatenate(v) if v else np.zeros(0)
                         for v in (lon_l, lat_l, conf_l))
+    flops_per_tile = ctx.family.flops(cfg_model, flat, 1, size)
     keep = ref_post.dedup(lon, lat, conf_r, t["dedup_m"])
     ref_rows = list(zip(lon[keep], lat[keep], conf_r[keep],
                         np.asarray(cls_l)[keep]))
@@ -256,9 +257,10 @@ def _run(ctx, t, cfg_model, devices, base, frame, server, CarDetector):
             timers[k] = timers.get(k, 0.0) + v
     layer = {"window_s": window_s, "tiles": tiles_done, "scans": len(scans),
              "timers": timers, "chips": len(devices), "cpu_s": cpu_s,
-             "renders_in_window": served["renders"] - rendered}
+             "renders_in_window": served["renders"] - rendered,
+             "flops_per_tile": flops_per_tile}
     return Result(attempted=tiles_done, failed=lost,
-                  e2e={"scan_tiles_per_s": tiles_done / window_s,
+                  e2e={"card_memory_peak_gib": peak / 2 ** 30,
                        "setup_s": setup_s},
                   numbers=numbers, layer=layer, spans=spans, trace=summary,
                   cards=[d.index or 0 for d in devices],

@@ -7,10 +7,12 @@ folder, which nothing else lists:
 * ``traffic/<mix>.json``: the mix's parameters, and the general driver
   (``drivers/<driver>.py``) that reads them;
 * ``metrics/<metric>.py``: the reader of one per-layer metric, a
-  ``read(run)`` that returns a number or None.
+  ``read(run)`` that returns a number or None;
+* ``reference/families/<reference>.py``: the plain reference of the model
+  family a configuration's ``reference`` key names (see ``family``).
 
-A later cell, configuration or metric adds files and entries and edits
-none of these.
+A later cell, configuration, model family or metric adds files and
+entries and edits none of these.
 """
 
 import importlib.util
@@ -68,6 +70,32 @@ def driver(traffic: dict, bench_dir: str = BENCH_DIR):
     return _module(os.path.join(bench_dir, "drivers",
                                 f"{traffic['driver']}.py"),
                    f"bench_driver_{traffic['driver']}")
+
+
+def family(name: str, bench_dir: str = BENCH_DIR):
+    """The module ``reference/families/<name>.py``: the plain reference of
+    one model family, written on ``reference.models.Graph`` in f32, which
+    answers every question the harness asks of a model:
+
+    * ``forward(cfg, w, x)``: the raw outputs over x [B,3,S,S] f32 in
+      [0,1]; ``w`` a flat dict of f32 tensors or a ``Graph`` over one;
+      widths and depths from the weights and the configuration ``cfg``;
+    * ``answer(cfg, w, x, *, conf, iou_thr, max_det, pre_topk)``: per
+      image, the kept detections that the check compares, as (box [N,4]:
+      centre x, y and width, height in model pixels; score [N]; class
+      index [N]), after the family's own decode and suppression (the
+      drivers pass the check's ``floor``, ``reference_max_det`` and
+      ``reference_pre_topk`` and the program's NMS IoU threshold; a family
+      without NMS ignores them);
+    * ``flops(cfg, weights, batch, size)``: twice the multiply-adds of one
+      forward over [batch,3,size,size], counted on the meta device;
+    * for the ``seeded_unit_variance`` weights kind (``lib/weights.py``):
+      ``shapes(cfg)``, the leaf shapes {path: shape}, and
+      ``calibrate(cfg, w, x)``, which rescales the drawn leaves in place
+      over calibration images."""
+    path = os.path.join(bench_dir, "reference", "families", f"{name}.py")
+    return _module(path, "bench_family_" + name.replace("-", "_")
+                   .replace(".", "_"))
 
 
 def metric_reader(name: str, bench_dir: str = BENCH_DIR):

@@ -8,6 +8,7 @@ from typing import Optional
 @dataclass
 class Context:
     config: dict
+    family: object         # the config's reference (registry.family)
     traffic: dict
     check: dict            # checks/<cell>.json: the comparison's parameters
     seed: int

@@ -4,17 +4,18 @@ and handed alike to the program and to the reference.
 * ``file``: a flat npz of flax-format paths (the repository's trained
   fixture), its sha256 pinned in the configuration file; set-up fails if
   the file changed.
-* ``seeded_unit_variance``: drawn from ``--seed`` on the card by a
-  ``torch.Generator`` in one call, then rescaled on a few rendered tiles,
-  conv by conv in the order they run, to a fixed output deviation, and
-  each class logit to unit deviation with a fixed share of each level's
-  anchors above the threshold (after
-  ``chip_smoke.unit_variance_tree``, chip_smoke.py:2392, on the card and on
-  the reference's graph): a seeded deep trunk otherwise fades to a
-  constant, every anchor scoring alike. The deviation is the
-  configuration's ``conv_output_std``: at 1, as chip_smoke has it, the
-  SiLU trunk is chaotic, and bf16 rounding moves the logits that clear the
-  threshold by half a unit against f32.
+* ``seeded_unit_variance``: the configuration's family
+  (``reference/families/<reference>.py``) gives the leaf shapes
+  (``shapes(cfg)``); every kernel is drawn from ``--seed`` on the card by a
+  ``torch.Generator`` in one call and scaled by its fan-in, scales and
+  variances are 1 and the rest 0; then the family's ``calibrate(cfg, w,
+  x)`` runs its forward over a few rendered tiles on a ``ConvRescale``
+  graph, which rescales each conv, in the order they run, to the
+  configuration's output deviation ``conv_output_std``, and sets the heads
+  as the family's docstring says: a seeded deep trunk otherwise fades to a
+  constant, every anchor scoring alike. At a deviation of 1 a SiLU trunk is
+  chaotic, and bf16 rounding moves the logits that clear the threshold by
+  half a unit against f32.
 
 Both give a flat dict of f32 tensors on the device (the reference's
 input) and a nested numpy tree (what the program's ``create_model`` takes
@@ -22,7 +23,6 @@ as ``variables``).
 """
 
 import hashlib
-import math
 import os
 
 import numpy as np
@@ -58,24 +58,16 @@ def _from_file(cfg: dict, root: str, device) -> dict:
                 for k in z.keys()}
 
 
-class _Rescale(ref_models.Graph):
-    """The reference graph, rescaling as it runs each conv to output
-    deviation ``conv_std``, each class head to unit deviation with the
-    share ``cls_share`` of its logits above the ``threshold``'s,
-    and each box head to deviation ``box_std`` about a prior that puts
-    ``box_logit`` on bin ``box_bin`` of every side's distance distribution
-    (boxes about 2 * box_bin strides across, stable under rounding, where
-    unit-deviation box logits give boxes half a tile across that overlap
-    one another)."""
+class ConvRescale(ref_models.Graph):
+    """The reference graph, rescaling each conv's kernel as it runs to
+    output deviation ``spec["conv_output_std"]``; a family's calibration
+    subclasses it for its heads, reading their settings from ``spec``
+    (the configuration's ``weights``)."""
 
     def __init__(self, weights, act, bn_eps, spec):
         super().__init__(weights, act, bn_eps)
+        self.spec = spec
         self.conv_std = spec["conv_output_std"]
-        self.cls_share = spec["class_share_above"]
-        self.threshold = spec["threshold"]
-        self.box_std = spec["box_logit_std"]
-        self.box_bin = spec["box_prior_bin"]
-        self.box_logit = spec["box_prior_logit"]
 
     def conv(self, name, x, stride=1):
         key = f"params/{name}/conv/kernel"
@@ -85,30 +77,11 @@ class _Rescale(ref_models.Graph):
         self.w[key] *= self.conv_std / s
         return super().conv(name, x, stride)
 
-    def head(self, name, feat):
-        out = super().head(name, feat)
-        kernel = self.w[f"params/{name}/kernel"]
-        bias = self.w[f"params/{name}/bias"]
-        if "/cls" in name:
-            # unit deviation, then the share cls_share of this level's
-            # logits above the threshold's logit
-            mean, std = out.mean((0, 1, 2)), out.std((0, 1, 2))
-            z = ((out - mean) / std).reshape(-1, out.shape[-1])
-            top = torch.quantile(z, 1.0 - self.cls_share, dim=0)
-            kernel /= std
-            bias.sub_(mean).div_(std).add_(
-                math.log(self.threshold / (1 - self.threshold)) - top)
-        else:
-            kernel *= self.box_std / out.std()
-            bias.zero_()
-            bias.view(4, -1)[:, self.box_bin] = self.box_logit
-        return super().head(name, feat)
 
-
-def _seeded(cfg: dict, seed: int, device, calib_tiles: np.ndarray) -> dict:
+def _seeded(cfg: dict, family, seed: int, device,
+            calib_tiles: np.ndarray) -> dict:
     spec = cfg["weights"]
-    shapes = ref_models.yolov8_shapes(cfg["nc"], tuple(cfg["widths"]),
-                                      tuple(cfg["depths"]))
+    shapes = family.shapes(cfg)
     kernels = [k for k in shapes if k.endswith("kernel")]
     sizes = [int(np.prod(shapes[k])) for k in kernels]
     g = torch.Generator(device=device)
@@ -125,19 +98,19 @@ def _seeded(cfg: dict, seed: int, device, calib_tiles: np.ndarray) -> dict:
         w[k] = (torch.ones if ones else torch.zeros)(shape, device=device)
     x = torch.from_numpy(calib_tiles[:spec["calib_tiles"]]).to(device)
     with torch.no_grad():
-        ref_models.yolov8(_Rescale(w, "silu", 1e-3, spec),
-                          x.permute(0, 3, 1, 2).float() / 255.0,
-                          tuple(cfg["depths"]))
+        family.calibrate(cfg, w, x.permute(0, 3, 1, 2).float() / 255.0)
     return w
 
 
-def make(cfg: dict, seed: int, device, root: str, calib_tiles: np.ndarray):
-    """(flat f32 tensors on ``device``, nested numpy tree) of ``cfg``."""
+def make(cfg: dict, family, seed: int, device, root: str,
+         calib_tiles: np.ndarray):
+    """(flat f32 tensors on ``device``, nested numpy tree) of ``cfg``,
+    whose reference is the module ``family``."""
     kind = cfg["weights"]["kind"]
     if kind == "file":
         flat = _from_file(cfg, root, device)
     elif kind == "seeded_unit_variance":
-        flat = _seeded(cfg, seed, device, calib_tiles)
+        flat = _seeded(cfg, family, seed, device, calib_tiles)
     else:
         raise ValueError(f"unknown weights kind {kind!r}")
     return flat, nested({k: v.cpu().numpy() for k, v in flat.items()})

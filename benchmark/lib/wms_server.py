@@ -2,8 +2,8 @@
 
 Run as ``python wms_server.py '<json>'`` with the world's parameters
 (seed, lon0, lat0, extent_m, cars_per_km2, jpeg_quality, render_workers);
-it prints ``PORT <n>`` on its first line and serves on 127.0.0.1 until
-it is sent SIGTERM:
+it prints ``PORT <n>`` on its first line and serves on 127.0.0.1, with
+an accept queue of 1024, until it is sent SIGTERM:
 
 * ``GetCapabilities``: a WMS 1.1.1 document with the one layer ``aerial``
   in EPSG:4326 as image/jpeg;
@@ -90,6 +90,14 @@ class Store:
                                "requests": self.requests}).encode()
 
 
+class Server(ThreadingHTTPServer):
+    """A production server's accept queue: at socketserver's default of 5
+    the scan's parallel connections overflow it, and each dropped SYN
+    holds its request for a 1-s or 3-s retransmit."""
+    daemon_threads = True
+    request_queue_size = 1024
+
+
 def serve(params):
     store = Store(params)
 
@@ -118,8 +126,7 @@ def serve(params):
             self.send_response(404)
             self.end_headers()
 
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-    httpd.daemon_threads = True
+    httpd = Server(("127.0.0.1", 0), Handler)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)

@@ -4,14 +4,14 @@
         --trace <0|1>
 
 Reads ``BENCHMARK.json`` at the root of the checkout, finds the cell's
-configuration, traffic mix, check and metrics by name under this folder
-(``lib/registry.py``), runs the mix's driver on the cards the cell asks
-for, and prints one JSON line last on standard output: ``correct``,
-``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
-with ``--trace 1`` its per-layer ones), ``device`` (with ``--trace 1``
-also ``busy_s`` and ``window_s``), ``breakdown`` with ``--trace 1``, and
-``checks``, each compared number with its limit, which are also the last
-lines of standard error.
+configuration, its model family's reference, traffic mix, check and
+metrics by name under this folder (``lib/registry.py``), runs the mix's
+driver on the cards the cell asks for, and prints one JSON line last on
+standard output: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
+cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
+``device`` (with ``--trace 1`` also ``busy_s`` and ``window_s``),
+``breakdown`` with ``--trace 1``, and ``checks``, each compared number
+with its limit, which are also the last lines of standard error.
 
 Exits non-zero without a result when no CUDA card is visible, when fewer
 cards are visible than the cell asks for, or when the JAX package, JAX,
@@ -96,8 +96,9 @@ def measure(args, devices=None, spec_root: str = ROOT):
         check = json.load(f)
     tmp = os.path.join(tempfile.gettempdir(), "bench-" + cell["name"])
     os.makedirs(tmp, exist_ok=True)
-    ctx = Context(config=registry.load_config(spec, cell["config"],
-                                                         spec_root),
+    config = registry.load_config(spec, cell["config"], spec_root)
+    ctx = Context(config=config,
+                  family=registry.family(config["reference"], bench_dir),
                   traffic=traffic, check=check, seed=args.seed,
                   seconds=args.seconds, trace=bool(args.trace),
                   devices=devices, root=ROOT, tmp=tmp, t_start=T_START,

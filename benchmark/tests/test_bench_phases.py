@@ -1,10 +1,12 @@
-"""The readers of the scan's host phases (``metrics/*_ms_per_tile.scan``).
+"""The readers of the scan's host phases (``metrics/*_ms_per_tile.scan``),
+of its step's share of the peak (``step_mfu.scan``) and of its rate
+(``tiles_per_s.scan``).
 
-Each reads its phase of ``CarDetector.timers`` (as the scan driver hands
-them over, summed over the window's scans) in milliseconds a tile, and
-reads nothing where the program has no such phase (a commit before the
-phases existed) or the window finished no tile. The entries are checked
-as every other by ``test_bench_harness.py``.
+Each phase reader reads its phase of ``CarDetector.timers`` (as the scan
+driver hands them over, summed over the window's scans) in milliseconds a
+tile, and reads nothing where the program has no such phase (a commit
+before the phases existed) or the window finished no tile. The entries are
+checked as every other by ``test_bench_harness.py``.
 """
 
 import pytest
@@ -52,4 +54,49 @@ def test_entries_name_the_scan_cell():
     assert got.keys() == PHASES.keys()
     for m in got.values():
         assert (m["unit"], m["better"], m["moves"], m["workloads"]) == \
-            ("ms/tile", "lower", "scan_tiles_per_s", ["v7tiny-scan-1280"])
+            ("ms/tile", "lower", "card_memory_peak_gib",
+             ["v7tiny-scan-1280"])
+
+
+def test_step_mfu_scan_reads_the_share_of_the_peak():
+    read = registry.metric_reader("step_mfu.scan")
+    layer = {"timers": dict(OLDER), "tiles": 3 * 576, "window_s": 21.1,
+             "chips": 1, "flops_per_tile": 13.02e9}
+    ran = Result(attempted=1728, failed=0, e2e={}, numbers={}, layer=layer)
+    want = 100.0 * 13.02e9 * 1728 / 21.1 / 989e12
+    assert read(ran) == pytest.approx(want, rel=1e-12)
+    ran.layer = dict(layer, tiles=0)
+    assert read(ran) is None
+    entry = {m["name"]: m for m in registry.load_spec()["per_layer"]}[
+        "step_mfu.scan"]
+    assert (entry["unit"], entry["better"], entry["source"], entry["layer"],
+            entry["moves"], entry["workloads"]) == \
+        ("%", "higher", "host_clock", "step", "card_memory_peak_gib",
+         ["v7tiny-scan-1280"])
+
+
+def test_scan_rate_reads_the_window_s_tiles_a_second():
+    read = registry.metric_reader("tiles_per_s.scan")
+    layer = {"timers": dict(OLDER), "tiles": 9 * 576, "window_s": 53.4}
+    ran = Result(attempted=5184, failed=0, e2e={}, numbers={}, layer=layer)
+    assert read(ran) == 9 * 576 / 53.4
+    ran.layer = dict(layer, tiles=0)
+    assert read(ran) is None
+    assert read(Result(attempted=0, failed=0, e2e={}, numbers={})) is None
+    entry = {m["name"]: m for m in registry.load_spec()["per_layer"]}[
+        "tiles_per_s.scan"]
+    assert (entry["unit"], entry["better"], entry["source"], entry["layer"],
+            entry["moves"], entry["workloads"]) == \
+        ("tiles/s", "higher", "host_clock", "scan", "card_memory_peak_gib",
+         ["v7tiny-scan-1280"])
+
+
+def test_scan_cell_reports_step_mfu_when_traced():
+    """A traced CPU run of the scan cell (``tiny.run_cell``): the driver
+    counts the family's FLOPs a tile after the window, and the share
+    reads above 0 (a CPU number, never a card's)."""
+    import tiny
+    line = tiny.run_cell("v7tiny-scan-1280", 24, trace=1)
+    assert line["correct"] is True, line["checks"]
+    assert 0.0 < line["metrics"]["step_mfu.scan"]["value"] < 100.0
+    assert line["metrics"]["tiles_per_s.scan"]["value"] > 0.0

@@ -1,12 +1,12 @@
 """The plain reference against the program on the CPU, at a small size.
 
-The reference's YOLOv7-tiny (the trained fixture) and YOLOv8l (seeded by
-the benchmark's own weights maker) against the port's f32 modules on the
-same weights, raw head maps and decoded boxes; its greedy NMS against a
-brute-force loop; and what the harness, its traffic and its reference
-load: no module whose top-level name is ``jax``, ``jaxlib``, ``flax`` or
-``aerial_image_recognition_tpu``, and in the reference nothing of the
-port either.
+The reference's families (``reference/families/``), YOLOv7-tiny on the
+trained fixture and YOLOv8l seeded by the benchmark's own weights maker,
+against the port's f32 modules on the same weights, raw head maps and
+decoded boxes; its greedy NMS against a brute-force loop; and what the
+harness, its traffic and its reference load: no module whose top-level
+name is ``jax``, ``jaxlib``, ``flax`` or ``aerial_image_recognition_tpu``,
+and in the reference nothing of the port either.
 """
 
 import json
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from benchmark.lib import registry, tiles, weights
-from benchmark.reference import models, post
+from benchmark.reference import post
 
 ROOT = registry.ROOT
 
@@ -42,13 +42,14 @@ def _port_maps(cfg, tree, x):
                                         ("yolov8l-tokyo", 64)])
 def test_reference_matches_port_f32(name, size):
     cfg = _config(name)
+    family = registry.family(cfg["reference"])
     pool, _ = tiles.render_tiles(np.random.default_rng(3), 2, size)
-    flat, tree = weights.make(cfg, 3, torch.device("cpu"), ROOT, pool)
+    flat, tree = weights.make(cfg, family, 3, torch.device("cpu"), ROOT,
+                              pool)
     x = torch.from_numpy(pool).permute(0, 3, 1, 2).float() / 255.0
     with torch.no_grad():
-        ref = models.FAMILIES[cfg["reference"]][0](flat, x)
-        ref_boxes, ref_scores = models.detect(cfg["reference"], flat, x,
-                                              cfg["nc"])
+        ref = family.forward(cfg, flat, x)
+        ref_boxes, ref_scores = family.decode(cfg, ref)
     maps, bundle = _port_maps(cfg, tree, x)
     for a, b in zip(ref, maps):
         scale = float(b.abs().max())
@@ -69,8 +70,10 @@ def test_reference_detections_match_port_step():
         detections_to_records)
     from benchmark.lib import program
     cfg = _config("yolov7-tiny-itcvd")
+    family = registry.family(cfg["reference"])
     pool, bounds = tiles.render_tiles(np.random.default_rng(5), 4, 96)
-    flat, tree = weights.make(cfg, 5, torch.device("cpu"), ROOT, pool)
+    flat, tree = weights.make(cfg, family, 5, torch.device("cpu"), ROOT,
+                              pool)
     dc = program.detector_config(cfg, dtype="float32",
                                  confidence_threshold=0.3)
     step = build_detect_step(dc, batch=4, bundle=program.bundle(
@@ -80,9 +83,8 @@ def test_reference_detections_match_port_step():
     recs = detections_to_records(out[0], bounds.astype(np.float32), 96)
     x = post.to_model_input(torch.from_numpy(pool), 96)
     with torch.no_grad():
-        kept = post.greedy_nms(*models.detect(cfg["reference"], flat, x, 1),
-                               conf=0.3, iou_thr=0.45, max_det=64,
-                               pre_topk=256)
+        kept = family.answer(cfg, flat, x, conf=0.3, iou_thr=0.45,
+                             max_det=64, pre_topk=256)
     for t, (box, score, _) in enumerate(kept):
         mine = sorted(r["confidence"] for r in recs if r["tile_index"] == t)
         assert len(mine) == len(score)
@@ -133,8 +135,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "aerial_image_recognition_tpu"}
 
 
 def test_reference_loads_nothing_of_either_package():
-    found = _loaded("import benchmark.reference.models, "
-                    "benchmark.reference.post")
+    found = _loaded("import os\nfrom benchmark.lib import registry\n"
+                    "for f in os.listdir('benchmark/reference/families'):\n"
+                    "    if f.endswith('.py'):\n"
+                    "        registry.family(f[:-3])")
     assert not found & (FORBIDDEN | {"aerial_image_recognition_tpu_torch"})
 
 

@@ -55,15 +55,22 @@ def spec_copy(dst: str) -> str:
 
 
 def run_cell(cell: str, seed: int, seconds: float = 2.0, trace: int = 0,
-             control=None):
+             control=None, root=None):
+    """The result line of one CPU run of ``cell`` in ``root``, a copy made
+    by ``spec_copy`` that a test may have added files and entries to; in a
+    fresh copy when ``root`` is None."""
+    if root is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return run_cell(cell, seed, seconds, trace, control,
+                            spec_copy(tmp))
     import torch
     from benchmark import run
-    chips = next(w["chips"] for w in spec()["workloads"]
-                 if w["name"] == cell)
-    with tempfile.TemporaryDirectory() as tmp:
-        args = run.parse(["--workload", cell, "--seed", str(seed),
-                          "--seconds", str(seconds), "--trace", str(trace)]
-                         + (["--control", control] if control else []))
-        line, _ = run.measure(args, devices=[torch.device("cpu")] * chips,
-                              spec_root=spec_copy(tmp))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        chips = next(w["chips"] for w in json.load(f)["workloads"]
+                     if w["name"] == cell)
+    args = run.parse(["--workload", cell, "--seed", str(seed),
+                      "--seconds", str(seconds), "--trace", str(trace)]
+                     + (["--control", control] if control else []))
+    line, _ = run.measure(args, devices=[torch.device("cpu")] * chips,
+                          spec_root=root)
     return line

@@ -122,7 +122,8 @@ def trace_scan(t: dict, cfg_model: dict, device, seed: int, scans: int,
         calib, _ = tiles.render_tiles(np.random.default_rng(seed),
                                       t["calib_tiles"],
                                       cfg_model["input_size"])
-        _, tree = weights.make(cfg_model, seed, device, ROOT, calib)
+        _, tree = weights.make(cfg_model, registry.family(
+            cfg_model["reference"]), seed, device, ROOT, calib)
         cfg = CarDetector(base, dict(conf, **{
             "model_path": cfg_model["registry"],
             "model_family": cfg_model["family"],
