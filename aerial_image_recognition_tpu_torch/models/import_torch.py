@@ -15,7 +15,9 @@ the port's modules:
 
 ``export_torch_state`` is the inverse of the trunk mapping, and
 ``torch_state_from_variables`` of the whole import (the CLI's ``export``
-verb); ``validate_variable_shapes`` is the shape report ``import-weights``
+verb); ``rtdetr_from_transformers`` carries an RT-DETR state dict with
+``transformers``' names into the port's tree (no counterpart in the JAX
+package, which has no RT-DETR); ``validate_variable_shapes`` is the shape report ``import-weights``
 checks an imported tree with; ``layer_index_prefixes`` maps the upstream
 yaml layer indices of a training freeze (``freeze=[0, 1, 2]``) to module
 paths.
@@ -388,8 +390,133 @@ def variables_from_torch_state(state_dict: Dict[str, np.ndarray],
         scale = "l" if name == "yolov8_tokyo" else name[-1]
         return import_torch_state(state_dict,
                                   yolov8_mapping(yolov8_n_c2f(scale)))
+    if spec.family == "rtdetr":
+        return rtdetr_from_transformers(state_dict)
     raise KeyError(f"no torch import mapping for model family "
                    f"{spec.family!r} ({name})")
+
+
+# RT-DETR (transformers' RTDetrForObjectDetection names) → the port's
+# module paths (models/rtdetr.py): (pattern, path template, kind), the
+# kind deciding the leaves; the first match wins
+_RTDETR_RULES: List[Tuple[str, str, str]] = [
+    (r"model\.backbone\.model\.embedder\.embedder\.(\d+)\.(convolution|"
+     r"normalization)", "backbone/stem{0}", "cbn"),
+    (r"model\.backbone\.model\.encoder\.stages\.(\d+)\.layers\.(\d+)\."
+     r"shortcut\.(?:1\.)?(convolution|normalization)",
+     "backbone/s{0}/b{1}/short", "cbn"),
+    (r"model\.backbone\.model\.encoder\.stages\.(\d+)\.layers\.(\d+)\."
+     r"layer\.(\d+)\.(convolution|normalization)",
+     "backbone/s{0}/b{1}/cv{2+}", "cbn"),
+    (r"model\.encoder_input_proj\.(\d+)\.([01])", "encoder/proj{0}",
+     "cbn"),
+    (r"model\.encoder\.encoder\.0\.layers\.0\.self_attn\.([qkv]|out)_proj",
+     "encoder/aifi/attn/{0}", "linear"),
+    (r"model\.encoder\.encoder\.0\.layers\.0\.self_attn_layer_norm",
+     "encoder/aifi/ln1", "ln"),
+    (r"model\.encoder\.encoder\.0\.layers\.0\.(fc[12])",
+     "encoder/aifi/{0}", "linear"),
+    (r"model\.encoder\.encoder\.0\.layers\.0\.final_layer_norm",
+     "encoder/aifi/ln2", "ln"),
+    (r"model\.encoder\.lateral_convs\.(\d+)\.(conv|norm)",
+     "encoder/lateral{0}", "cbn"),
+    (r"model\.encoder\.downsample_convs\.(\d+)\.(conv|norm)",
+     "encoder/down{0}", "cbn"),
+    (r"model\.encoder\.(fpn|pan)_blocks\.(\d+)\.bottlenecks\.(\d+)\."
+     r"conv1\.(conv|norm)", "encoder/{0}{1}/m{2}/c3", "cbn"),
+    (r"model\.encoder\.(fpn|pan)_blocks\.(\d+)\.bottlenecks\.(\d+)\."
+     r"conv2\.(conv|norm)", "encoder/{0}{1}/m{2}/c1", "cbn"),
+    (r"model\.encoder\.(fpn|pan)_blocks\.(\d+)\.conv([12])\.(conv|norm)",
+     "encoder/{0}{1}/cv{2}", "cbn"),
+    (r"model\.decoder_input_proj\.(\d+)\.([01])", "decoder/proj{0}",
+     "cbn"),
+    (r"model\.enc_output\.0", "decoder/enc_output", "linear"),
+    (r"model\.enc_output\.1", "decoder/enc_norm", "ln"),
+    (r"model\.enc_score_head", "decoder/enc_score", "linear"),
+    (r"model\.enc_bbox_head\.layers\.(\d+)", "decoder/enc_bbox/l{0}",
+     "linear"),
+    (r"model\.decoder\.query_pos_head\.layers\.(\d+)",
+     "decoder/query_pos/l{0}", "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.self_attn\.([qkv]|out)_proj",
+     "decoder/layer{0}/attn/{1}", "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.self_attn_layer_norm",
+     "decoder/layer{0}/ln1", "ln"),
+    (r"model\.decoder\.layers\.(\d+)\.encoder_attn\.sampling_offsets",
+     "decoder/layer{0}/cross/offsets", "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.encoder_attn\.attention_weights",
+     "decoder/layer{0}/cross/weights", "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.encoder_attn\.value_proj",
+     "decoder/layer{0}/cross/value", "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.encoder_attn\.output_proj",
+     "decoder/layer{0}/cross/out", "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.encoder_attn_layer_norm",
+     "decoder/layer{0}/ln2", "ln"),
+    (r"model\.decoder\.layers\.(\d+)\.(fc[12])", "decoder/layer{0}/{1}",
+     "linear"),
+    (r"model\.decoder\.layers\.(\d+)\.final_layer_norm",
+     "decoder/layer{0}/ln3", "ln"),
+    (r"(?:model\.decoder\.)?class_embed\.(\d+)", "decoder/class{0}",
+     "linear"),
+    (r"(?:model\.decoder\.)?bbox_embed\.(\d+)\.layers\.(\d+)",
+     "decoder/bbox{0}/l{1}", "linear"),
+]
+# training-only tensors of the upstream model, not part of inference
+_RTDETR_SKIP = ("model.denoising_class_embed.", "num_batches_tracked")
+
+
+def _rtdetr_leaf(kind: str, leaf: str, value: np.ndarray, conv: bool):
+    """(collection, leaf path under the module, array) of one upstream
+    tensor of a ConvBN, linear or layer norm."""
+    if kind == "cbn" and conv:
+        return "params", ["conv", "kernel"], _conv_to_flax(value)
+    if kind == "cbn":
+        return {"weight": ("params", ["bn", "scale"]),
+                "bias": ("params", ["bn", "bias"]),
+                "running_mean": ("batch_stats", ["bn", "mean"]),
+                "running_var": ("batch_stats", ["bn", "var"])}[leaf] \
+            + (value,)
+    if kind == "linear":
+        if leaf == "weight":
+            return "params", ["kernel"], value.T[None, None]
+        return "params", ["bias"], value
+    return "params", ["scale" if leaf == "weight" else "bias"], value
+
+
+def rtdetr_from_transformers(state_dict: Dict[str, np.ndarray]
+                             ) -> Dict[str, Any]:
+    """An RT-DETR state dict with ``transformers``' parameter names
+    (``RTDetrForObjectDetection.state_dict()``, e.g. the PekingU
+    checkpoints, numpy or torch values) → the port's flax-format tree
+    (``models/rtdetr.py``). The denoising class embedding is training-only
+    and dropped; the decoder heads, which the upstream model holds under
+    two names, are read from either. Raises on a name no rule maps."""
+    import re
+    rules = [(re.compile(p + r"\.(\w+)$"), t, k) for p, t, k in _RTDETR_RULES]
+    tree: Dict[str, Any] = {}
+    for name, value in state_dict.items():
+        if any(s in name for s in _RTDETR_SKIP):
+            continue
+        for rx, template, kind in rules:
+            m = rx.fullmatch(name)
+            if m is None:
+                continue
+            *groups, leaf = m.groups()
+            conv = kind == "cbn" and groups[-1] in ("convolution", "conv",
+                                                    "0")
+            if kind == "cbn":
+                groups = groups[:-1]
+            path = template.replace("{2+}", str(int(groups[-1]) + 1)) \
+                if "{2+}" in template else template
+            path = path.format(*groups)
+            if hasattr(value, "detach"):
+                value = value.detach().cpu().numpy()
+            coll, leaf_path, arr = _rtdetr_leaf(kind, leaf, np.asarray(
+                value, np.float32), conv)
+            _set(tree, [coll] + path.split("/") + leaf_path, arr)
+            break
+        else:
+            raise KeyError(f"no RT-DETR mapping for upstream tensor {name}")
+    return tree
 
 
 def validate_variable_shapes(variables: Dict[str, Any],

@@ -189,10 +189,15 @@ class ConvBN(nn.Module):
 
 
 def fold_batchnorm(module: nn.Module) -> nn.Module:
-    """Fuse every ConvBN of ``module`` in place; returns ``module``."""
+    """Fuse every ConvBN of ``module`` in place, then merge the parallel
+    branches of every block that has a ``reparameterize`` (RT-DETR's
+    RepVGG units); returns ``module``."""
     for m in module.modules():
         if isinstance(m, ConvBN):
             m.fuse()
+    for m in list(module.modules()):
+        if hasattr(m, "reparameterize"):
+            m.reparameterize()
     return module
 
 

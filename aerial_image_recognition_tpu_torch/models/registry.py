@@ -5,7 +5,9 @@ detector the reference registers — ``yolov7_itcvd`` (YOLOv7-tiny, nc=1),
 ``yolov7_base`` (nc=1), ``yolov8_tokyo`` (YOLOv8l, nc=2 car/truck) and the
 YOLOv8 n/s/m/l/x ladder (nc=2), all at 640 px, and the building
 segmentation model ``xunet_256`` (XUnet, nc=1, 256 px), whose ``forward``
-returns mask logits.
+returns mask logits. Beyond the reference: ``rtdetr_r50vd``, RT-DETR with
+a ResNet-50-vd backbone (nc=2 car/truck, 640 px), a set-prediction
+detector whose step has no NMS (``pipeline/inference.make_detect_fn``).
 """
 
 import copy
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from aerial_image_recognition_tpu_torch.models.rtdetr import RTDETR
 from aerial_image_recognition_tpu_torch.models.weights import (
     load_flax_into, load_params, params_to_flax)
 from aerial_image_recognition_tpu_torch.models.xunet import XUnet
@@ -28,7 +31,7 @@ from aerial_image_recognition_tpu_torch.runtime.device import resolve_device
 @dataclass
 class ModelSpec:
     name: str
-    family: str                   # yolov7 | yolov8 | xunet
+    family: str                   # yolov7 | yolov8 | rtdetr | xunet
     num_classes: int
     input_size: int               # square input edge (pixels)
     make_module: Callable[[], nn.Module]
@@ -46,6 +49,10 @@ REGISTRY: Dict[str, ModelSpec] = {
     # the yolov8_tokyo_checkpoint slot: YOLOv8l, nc=2 {car, truck}
     "yolov8_tokyo": ModelSpec("yolov8_tokyo", "yolov8", 2, 640,
                               lambda: YOLOv8(num_classes=2, scale="l"),
+                              ("car", "truck")),
+    # RT-DETR-R50 (ResNet-50-vd), the published widths, nc=2 {car, truck}
+    "rtdetr_r50vd": ModelSpec("rtdetr_r50vd", "rtdetr", 2, 640,
+                              lambda: RTDETR(num_classes=2),
                               ("car", "truck")),
     # the ramp_XUnet_256 slot: building footprints
     "xunet_256": ModelSpec("xunet_256", "xunet", 1, 256,
@@ -71,6 +78,8 @@ def resolve_model_name(model_path: str) -> str:
     for name in (base, stem):            # "yolov8n.onnx" → yolov8n, not L
         if name in REGISTRY:
             return name
+    if "rtdetr" in base or "rt-detr" in base or "rt_detr" in base:
+        return "rtdetr_r50vd"
     if "yolo7" in base or "yolov7" in base or "itcvd" in base:
         return "yolov7_itcvd"
     if "yolov8" in base or "tokyo" in base:
@@ -98,13 +107,17 @@ class ModelBundle:
 
     def forward(self, images: torch.Tensor):
         """images [B,3,S,S] (/255, trunk dtype) → (boxes [B,A,4] cxcywh
-        pixels f32, scores [B,A,nc] f32); xunet: mask logits [B,S,S,1]
-        f32."""
+        pixels f32, scores [B,A,nc] f32); rtdetr: one box and the sigmoid
+        class scores a query (A = the 300 queries); xunet: mask logits
+        [B,S,S,1] f32."""
         from aerial_image_recognition_tpu_torch.ops.decode import (
             decode_yolov7, decode_yolov8)
         outs = self.module(images)
         if self.spec.family == "xunet":
             return outs
+        if self.spec.family == "rtdetr":
+            return (outs["boxes"] * images.shape[-1],
+                    torch.sigmoid(outs["logits"]))
         if self.spec.family == "yolov8":
             return decode_yolov8(outs, self.spec.num_classes)
         return decode_yolov7(outs, self.module.anchors,
@@ -184,9 +197,9 @@ class ModelBundle:
 def _prior_init_detect_bias(module: nn.Module, spec: ModelSpec) -> None:
     """Detection-prior bias init (the upstream yolo trick): objectness and
     class logits (yolov7) or the class logits (yolov8) start at σ(−5) ≈
-    0.7 %. Only for fresh random weights; no-op for xunet."""
+    0.7 %. Only for fresh random weights; no-op for xunet and rtdetr."""
     with torch.no_grad():
-        if spec.family == "xunet":
+        if spec.family in ("xunet", "rtdetr"):
             return
         if spec.family == "yolov8":
             for i in range(3):

@@ -69,6 +69,8 @@ LEAF_MAP: Dict[Tuple[str, Tuple[str, ...]],
     # computed as a matmul
     ("params", ("kernel",)): ("weight", _hwio_1x1_to_linear),
     ("params", ("bias",)): ("bias", None),
+    # layer norms (RT-DETR's ``models/rtdetr.LayerNorm``), flax's names
+    ("params", ("scale",)): ("scale", None),
 }
 
 

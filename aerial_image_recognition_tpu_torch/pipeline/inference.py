@@ -6,8 +6,10 @@ Counterpart of ``aerial_image_recognition_tpu/pipeline/inference.py``
 (crop, resize, /255) → trunk (any registry detector) → f32 heads →
 decode → NMS (CUDA kernel on the card; class-aware for the two-class
 yolov8 models) → lon/lat on the device, so only ~max_det·6 numbers per tile come back to
-the host. Native-size YOLOv7-tiny and YOLOv8 tiles take the quad stem by
-default, as in the reference (``use_quad_stem``; ``extra.quad_stem:
+the host. A set-prediction detector (RT-DETR) ends without NMS: the top
+``max_detections_per_tile`` of its queries' class scores above the
+threshold (``_set_prediction_finish``). Native-size YOLOv7-tiny and
+YOLOv8 tiles take the quad stem by default, as in the reference (``use_quad_stem``; ``extra.quad_stem:
 false`` opts out): the step's batches are then in the s2d² layout
 (``input_layout == "s2d2"``), whose /255 folds into the stem's first conv
 (``ops/quadstem.py``). The accuracy modes — the TTA ladder (whose CLAHE
@@ -46,7 +48,8 @@ import torch
 
 from aerial_image_recognition_tpu_torch.models.registry import (
     ModelBundle, create_model)
-from aerial_image_recognition_tpu_torch.ops.nms import batched_nms
+from aerial_image_recognition_tpu_torch.ops.nms import (
+    Detections, batched_nms)
 from aerial_image_recognition_tpu_torch.ops.preprocess import (
     matmul_resize_float, preprocess_batch, resize)
 from aerial_image_recognition_tpu_torch.parallel.mesh import Mesh
@@ -54,6 +57,7 @@ from aerial_image_recognition_tpu_torch.post.georef import lonlat, to_numpy
 from aerial_image_recognition_tpu_torch.runtime.config import DetectorConfig
 from aerial_image_recognition_tpu_torch.runtime.device import (
     canonical, on_device, resolve_device)
+from aerial_image_recognition_tpu_torch.runtime.observability import Tracer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _CLAHE_BACKENDS = ("auto", "xla", "pallas", "pallas_interpret")
@@ -232,6 +236,10 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
             f"(expected one of {_CLAHE_BACKENDS})")
 
     def finish(boxes, scores, bounds):
+        if spec.family == "rtdetr":
+            det = _set_prediction_finish(boxes, scores, cfg)
+            lon, lat = lonlat(det.boxes[..., :2], bounds, model_size)
+            return det, lon, lat
         det = batched_nms(
             boxes, scores,
             num_classes=spec.num_classes,
@@ -306,6 +314,32 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
         return finish(boxes, scores, bounds)
 
     return detect
+
+
+def _set_prediction_finish(boxes, scores, cfg: DetectorConfig) -> Detections:
+    """A set-prediction detector's answer (RT-DETR's published
+    post-process with its focal-loss scores), with no NMS: boxes [B,Q,4],
+    sigmoid scores [B,Q,nc] → the top ``max_detections_per_tile`` over
+    query × class (one query may give a detection of each class), kept
+    where the score exceeds ``confidence_threshold``, in the padded
+    ``Detections`` of the NMS path (invalid slots zero, class −1)."""
+    with Tracer.annotate("rtdetr.finish"):
+        b, q, nc = scores.shape
+        slots = cfg.max_detections_per_tile
+        k = min(slots, q * nc)
+        top, idx = torch.topk(scores.reshape(b, q * nc).float(), k, dim=1)
+        picked = torch.gather(boxes.float(), 1,
+                              (idx // nc)[..., None].expand(b, k, 4))
+        cls = (idx % nc).to(torch.int32)
+        if k < slots:
+            pad = slots - k
+            top = torch.cat([top, top.new_zeros(b, pad)], 1)
+            picked = torch.cat([picked, picked.new_zeros(b, pad, 4)], 1)
+            cls = torch.cat([cls, cls.new_full((b, pad), -1)], 1)
+        valid = top > cfg.confidence_threshold
+        return Detections(boxes=torch.where(valid[..., None], picked, 0.0),
+                          scores=torch.where(valid, top, 0.0),
+                          classes=torch.where(valid, cls, -1), valid=valid)
 
 
 def use_quad_stem(bundle, cfg: DetectorConfig, *, src_size=None,
@@ -383,6 +417,11 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
                          f"{device}")
     kwargs = dict(batch=batch, src_size=src_size, crop_size=crop_size,
                   model_size=model_size, mesh=mesh)
+    if cfg.extra.get("quantize") == "int8" \
+            and bundle.spec.family == "rtdetr":
+        raise NotImplementedError(
+            "quantize='int8' has no lowering for the rtdetr family: its "
+            "trunk runs in the configured dtype")
     if cfg.extra.get("quantize") == "int8":
         from aerial_image_recognition_tpu_torch.models.int8 import (
             Int8Bundle, load_absmax, quantize_bundle)

@@ -49,7 +49,7 @@ class DetectorConfig:
     output_prefix: str = "detections"
 
     # --- Model head ---
-    model_family: str = "yolov7"         # yolov7 | yolov8 | xunet
+    model_family: str = "yolov7"         # yolov7 | yolov8 | rtdetr | xunet
     num_classes: int = 1
     max_detections_per_tile: int = 64    # fixed top-K slots per tile
     nms_iou_threshold: float = 0.45
@@ -106,7 +106,7 @@ class DetectorConfig:
             raise ValueError("tile_size_meters must be positive")
         if self.batch_size <= 0 or self.device_batch <= 0:
             raise ValueError("batch sizes must be positive")
-        if self.model_family not in ("yolov7", "yolov8", "xunet"):
+        if self.model_family not in ("yolov7", "yolov8", "rtdetr", "xunet"):
             raise ValueError(f"unknown model_family {self.model_family!r}")
 
 

@@ -6108,7 +6108,8 @@ def main() -> None:
              "--train-only": "chip_smoke_train.json",
              "--parallel-only": "chip_smoke_parallel.json",
              "--quad-only": "chip_smoke_quad.json",
-             "--lowerings-only": "chip_smoke_lowerings.json"}
+             "--lowerings-only": "chip_smoke_lowerings.json",
+             "--rtdetr-only": "chip_smoke_rtdetr.json"}
     mode = sys.argv[1] if sys.argv[1:2] and len(sys.argv) == 2 else None
     if sys.argv[1:] and mode not in modes:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
@@ -6116,7 +6117,8 @@ def main() -> None:
              "--front-ends-only for the CLI's, with --segment-only for "
              "segmentation's, with --train-only for training's, with "
              "--parallel-only for multi-GPU's, with --quad-only for the "
-             "quad stem's or with --lowerings-only for phase 16's")
+             "quad stem's, with --lowerings-only for phase 16's or with "
+             "--rtdetr-only for RT-DETR's deformable sampling kernel")
     try:
         import torch
     except ImportError as e:
@@ -6189,6 +6191,10 @@ def main() -> None:
         return
     if mode == "--lowerings-only":
         lowerings_only(torch, record, card)
+        finish(torch, record, name, modes[mode])
+        return
+    if mode == "--rtdetr-only":
+        rtdetr_only(torch, record, card)
         finish(torch, record, name, modes[mode])
         return
 
@@ -6608,6 +6614,199 @@ def main() -> None:
                                      for path, p in launches.items()}
     record["kernels"] = [kernel, clahe, epilogue, border]
     finish(torch, record, name, "chip_smoke.json")
+
+
+def msda_case(torch, shapes, b, q, heads, d, points, seed: int):
+    """value, locations (uniform over [-0.2, 1.2], with exact cell borders
+    and the maps' edges) and softmaxed weights of one sampling case."""
+    g = torch.Generator().manual_seed(seed)
+    value = torch.randn(b, sum(h * w for h, w in shapes), heads, d,
+                        generator=g)
+    loc = torch.rand(b, q, heads, len(shapes), points, 2, generator=g) \
+        * 1.4 - 0.2
+    for lvl, (h, w) in enumerate(shapes):
+        loc[0, 0, 0, lvl, 0] = torch.tensor([1.0 / w, 2.0 / h])
+        loc[0, 0, -1, lvl, -1] = torch.tensor([0.0, 1.0])
+        loc[-1, -1, 0, lvl, 0] = torch.tensor([1.0, 0.0])
+    wts = torch.softmax(torch.randn(b, q, heads, len(shapes) * points,
+                                    generator=g), -1) \
+        .view(b, q, heads, len(shapes), points)
+    return value, loc, wts
+
+
+def msda_touched(torch, shapes, loc, heads: int) -> int:
+    """(image, token, head) lines of the value map that the samples' inside
+    corners read, counted once each."""
+    b = loc.shape[0]
+    keys, start = [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        x = torch.floor(loc[:, :, :, lvl, :, 0] * w - 0.5).long()
+        y = torch.floor(loc[:, :, :, lvl, :, 1] * h - 0.5).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yy, xx = y + dy, x + dx
+                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                tok = start + yy * w + xx
+                img = torch.arange(b, device=loc.device).view(b, 1, 1, 1) \
+                    .expand_as(tok)
+                head = torch.arange(heads, device=loc.device) \
+                    .view(1, 1, heads, 1).expand_as(tok)
+                keys.append(((img * 100000 + tok) * heads + head)[ok])
+        start += h * w
+    return int(torch.unique(torch.cat(keys)).numel())
+
+
+def rtdetr_only(torch, record, card) -> None:
+    """``--rtdetr-only``: RT-DETR's deformable sampling kernel
+    (``csrc/ms_deform_attn.cu``) against its plain version on edge cases
+    and on the six launches of one scan batch of the benchmark's seeded
+    RT-DETR-R50 (``benchmark/configs/rtdetr-r50vd.json``), its device time,
+    bound and plain time there, and the share of the value map its samples
+    read; then the bf16 step at the scan's batch, timed and profiled, its
+    launches counted."""
+    import numpy as np
+    from aerial_image_recognition_tpu_torch.kernels.build import (
+        build_all, build_log)
+    from aerial_image_recognition_tpu_torch.models import rtdetr
+    from aerial_image_recognition_tpu_torch.models.registry import (
+        create_model)
+    from aerial_image_recognition_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn, ms_deform_attn_plain)
+    from aerial_image_recognition_tpu_torch.pipeline.inference import (
+        build_detect_step)
+    from aerial_image_recognition_tpu_torch.runtime.config import (
+        DetectorConfig)
+    from benchmark.lib import registry as bench_registry
+    from benchmark.lib import tiles as bench_tiles
+    from benchmark.lib import weights as bench_weights
+    t0 = time.perf_counter()
+    build_all(["ms_deform_attn"])
+    record["msda_build_s"] = time.perf_counter() - t0
+    record["msda_ptxas"] = [ln.strip() for ln in build_log(
+        "ms_deform_attn").splitlines() if "registers" in ln
+        or "spill" in ln]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cases = []
+    for k, (shapes, b, q, heads, d, points) in enumerate([
+            ([(6, 8), (3, 4), (2, 2)], 2, 5, 2, 32, 3),
+            ([(80, 80), (40, 40), (20, 20)], 2, 300, 8, 32, 4),
+            ([(7, 5)], 3, 9, 3, 40, 2)]):
+        value, loc, wts = msda_case(torch, shapes, b, q, heads, d, points, k)
+        got = ms_deform_attn(value.to(dev), shapes, loc.to(dev),
+                             wts.to(dev)).cpu().double()
+        want = ms_deform_attn_plain(value.double(), shapes, loc.double(),
+                                    wts.double())
+        err = float((got - want).abs().max() / want.abs().max())
+        cases.append({"shapes": shapes, "batch": b, "queries": q,
+                      "heads": heads, "head_dim": d, "points": points,
+                      "rel_err_vs_f64": err})
+        if err > 1e-5:
+            fail(f"ms_deform_attn case {k}: {err:.3e} of the largest output "
+                 "from the f64 plain version")
+    record["msda_cases"] = cases
+
+    cfg = json.load(open(os.path.join(ROOT, "benchmark", "configs",
+                                      "rtdetr-r50vd.json")))
+    family = bench_registry.family(cfg["reference"])
+    rng = np.random.default_rng(22)
+    images, _ = bench_tiles.render_tiles(rng, B, SIZE)
+    bounds = np.tile(np.asarray([[21.0, 52.2, 21.0047, 52.2029]]), (B, 1))
+    _, tree = bench_weights.make(cfg, family, 2200000022, dev, ROOT, images)
+    bundle = create_model("rtdetr_r50vd", variables=tree,
+                          dtype=torch.bfloat16, device=dev, fold_bn=True)
+    step = build_detect_step(DetectorConfig(
+        model_path="rtdetr_r50vd", model_family="rtdetr", num_classes=2,
+        dtype="bfloat16", max_detections_per_tile=256), bundle=bundle,
+        batch=B, device=dev)
+    seen = []
+    real = rtdetr.ms_deform_attn
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+    rtdetr.ms_deform_attn = keep
+    try:
+        before = ms_deform_attn.launches
+        out = step(images, bounds)
+        torch.cuda.synchronize()
+        per_step = ms_deform_attn.launches - before
+    finally:
+        rtdetr.ms_deform_attn = real
+    if per_step != 6 or len(seen) != 6:
+        fail(f"one step launched ms_deform_attn {per_step} times, "
+             f"not 6")
+    layers = []
+    for i, (value, shapes, loc, wts) in enumerate(seen):
+        got = ms_deform_attn(value, shapes, loc, wts)
+        want = ms_deform_attn_plain(value.double(), shapes, loc.double(),
+                                    wts.double())
+        err = float((got.double() - want).abs().max()
+                    / want.abs().max())
+        heads = value.shape[2]
+        touched = msda_touched(torch, shapes, loc, heads)
+        layers.append({"layer": i, "rel_err_vs_f64": err,
+                       "lines_touched": touched,
+                       "lines_share": touched / (value.shape[0]
+                                                 * value.shape[1] * heads),
+                       "loc_min": float(loc.min()),
+                       "loc_max": float(loc.max())})
+        if err > 1e-5:
+            fail(f"ms_deform_attn on layer {i}'s launch: {err:.3e}")
+    value, shapes, loc, wts = seen[-1]
+    args = (value, shapes, loc, wts)
+    ms, events = kernel_ms(torch, lambda: ms_deform_attn(*args), 50,
+                           "ms_deform_attn")
+    plain = cuda_ms(lambda: ms_deform_attn_plain(*args), 5, warmup=1)
+    b, n_tok, heads, d = value.shape
+    q, points = loc.shape[1], loc.shape[4]
+    samples = b * q * heads * len(shapes) * points
+    side = 4 * (3 * samples + b * q * heads * d)
+    whole = side + 4 * b * n_tok * heads * d
+    read = side + 4 * d * layers[-1]["lines_touched"]
+    flops = samples * (9 * d + 14)
+    kern = {"name": "ms_deform_attn", "batch": b, "tokens": n_tok,
+            "queries": q, "heads": heads, "head_dim": d, "points": points,
+            "levels": [list(s) for s in shapes], "ms": ms,
+            "events_ms": events, "plain_ms": plain,
+            "bytes_value_map_once": whole, "bytes_lines_touched": read,
+            "flops": flops,
+            "bound_ms_value_map_once": max(whole / HBM_BYTES_S,
+                                           flops / F32_FLOPS) * 1e3,
+            "bound_ms_lines_touched": max(read / HBM_BYTES_S,
+                                          flops / F32_FLOPS) * 1e3,
+            "layers": layers, "ptxas": record["msda_ptxas"]}
+    record["kernels"] = [kern]
+    print(f"ms_deform_attn: equal to the f64 plain version to "
+          f"{max(c['rel_err_vs_f64'] for c in cases):.2e} on "
+          f"{len(cases)} cases and to "
+          f"{max(r['rel_err_vs_f64'] for r in layers):.2e} on one step's 6 "
+          f"launches; {ms:.4f} ms device time at B={b}, {n_tok} tokens, "
+          f"Q={q} (events {events:.4f} ms; plain {plain:.3f} ms); bound "
+          f"{kern['bound_ms_value_map_once']:.4f} ms with the value map "
+          f"read once, {kern['bound_ms_lines_touched']:.4f} ms with the "
+          f"{layers[-1]['lines_share']:.3f} of its lines the samples read; "
+          f"ptxas: {' | '.join(record['msda_ptxas'])} [{card}]", flush=True)
+
+    dev_images = torch.from_numpy(images).to(dev)
+    dev_bounds = torch.from_numpy(bounds).to(dev)
+    _, step_ms = timed_steps(torch, step, dev_images, dev_bounds, 10)
+    prof = profile_calls(torch, lambda: step(dev_images, dev_bounds), 3)
+    det = out[0]
+    record["rtdetr_step"] = {
+        "batch": B, "size": SIZE, "dtype": "bfloat16", "step_ms": step_ms,
+        "tiles_per_s": B / step_ms * 1e3,
+        "detections": int(det.valid.sum()),
+        "msda_launches_per_step": per_step,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": prof}
+    print(f"rtdetr step: {step_ms:.2f} ms a batch of {B} at {SIZE} px "
+          f"(bf16 trunk), {B / step_ms * 1e3:.1f} tiles/s, "
+          f"{int(det.valid.sum())} detections, {per_step} kernel launches; "
+          f"top device ops "
+          f"{[(r['name'][:40], round(r['ms_per_step'], 3)) for r in prof.get('top', [])[:6]]} "
+          f"[{card}]", flush=True)
 
 
 def finish(torch, record, name, filename) -> None:

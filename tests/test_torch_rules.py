@@ -290,6 +290,15 @@ def test_unported_options_raise(tmp_path):
     qx = quantize_bundle(xunet, [np.zeros((1, 64, 64, 3), np.uint8)],
                          model_size=64)
     assert type(qx).__name__ == "Int8XUnetBundle"
+    # RT-DETR has no int8 lowering: its step refuses quantize="int8", with
+    # or without a saved calibration, instead of self-calibrating
+    rt = create_model("rtdetr_r50vd", device="cpu", dtype=torch.float32)
+    for extra in ({"quantize": "int8"},
+                  {"quantize": "int8", "quantize_calib": "absmax.json"}):
+        with pytest.raises(NotImplementedError, match="rtdetr"):
+            build_detect_step(DetectorConfig(
+                model_path="rtdetr_r50vd", model_family="rtdetr",
+                num_classes=2, extra=extra), bundle=rt, device="cpu")
 
 
 @pytest.mark.parametrize("flag", [2, True])
