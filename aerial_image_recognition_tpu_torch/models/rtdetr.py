@@ -12,7 +12,9 @@ are left out. The published widths are the defaults below
 * backbone: ResNet-50-vd, a deep stem (3x3 convs of 32, 32, 64, the first
   of stride 2, then a 3x3 stride-2 max pool), bottleneck stages of 256,
   512, 1024 and 2048 channels and depths 3, 4, 6, 3, the stride on the
-  3x3, average-pooled shortcuts where a stage halves the map; ReLU;
+  3x3, average-pooled shortcuts where a stage halves the map; ReLU (at
+  the residual joins in place, ``ops/residual_relu``, where autograd
+  records nothing);
 * hybrid encoder: the stride-8/16/32 maps projected to 256 channels, one
   post-norm transformer layer (AIFI: 8 heads, FFN 1024, GELU, 2-D sin-cos
   positions at temperature 10000) on the stride-32 map, then the CCFM
@@ -49,6 +51,8 @@ from aerial_image_recognition_tpu_torch.models.layers import (
     ConvBN, upsample2)
 from aerial_image_recognition_tpu_torch.ops.ms_deform_attn import (
     ms_deform_attn)
+from aerial_image_recognition_tpu_torch.ops.residual_relu import (
+    residual_relu)
 from aerial_image_recognition_tpu_torch.runtime.observability import Tracer
 
 # the published configuration (transformers' RTDetrConfig defaults)
@@ -95,7 +99,14 @@ class MLP(nn.Module):
 class Bottleneck(nn.Module):
     """ResNet-vd bottleneck: 1x1, 3x3 (the stride), 1x1 without activation,
     the shortcut added, then ReLU. A stride-2 block average-pools its
-    shortcut before the projection (the "d" of vd)."""
+    shortcut before the projection (the "d" of vd).
+
+    Where autograd records nothing (the detect step runs under inference
+    mode), the join is ``ops/residual_relu``: the add and the ReLU in one
+    pass in place into the last conv's output, so the block holds x, y and
+    s and not also their sum and its ReLU (at the first stage, batch 64 and
+    640 px, two maps of 839 MB: the forward pass's memory peak). Where
+    autograd records, it stays ``F.relu(y + s)``, which back-propagates."""
 
     def __init__(self, c_in: int, c_out: int, stride: int, eps: float):
         super().__init__()
@@ -114,7 +125,9 @@ class Bottleneck(nn.Module):
             s = F.avg_pool2d(s, 2, 2, ceil_mode=True)
         if self.short is not None:
             s = self.short(s)
-        return F.relu(y + s)
+        if torch.is_grad_enabled() and (y.requires_grad or s.requires_grad):
+            return F.relu(y + s)
+        return residual_relu(y, s)
 
 
 class Stage(nn.Module):

@@ -6118,7 +6118,7 @@ def main() -> None:
              "segmentation's, with --train-only for training's, with "
              "--parallel-only for multi-GPU's, with --quad-only for the "
              "quad stem's, with --lowerings-only for phase 16's or with "
-             "--rtdetr-only for RT-DETR's deformable sampling kernel")
+             "--rtdetr-only for RT-DETR's kernels")
     try:
         import torch
     except ImportError as e:
@@ -6656,14 +6656,91 @@ def msda_touched(torch, shapes, loc, heads: int) -> int:
     return int(torch.unique(torch.cat(keys)).numel())
 
 
+def check_residual_relu(torch, card, dev) -> dict:
+    """RT-DETR's residual join (``csrc/residual_relu.cu``): bit-equal to
+    ``F.relu(y + s)`` on the card and to the plain version on the CPU, in
+    bf16 and f32, channels_last and contiguous, with a ragged length; then
+    at the first stage's join, [64, 256, 160, 160] bf16 channels_last: its
+    device time, its bound by bytes (y and s read once, y written once),
+    the plain version's time and ``F.relu(y + s)``'s, both on the card."""
+    import torch.nn.functional as F
+    from aerial_image_recognition_tpu_torch.kernels.build import build_log
+    from aerial_image_recognition_tpu_torch.ops.residual_relu import (
+        residual_relu, residual_relu_plain)
+
+    def bits(t):
+        return t.contiguous().view(
+            torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    cases = []
+    for k, (shape, dtype, fmt) in enumerate([
+            ((64, 256, 40, 40), torch.bfloat16, torch.channels_last),
+            ((64, 256, 40, 40), torch.float32, torch.channels_last),
+            ((3, 5, 7, 9), torch.bfloat16, torch.contiguous_format),
+            ((3, 5, 7, 9), torch.float32, torch.channels_last),
+            ((1, 1, 1, 7), torch.bfloat16, torch.contiguous_format)]):
+        g = torch.Generator().manual_seed(230 + k)
+        y = (torch.randn(shape, generator=g) * 3).to(dtype) \
+            .contiguous(memory_format=fmt)
+        s = (torch.randn(shape, generator=g) * 3).to(dtype) \
+            .contiguous(memory_format=fmt)
+        plain = residual_relu_plain(y.clone(), s)
+        yc, sc = y.to(dev), s.to(dev)
+        on_card = F.relu(yc + sc)
+        got = residual_relu(yc, sc)
+        same_card = torch.equal(bits(got), bits(on_card))
+        same_plain = torch.equal(bits(got.cpu()), bits(plain))
+        cases.append({"shape": list(shape), "dtype": str(dtype),
+                      "format": str(fmt), "equal_to_composite_on_card":
+                      same_card, "equal_to_plain_on_cpu": same_plain})
+        if not (same_card and same_plain):
+            fail(f"residual_relu case {k} {shape} {dtype} {fmt}: bits "
+                 f"differ (card composite {same_card}, CPU plain "
+                 f"{same_plain})")
+    shape = (64, 256, 160, 160)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    y = torch.randn(shape, device=dev, generator=gen, dtype=torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    s = torch.randn(shape, device=dev, generator=gen, dtype=torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    want = F.relu(y + s)
+    got = residual_relu(y.clone(), s)
+    if not torch.equal(bits(got), bits(want)):
+        fail("residual_relu at [64, 256, 160, 160] bf16: bits differ from "
+             "F.relu(y + s) on the card")
+    del got, want
+    ms, events = kernel_ms(torch, lambda: residual_relu(y, s), 50,
+                           "residual_relu")
+    plain = cuda_ms(lambda: residual_relu_plain(y, s), 10)
+    composite = cuda_ms(lambda: F.relu(y + s), 10)
+    nbytes = 3 * y.numel() * y.element_size()
+    bound = nbytes / HBM_BYTES_S * 1e3
+    kern = {"name": "residual_relu", "shape": list(shape),
+            "dtype": "bfloat16", "format": "channels_last", "ms": ms,
+            "events_ms": events, "plain_ms": plain,
+            "library_ms": composite, "bytes": nbytes, "bound_ms": bound,
+            "bound_by": "bytes", "roofline_share": bound / ms,
+            "cases": cases, "ptxas": [ln.strip() for ln in build_log(
+                "residual_relu").splitlines() if "registers" in ln
+                or "spill" in ln]}
+    print(f"residual_relu: bit-equal to F.relu(y + s) on the card and to "
+          f"the plain version on the CPU on {len(cases) + 1} cases; "
+          f"{ms:.4f} ms device time at {list(shape)} bf16 (events "
+          f"{events:.4f} ms), bound {bound:.4f} ms by bytes "
+          f"({nbytes / 1e9:.4f} GB), {100 * bound / ms:.1f} % of it; plain "
+          f"{plain:.4f} ms, F.relu(y + s) {composite:.4f} ms; ptxas: "
+          f"{' | '.join(kern['ptxas'])} [{card}]", flush=True)
+    return kern
+
+
 def rtdetr_only(torch, record, card) -> None:
     """``--rtdetr-only``: RT-DETR's deformable sampling kernel
     (``csrc/ms_deform_attn.cu``) against its plain version on edge cases
     and on the six launches of one scan batch of the benchmark's seeded
     RT-DETR-R50 (``benchmark/configs/rtdetr-r50vd.json``), its device time,
     bound and plain time there, and the share of the value map its samples
-    read; then the bf16 step at the scan's batch, timed and profiled, its
-    launches counted."""
+    read; the residual join's kernel (``check_residual_relu``); then the
+    bf16 step at the scan's batch, timed and profiled, both kernels'
+    launches counted, its memory peak above what it found allocated."""
     import numpy as np
     from aerial_image_recognition_tpu_torch.kernels.build import (
         build_all, build_log)
@@ -6672,6 +6749,8 @@ def rtdetr_only(torch, record, card) -> None:
         create_model)
     from aerial_image_recognition_tpu_torch.ops.ms_deform_attn import (
         ms_deform_attn, ms_deform_attn_plain)
+    from aerial_image_recognition_tpu_torch.ops.residual_relu import (
+        residual_relu)
     from aerial_image_recognition_tpu_torch.pipeline.inference import (
         build_detect_step)
     from aerial_image_recognition_tpu_torch.runtime.config import (
@@ -6680,7 +6759,7 @@ def rtdetr_only(torch, record, card) -> None:
     from benchmark.lib import tiles as bench_tiles
     from benchmark.lib import weights as bench_weights
     t0 = time.perf_counter()
-    build_all(["ms_deform_attn"])
+    build_all(["ms_deform_attn", "residual_relu"])
     record["msda_build_s"] = time.perf_counter() - t0
     record["msda_ptxas"] = [ln.strip() for ln in build_log(
         "ms_deform_attn").splitlines() if "registers" in ln
@@ -6729,14 +6808,20 @@ def rtdetr_only(torch, record, card) -> None:
     rtdetr.ms_deform_attn = keep
     try:
         before = ms_deform_attn.launches
+        joins = residual_relu.launches
         out = step(images, bounds)
         torch.cuda.synchronize()
         per_step = ms_deform_attn.launches - before
+        joins = residual_relu.launches - joins
     finally:
         rtdetr.ms_deform_attn = real
     if per_step != 6 or len(seen) != 6:
         fail(f"one step launched ms_deform_attn {per_step} times, "
              f"not 6")
+    blocks = sum(bundle.module.config["depths"])
+    if joins != blocks:
+        fail(f"one step launched residual_relu {joins} times, not one a "
+             f"bottleneck ({blocks})")
     layers = []
     for i, (value, shapes, loc, wts) in enumerate(seen):
         got = ms_deform_attn(value, shapes, loc, wts)
@@ -6777,7 +6862,7 @@ def rtdetr_only(torch, record, card) -> None:
             "bound_ms_lines_touched": max(read / HBM_BYTES_S,
                                           flops / F32_FLOPS) * 1e3,
             "layers": layers, "ptxas": record["msda_ptxas"]}
-    record["kernels"] = [kern]
+    record["kernels"] = [kern, check_residual_relu(torch, card, dev)]
     print(f"ms_deform_attn: equal to the f64 plain version to "
           f"{max(c['rel_err_vs_f64'] for c in cases):.2e} on "
           f"{len(cases)} cases and to "
@@ -6792,6 +6877,12 @@ def rtdetr_only(torch, record, card) -> None:
     dev_images = torch.from_numpy(images).to(dev)
     dev_bounds = torch.from_numpy(bounds).to(dev)
     _, step_ms = timed_steps(torch, step, dev_images, dev_bounds, 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step(dev_images, dev_bounds)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - held
     prof = profile_calls(torch, lambda: step(dev_images, dev_bounds), 3)
     det = out[0]
     record["rtdetr_step"] = {
@@ -6799,12 +6890,15 @@ def rtdetr_only(torch, record, card) -> None:
         "tiles_per_s": B / step_ms * 1e3,
         "detections": int(det.valid.sum()),
         "msda_launches_per_step": per_step,
+        "residual_relu_launches_per_step": joins,
+        "step_peak_bytes_above_held": step_peak,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": prof}
     print(f"rtdetr step: {step_ms:.2f} ms a batch of {B} at {SIZE} px "
           f"(bf16 trunk), {B / step_ms * 1e3:.1f} tiles/s, "
-          f"{int(det.valid.sum())} detections, {per_step} kernel launches; "
-          f"top device ops "
+          f"{int(det.valid.sum())} detections, {per_step} ms_deform_attn "
+          f"and {joins} residual_relu launches, peak {step_peak} B above "
+          f"the {held} B held; top device ops "
           f"{[(r['name'][:40], round(r['ms_per_step'], 3)) for r in prof.get('top', [])[:6]]} "
           f"[{card}]", flush=True)
 
