@@ -304,10 +304,9 @@ def torch_state_from_variables(variables: Dict[str, Any],
     family."""
     from aerial_image_recognition_tpu_torch.models.registry import (
         REGISTRY, resolve_model_name)
-    name = resolve_model_name(model_name)
-    spec = REGISTRY[name]
+    spec = REGISTRY[resolve_model_name(model_name)]
     if spec.family == "yolov7":
-        if name == "yolov7_base":
+        if spec.arch == "base":
             out = export_torch_state(variables, yolov7_base_mapping())
             out.update(yolov7_detect_to_torch(
                 variables, detect_idx=_V7_BASE_DETECT_IDX))
@@ -316,11 +315,10 @@ def torch_state_from_variables(variables: Dict[str, Any],
             out.update(yolov7_detect_to_torch(variables))
         return out
     if spec.family == "yolov8":
-        scale = "l" if name == "yolov8_tokyo" else name[-1]
         return export_torch_state(variables,
-                                  yolov8_mapping(yolov8_n_c2f(scale)))
+                                  yolov8_mapping(yolov8_n_c2f(spec.arch)))
     raise KeyError(f"no torch export mapping for model family "
-                   f"{spec.family!r} ({name})")
+                   f"{spec.family!r} ({spec.name})")
 
 
 def yolov8_n_c2f(scale: str) -> Dict[str, int]:
@@ -341,14 +339,13 @@ def layer_index_prefixes(model_name: str) -> Dict[int, List[str]]:
     entry."""
     from aerial_image_recognition_tpu_torch.models.registry import (
         REGISTRY, resolve_model_name)
-    name = resolve_model_name(model_name)
-    family = REGISTRY[name].family
+    spec = REGISTRY[resolve_model_name(model_name)]
     out: Dict[int, List[str]] = {}
-    if family == "yolov7":
-        table = _V7_BASE_CONVBN if name == "yolov7_base" else _V7_TINY_CONVBN
-        for idx, mod in table:
+    if spec.family == "yolov7":
+        base = spec.arch == "base"
+        for idx, mod in _V7_BASE_CONVBN if base else _V7_TINY_CONVBN:
             out.setdefault(idx, []).append(mod)
-        if name == "yolov7_base":
+        if base:
             out[_V7_BASE_SPPCSPC_IDX] = ["sppcspc"]
             for idx, mod in _V7_BASE_REPCONV:
                 out[idx] = [mod]
@@ -357,13 +354,13 @@ def layer_index_prefixes(model_name: str) -> Dict[int, List[str]]:
             detect_idx = _V7_TINY_DETECT_IDX
         out[detect_idx] = ["detect0", "detect1", "detect2"]
         return out
-    if family == "yolov8":
+    if spec.family == "yolov8":
         for tp, mod in _v8_module_names({}):
             out[int(tp.split(".")[1])] = [mod]
         out[22] = ["detect"]
         return out
-    raise KeyError(f"no upstream layer-index table for family {family!r} "
-                   f"({name})")
+    raise KeyError(f"no upstream layer-index table for family "
+                   f"{spec.family!r} ({spec.name})")
 
 
 def variables_from_torch_state(state_dict: Dict[str, np.ndarray],
@@ -376,10 +373,9 @@ def variables_from_torch_state(state_dict: Dict[str, np.ndarray],
     ``models/weights.load_flax_into`` takes the tree it returns."""
     from aerial_image_recognition_tpu_torch.models.registry import (
         REGISTRY, resolve_model_name)
-    name = resolve_model_name(model_name)
-    spec = REGISTRY[name]
+    spec = REGISTRY[resolve_model_name(model_name)]
     if spec.family == "yolov7":
-        if name == "yolov7_base":
+        if spec.arch == "base":
             variables = import_torch_state(state_dict, yolov7_base_mapping())
             return yolov7_detect_from_torch(state_dict, variables,
                                             detect_idx=_V7_BASE_DETECT_IDX)
@@ -387,13 +383,12 @@ def variables_from_torch_state(state_dict: Dict[str, np.ndarray],
         return yolov7_detect_from_torch(state_dict, variables,
                                         detect_idx=_V7_TINY_DETECT_IDX)
     if spec.family == "yolov8":
-        scale = "l" if name == "yolov8_tokyo" else name[-1]
         return import_torch_state(state_dict,
-                                  yolov8_mapping(yolov8_n_c2f(scale)))
+                                  yolov8_mapping(yolov8_n_c2f(spec.arch)))
     if spec.family == "rtdetr":
         return rtdetr_from_transformers(state_dict)
     raise KeyError(f"no torch import mapping for model family "
-                   f"{spec.family!r} ({name})")
+                   f"{spec.family!r} ({spec.name})")
 
 
 # RT-DETR (transformers' RTDetrForObjectDetection names) → the port's

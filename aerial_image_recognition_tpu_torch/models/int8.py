@@ -69,7 +69,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
+from aerial_image_recognition_tpu_torch.models.yolov8 import YOLOv8
 from aerial_image_recognition_tpu_torch.ops.int8_kernel import requantize
+from aerial_image_recognition_tpu_torch.ops.quadstem import QuadStemEntry
 
 # ---------------------------------------------------------------------------
 # numpy half: weight quantization and the shared trunk graph
@@ -408,22 +411,6 @@ def _prune_orig(variables, keep):
                         variables.get("batch_stats", {}).items()
                         if k in keep and k != "detect"},
     }
-
-
-def _family_meta(spec, arch: str):
-    """Stem scopes / strides / activation / BN eps per family; ``arch`` is
-    the yolov7 variant ('tiny', 'base') or the yolov8 scale."""
-    if spec.family == "yolov8":
-        return {"stems": ("stem", "down2"), "act": "silu", "bn_eps": 1e-3,
-                "strides": (2, 2)}
-    if spec.family != "yolov7":
-        raise NotImplementedError(
-            f"no int8 detector lowering for the {spec.family} family")
-    if arch == "base":
-        return {"stems": ("stem0", "stem1", "stem2", "stem3"),
-                "act": "silu", "bn_eps": 1e-5, "strides": (1, 2, 1, 2)}
-    return {"stems": ("stem0", "stem1"), "act": "leaky", "bn_eps": 1e-5,
-            "strides": (2, 2)}
 
 
 def _arch_of(spec, params) -> str:
@@ -773,21 +760,25 @@ def _stems_int8(sq, xq: torch.Tensor, act: str = "leaky") -> torch.Tensor:
 
 class _Ends(nn.Module):
     """What a quantized detector keeps in floating point: its stem ConvBNs
-    (tiny: stem0–1; base: stem0–3, strides 1, 2, 1, 2; yolov8: stem and
-    down2) and its f32 heads (yolov7: detect0–2; yolov8:
-    ``detect.{box,cls}{i}_out``). Built from the shapes of the pruned flax
-    tree, with the submodule names of the full model, so the weight bridge
-    loads that tree."""
+    (the model class's ``stem_table``) and its f32 heads (yolov7:
+    detect0–2; yolov8: ``detect.{box,cls}{i}_out``). Built from the shapes
+    of the flax tree, with the submodule names of the full model, so the
+    weight bridge loads the pruned tree. The model class lends it its
+    ``decode`` (and yolov7 its ``anchors``), over this module's variant or
+    scale and class count."""
 
-    def __init__(self, family: str, arch: str, tree, meta):
+    anchors = YOLOv7.anchors
+
+    def __init__(self, family: str, arch: str, num_classes: int, tree):
         super().__init__()
         from aerial_image_recognition_tpu_torch.models.layers import ConvBN
         self.family = family
-        self.stem_names = meta["stems"]
+        self.num_classes = num_classes
         if family == "yolov8":
-            self.scale = arch
+            self.model_cls, self.scale = YOLOv8, arch
         else:
-            self.variant = arch
+            self.model_cls, self.variant = YOLOv7, arch
+        self.stem_table = meta = self.model_cls.STEM_TABLES[arch]
         p = tree["params"]
         for name, stride in zip(meta["stems"], meta["strides"]):
             kh, _, c_in, c_out = np.shape(p[name]["conv"]["kernel"])
@@ -809,11 +800,9 @@ class _Ends(nn.Module):
             for i in range(3):
                 setattr(self, f"detect{i}", linear(p[f"detect{i}"]))
 
-    @property
-    def anchors(self):
-        from aerial_image_recognition_tpu_torch.models.yolov7 import (
-            ANCHORS_BASE, ANCHORS_TINY)
-        return ANCHORS_BASE if self.variant == "base" else ANCHORS_TINY
+    def decode(self, outs: List[torch.Tensor], size: Optional[int] = None):
+        """The model class's ``decode`` of the three raw maps."""
+        return self.model_cls.decode(self, outs, size)
 
     def heads(self) -> List[nn.Linear]:
         """yolov7: the three detect heads; yolov8: the six output convs,
@@ -824,7 +813,7 @@ class _Ends(nn.Module):
 
     def stems(self, x: torch.Tensor) -> torch.Tensor:
         """x [B,3,S,S] → the P2 feature [B,C,S/4,S/4]."""
-        for name in self.stem_names:
+        for name in self.stem_table["stems"]:
             x = getattr(self, name)(x)
         return x
 
@@ -836,7 +825,7 @@ def _module_dtype(module: nn.Module) -> torch.dtype:
 
 
 @dataclass
-class Int8Bundle:
+class Int8Bundle(QuadStemEntry):
     """Drop-in for ``models.registry.ModelBundle`` (same ``forward``
     contract) with the detector trunk quantized (yolov7-tiny, yolov7-base
     or yolov8 n–x).
@@ -875,17 +864,16 @@ class Int8Bundle:
         from aerial_image_recognition_tpu_torch.models.weights import (
             load_flax_into)
         device = torch.device(device)
-        arch = _arch_of(spec, variables["params"])
-        meta = _family_meta(spec, arch)
-        keep = set(meta["stems"]) | {"detect", "detect0", "detect1",
-                                     "detect2"}
-        orig = _prune_orig(variables, keep)
-        module = _Ends(spec.family, arch, orig, meta)
+        module = _Ends(spec.family, _arch_of(spec, variables["params"]),
+                       spec.num_classes, variables)
+        stems = module.stem_table["stems"]
+        orig = _prune_orig(variables, set(stems) | {
+            "detect", "detect0", "detect1", "detect2"})
         load_flax_into(module, orig)
         module.eval()
         fold_batchnorm(module)
         module.requires_grad_(False)
-        for name in meta["stems"]:
+        for name in stems:
             getattr(module, name).to(dtype)
         module.to(device=device, memory_format=torch.channels_last)
 
@@ -900,17 +888,6 @@ class Int8Bundle:
         return cls(spec=spec, module=module, device=device, q=dq,
                    params={"orig": orig, "q": host_q}, static_scales=scales,
                    absmax=None if absmax is None else dict(absmax))
-
-    def _s2d2_meta(self) -> Optional[Dict]:
-        from aerial_image_recognition_tpu_torch.ops.quadstem import stem_meta
-        return stem_meta(self.spec.family,
-                         getattr(self.module, "variant", ""))
-
-    def supports_s2d2(self) -> bool:
-        """The standard stems of yolov7-tiny and yolov8 by construction;
-        yolov7-base's four-conv stem (strides 1, 2, 1, 2) has no quad-stem
-        lowering."""
-        return self._s2d2_meta() is not None
 
     def to(self, device) -> "Int8Bundle":
         """A replica on ``device`` (a data-parallel shard's) carrying only
@@ -954,9 +931,8 @@ class Int8Bundle:
 
     @property
     def act(self) -> str:
-        """The trunk's activation: leaky for yolov7-tiny, else silu."""
-        return "leaky" if getattr(self.module, "variant", "") == "tiny" \
-            else "silu"
+        """The trunk's activation, its stems' (the stem table's)."""
+        return self.module.stem_table["act"]
 
     def _raw_from_p2_i8(self, p2_i8: torch.Tensor) -> List[torch.Tensor]:
         """int8 trunk + f32 heads → the three raw NHWC maps."""
@@ -985,13 +961,9 @@ class Int8Bundle:
                 for o, sc, head in zip(taps, self.q["out_scales"], heads)]
 
     def decode(self, outs: List[torch.Tensor]):
-        """The three raw maps → (boxes, scores), by family."""
-        from aerial_image_recognition_tpu_torch.ops.decode import (
-            decode_yolov7, decode_yolov8)
-        if self.spec.family == "yolov8":
-            return decode_yolov8(outs, self.spec.num_classes)
-        return decode_yolov7(outs, self.module.anchors,
-                             self.spec.num_classes)
+        """The three raw maps → (boxes, scores): the model class's
+        decode."""
+        return self.module.decode(outs)
 
     def forward(self, images: torch.Tensor):
         """images [B,3,S,S] (/255, any float dtype) → (boxes [B,A,4] cxcywh
@@ -999,18 +971,9 @@ class Int8Bundle:
         p2 = self.module.stems(images.to(_module_dtype(self.module)))
         return self.decode(self._raw_from_p2_i8(self._p2_quantize(p2)))
 
-    def quad_stem(self):
-        """The float quad stem over the pruned tree's stems, in the stems'
-        dtype on this bundle's device, built once."""
-        if self.quad is None:
-            from aerial_image_recognition_tpu_torch.ops.quadstem import (
-                QuadStem)
-            meta = self._s2d2_meta()
-            self.quad = QuadStem.from_variables(
-                self.params["orig"], stem_names=meta["stems"],
-                act=meta["act"], bn_eps=meta["bn_eps"],
-                dtype=_module_dtype(self.module), device=self.device)
-        return self.quad
+    def stem_variables(self) -> Dict:
+        """The tree the float quad stem is built from: the pruned one."""
+        return self.params["orig"]
 
     def forward_s2d2(self, xq: torch.Tensor, in_scale=1.0 / 255.0):
         """The quad-stem entry: xq [B,S/4,S/4,48] s2d² (``ops/quadstem``)
@@ -1249,15 +1212,16 @@ def quantize_bundle(bundle, calib_batches: Sequence[Any],
         return quantize_xunet(bundle, calib_batches, model_size,
                               absmax=absmax)
     module = bundle.module
-    variant = getattr(module, "variant", "")
-    if bundle.spec.family == "yolov7" and variant == "tiny" \
-            and getattr(module, "s2d_stem", False):
+    if getattr(module, "s2d_stem", False):
         raise NotImplementedError(
             "int8 PTQ covers yolov7 tiny/base with the standard stems, "
             "yolov8 n–x, and xunet; the s2d_stem experiment keeps bf16")
+    meta = getattr(module, "stem_table", None)
+    if meta is None:
+        raise NotImplementedError(
+            f"no int8 detector lowering for {bundle.spec.name}")
     is_v8 = bundle.spec.family == "yolov8"
-    arch = module.scale if is_v8 else variant
-    meta = _family_meta(bundle.spec, arch)       # raises for other families
+    arch = module.scale if is_v8 else module.variant
     if bundle.variables is None:
         raise ValueError("quantize_bundle needs the f32 variables the "
                          "bundle was built from (bundle.variables)")
@@ -1276,7 +1240,7 @@ def quantize_bundle(bundle, calib_batches: Sequence[Any],
     else:
         trunk = _v7base_trunk if arch == "base" else _tiny_trunk
         q["out_scales"] = [np.float32(o.s) for o in trunk(prep, p2)]
-    if arch != "base":      # base's four-conv stem has no quad stem
+    if bundle.supports_s2d2():
         q["stems"] = _quantize_stems(
             bundle.variables, absmax, bn_eps=meta["bn_eps"],
             stem_names=meta["stems"], act=meta["act"])

@@ -1,4 +1,4 @@
-"""Model registry: name → (module, decode, input contract).
+"""Model registry: name → (module, input contract); the module decodes.
 
 Counterpart of ``aerial_image_recognition_tpu/models/registry.py``: every
 detector the reference registers — ``yolov7_itcvd`` (YOLOv7-tiny, nc=1),
@@ -25,31 +25,36 @@ from aerial_image_recognition_tpu_torch.models.weights import (
 from aerial_image_recognition_tpu_torch.models.xunet import XUnet
 from aerial_image_recognition_tpu_torch.models.yolov7 import YOLOv7
 from aerial_image_recognition_tpu_torch.models.yolov8 import YOLOv8
+from aerial_image_recognition_tpu_torch.ops.quadstem import QuadStemEntry
 from aerial_image_recognition_tpu_torch.runtime.device import resolve_device
 
 
 @dataclass
 class ModelSpec:
+    """A registered model. What the model computes (its decode, its stem
+    table, its detection prior, whether it ends without NMS) is asked of
+    the module ``make_module`` builds, never decided here by name."""
     name: str
     family: str                   # yolov7 | yolov8 | rtdetr | xunet
     num_classes: int
     input_size: int               # square input edge (pixels)
     make_module: Callable[[], nn.Module]
     class_names: Tuple[str, ...] = ()
+    arch: str = ""                # the yolov7 variant or yolov8 scale built
 
 
 REGISTRY: Dict[str, ModelSpec] = {
     # primary car detector: the car_aerial_detection_yolo7_ITCVD slot
     "yolov7_itcvd": ModelSpec("yolov7_itcvd", "yolov7", 1, 640,
                               lambda: YOLOv7(num_classes=1, variant="tiny"),
-                              ("car",)),
+                              ("car",), "tiny"),
     "yolov7_base": ModelSpec("yolov7_base", "yolov7", 1, 640,
                              lambda: YOLOv7(num_classes=1, variant="base"),
-                             ("car",)),
+                             ("car",), "base"),
     # the yolov8_tokyo_checkpoint slot: YOLOv8l, nc=2 {car, truck}
     "yolov8_tokyo": ModelSpec("yolov8_tokyo", "yolov8", 2, 640,
                               lambda: YOLOv8(num_classes=2, scale="l"),
-                              ("car", "truck")),
+                              ("car", "truck"), "l"),
     # RT-DETR-R50 (ResNet-50-vd), the published widths, nc=2 {car, truck}
     "rtdetr_r50vd": ModelSpec("rtdetr_r50vd", "rtdetr", 2, 640,
                               lambda: RTDETR(num_classes=2),
@@ -69,7 +74,7 @@ def _yolov8_at_scale(sc):
 for _sc in "nsmlx":
     REGISTRY[f"yolov8{_sc}"] = ModelSpec(
         f"yolov8{_sc}", "yolov8", 2, 640, _yolov8_at_scale(_sc),
-        ("car", "truck"))
+        ("car", "truck"), _sc)
 
 def resolve_model_name(model_path: str) -> str:
     """Map reference-style model names and .onnx paths to registry names."""
@@ -90,7 +95,7 @@ def resolve_model_name(model_path: str) -> str:
 
 
 @dataclass
-class ModelBundle:
+class ModelBundle(QuadStemEntry):
     """A constructed model on its device; the weights live in ``module``.
 
     ``variables`` is the f32 flax-format tree (numpy, on the host) the
@@ -106,22 +111,11 @@ class ModelBundle:
     quad: Any = field(default=None, repr=False)
 
     def forward(self, images: torch.Tensor):
-        """images [B,3,S,S] (/255, trunk dtype) → (boxes [B,A,4] cxcywh
-        pixels f32, scores [B,A,nc] f32); rtdetr: one box and the sigmoid
-        class scores a query (A = the 300 queries); xunet: mask logits
-        [B,S,S,1] f32."""
-        from aerial_image_recognition_tpu_torch.ops.decode import (
-            decode_yolov7, decode_yolov8)
-        outs = self.module(images)
-        if self.spec.family == "xunet":
-            return outs
-        if self.spec.family == "rtdetr":
-            return (outs["boxes"] * images.shape[-1],
-                    torch.sigmoid(outs["logits"]))
-        if self.spec.family == "yolov8":
-            return decode_yolov8(outs, self.spec.num_classes)
-        return decode_yolov7(outs, self.module.anchors,
-                             self.spec.num_classes)
+        """images [B,3,S,S] (/255, trunk dtype) → the module's ``decode``
+        of its outputs: (boxes [B,A,4] cxcywh pixels f32, scores [B,A,nc]
+        f32); rtdetr: one box and the sigmoid class scores a query (A = the
+        300 queries); xunet: mask logits [B,S,S,1] f32."""
+        return self.module.decode(self.module(images), images.shape[-1])
 
     def to(self, device) -> "ModelBundle":
         """A replica on ``device`` (a data-parallel shard's): a copy of the
@@ -147,68 +141,20 @@ class ModelBundle:
         return module.float().to(device=device or self.device,
                                  memory_format=torch.channels_last)
 
-    def _s2d2_meta(self) -> Optional[Dict]:
-        """The quad-stem lowering's stem scopes, activation and BN epsilon,
-        or None where it does not apply (``ops/quadstem.stem_meta``:
-        yolov7-tiny without ``s2d_stem`` and every yolov8 scale)."""
-        from aerial_image_recognition_tpu_torch.ops.quadstem import stem_meta
-        return stem_meta(self.spec.family,
-                         getattr(self.module, "variant", ""),
-                         getattr(self.module, "s2d_stem", False))
-
-    def supports_s2d2(self) -> bool:
-        """True when the quad-stem inference lowering applies."""
-        return self._s2d2_meta() is not None
-
-    def quad_stem(self):
-        """The bundle's ``QuadStem`` on its device, built once from
-        ``variables`` in the trunk's dtype."""
-        if self.quad is None:
-            from aerial_image_recognition_tpu_torch.ops.quadstem import (
-                QuadStem)
-            meta = self._s2d2_meta()
-            if meta is None:
-                raise ValueError(f"no quad-stem lowering for "
-                                 f"{self.spec.name}")
-            if self.variables is None:
-                raise ValueError("the quad stem needs the f32 variables the "
-                                 "bundle was built from (bundle.variables)")
-            dtype = next(m.weight.dtype for m in self.module.modules()
-                         if isinstance(m, nn.Conv2d))
-            self.quad = QuadStem.from_variables(
-                self.variables, stem_names=meta["stems"], act=meta["act"],
-                bn_eps=meta["bn_eps"], dtype=dtype, device=self.device)
-        return self.quad
+    def stem_variables(self) -> Dict:
+        """The tree the quad stem is built from: ``variables``."""
+        if self.variables is None:
+            raise ValueError("the quad stem needs the f32 variables the "
+                             "bundle was built from (bundle.variables)")
+        return self.variables
 
     def forward_s2d2(self, xq: torch.Tensor, in_scale=1.0 / 255.0):
         """The quad-stem inference path: xq is the host-relayouted s2d²
         batch [B,S/4,S/4,48] (uint8 or float). The /255 folds into the
         stem's first conv; the trunk runs from the P2 feature
         (``from_p2``). Returns what ``forward`` returns."""
-        from aerial_image_recognition_tpu_torch.ops.decode import (
-            decode_yolov7, decode_yolov8)
         outs = self.module(self.quad_stem()(xq, in_scale), from_p2=True)
-        if self.spec.family == "yolov8":
-            return decode_yolov8(outs, self.spec.num_classes)
-        return decode_yolov7(outs, self.module.anchors,
-                             self.spec.num_classes)
-
-
-def _prior_init_detect_bias(module: nn.Module, spec: ModelSpec) -> None:
-    """Detection-prior bias init (the upstream yolo trick): objectness and
-    class logits (yolov7) or the class logits (yolov8) start at σ(−5) ≈
-    0.7 %. Only for fresh random weights; no-op for xunet and rtdetr."""
-    with torch.no_grad():
-        if spec.family in ("xunet", "rtdetr"):
-            return
-        if spec.family == "yolov8":
-            for i in range(3):
-                getattr(module.detect, f"cls{i}_out").bias[:] = -5.0
-            return
-        no = 5 + module.num_classes
-        for head in module.heads():
-            for a in range(3):
-                head.bias[a * no + 4:(a + 1) * no] = -5.0
+        return self.module.decode(outs, 4 * xq.shape[1])
 
 
 def create_model(name: str = "yolov7_itcvd", *,
@@ -241,7 +187,8 @@ def create_model(name: str = "yolov7_itcvd", *,
     if variables is not None:
         load_flax_into(module, variables)
     else:
-        _prior_init_detect_bias(module, spec)
+        if hasattr(module, "init_detect_prior"):     # the YOLO families
+            module.init_detect_prior()
         variables = params_to_flax(module)
     module.eval()
     if fold_bn:

@@ -455,6 +455,10 @@ class RTDETR(nn.Module):
     (f32), the encoder's scores over every token ``enc_scores`` [B,L,nc]
     and the selected tokens ``topk`` [B,Q]."""
 
+    # a set prediction: one box a query, finished without NMS
+    # (``pipeline/inference.make_detect_fn``)
+    nms_free = True
+
     def __init__(self, num_classes: int = 2, **overrides):
         super().__init__()
         c = dict(R50VD, **overrides)
@@ -490,4 +494,9 @@ class RTDETR(nn.Module):
         with Tracer.annotate("rtdetr.encoder"):
             feats = self.encoder(feats)
         return self.decoder(feats)
+
+    def decode(self, outs: Dict[str, torch.Tensor], size: int):
+        """``forward``'s outputs → (boxes [B,Q,4] cxcywh pixels at the input
+        edge ``size``, sigmoid class scores [B,Q,nc]), both f32."""
+        return outs["boxes"] * size, torch.sigmoid(outs["logits"])
 

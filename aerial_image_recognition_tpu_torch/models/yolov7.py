@@ -21,7 +21,7 @@ same class of error the reference hit with bf16 box arithmetic, so
 ``forward`` refuses to run the heads under anything else.
 """
 
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -245,12 +245,46 @@ class YOLOv7(nn.Module):
         self.detect1 = nn.Linear(512, no)
         self.detect2 = nn.Linear(1024, no)
 
+    # each variant's stem ConvBNs up to the P2/4 feature, in order: scopes,
+    # activation, BN epsilon and strides (the quad stem and int8 read them)
+    STEM_TABLES = {
+        "tiny": {"stems": ("stem0", "stem1"), "act": "leaky",
+                 "bn_eps": BN_EPS, "strides": (2, 2)},
+        "base": {"stems": ("stem0", "stem1", "stem2", "stem3"),
+                 "act": "silu", "bn_eps": BN_EPS, "strides": (1, 2, 1, 2)},
+    }
+
     @property
     def anchors(self):
         return ANCHORS_TINY if self.variant == "tiny" else ANCHORS_BASE
 
+    @property
+    def stem_table(self) -> Dict:
+        """This variant's entry of ``STEM_TABLES``; with ``s2d_stem``,
+        stem0 runs at stride 1 on the space-to-depth input."""
+        table = self.STEM_TABLES[self.variant]
+        return dict(table, strides=(1, 2)) if self.s2d_stem else table
+
     def heads(self) -> List[nn.Linear]:
         return [self.detect0, self.detect1, self.detect2]
+
+    @torch.no_grad()
+    def init_detect_prior(self) -> None:
+        """Detection-prior bias init (the upstream yolo trick) for fresh
+        random weights: objectness and class logits start at σ(−5) ≈
+        0.7 %."""
+        no = 5 + self.num_classes
+        for head in self.heads():
+            for a in range(3):
+                head.bias[a * no + 4:(a + 1) * no] = -5.0
+
+    def decode(self, outs: List[torch.Tensor], size: Optional[int] = None):
+        """The three raw maps → (boxes [B,A,4] cxcywh pixels f32, scores
+        [B,A,nc] f32). The maps carry the input edge, so ``size`` is not
+        read."""
+        from aerial_image_recognition_tpu_torch.ops.decode import (
+            decode_yolov7)
+        return decode_yolov7(outs, self.anchors, self.num_classes)
 
     def set_dtype(self, dtype: torch.dtype) -> "YOLOv7":
         """Cast the trunk to ``dtype``; the detect heads stay f32."""

@@ -15,7 +15,7 @@ channel axis of NHWC maps, like the yolov7 heads, and for the same reason
 ``forward`` refuses to run them on the card under TF32.
 """
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -166,8 +166,33 @@ class YOLOv8(nn.Module):
         self.pan5 = C2f(c4 + c5, c5, n3, False)
         self.detect = DetectHead(num_classes, (c3, c4, c5))
 
+    # every scale's stem ConvBNs up to the P2/4 feature, in order: scopes,
+    # activation, BN epsilon and strides (the quad stem and int8 read them)
+    STEM_TABLES = dict.fromkeys(SCALES, {
+        "stems": ("stem", "down2"), "act": "silu", "bn_eps": 1e-3,
+        "strides": (2, 2)})
+
+    @property
+    def stem_table(self) -> Dict:
+        return self.STEM_TABLES[self.scale]
+
     def heads(self) -> List[nn.Linear]:
         return self.detect.outputs()
+
+    @torch.no_grad()
+    def init_detect_prior(self) -> None:
+        """Detection-prior bias init (the upstream yolo trick) for fresh
+        random weights: the class logits start at σ(−5) ≈ 0.7 %."""
+        for i in range(3):
+            getattr(self.detect, f"cls{i}_out").bias[:] = -5.0
+
+    def decode(self, outs: List[torch.Tensor], size: Optional[int] = None):
+        """The three raw maps → (boxes [B,A,4] cxcywh pixels f32, scores
+        [B,A,nc] f32), the DFL expectation. The maps carry the input edge,
+        so ``size`` is not read."""
+        from aerial_image_recognition_tpu_torch.ops.decode import (
+            decode_yolov8)
+        return decode_yolov8(outs, self.num_classes)
 
     def set_dtype(self, dtype: torch.dtype) -> "YOLOv8":
         """Cast the trunk and the towers to ``dtype``; the six output convs

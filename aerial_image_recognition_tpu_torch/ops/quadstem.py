@@ -34,7 +34,7 @@ is broadcast, a slower kernel), and its value is the reference's
 so the one rounding to the dtype is the reference's.
 """
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -267,14 +267,34 @@ def quad_stem_forward(variables, xq: torch.Tensor, *, act: str = "leaky",
     return stem(xq, in_scale)
 
 
-def stem_meta(family: str, variant: str = "",
-              s2d_stem: bool = False) -> Optional[Dict]:
-    """(stem scope names, activation, bn_eps) of the quad-stem lowering for
-    a model, or None where it does not apply: any model whose entry is two
-    stride-2 3×3 ConvBNs qualifies (yolov7-tiny, every yolov8 scale), not
-    yolov7-tiny with its ``s2d_stem`` (a 12-channel stride-1 stem0)."""
-    if family == "yolov7" and variant == "tiny" and not s2d_stem:
-        return {"stems": ("stem0", "stem1"), "act": "leaky", "bn_eps": 1e-5}
-    if family == "yolov8":
-        return {"stems": ("stem", "down2"), "act": "silu", "bn_eps": 1e-3}
-    return None
+class QuadStemEntry:
+    """What a detector bundle (``models/registry.ModelBundle``,
+    ``models/int8.Int8Bundle``) shares of the quad stem: whether it
+    applies, read off its module's ``stem_table`` (the model class's), and
+    its ``QuadStem``, built once in ``quad`` from the flax-format f32 tree
+    that ``stem_variables()`` gives, in the stems' dtype on the bundle's
+    device."""
+
+    def supports_s2d2(self) -> bool:
+        """True when the module's entry is two stride-2 3×3 ConvBNs
+        (yolov7-tiny without ``s2d_stem``, every yolov8 scale): the quad-stem
+        lowering applies. yolov7-base's four stems (strides 1, 2, 1, 2) and
+        a model without a stem table (RT-DETR, XUnet) have none."""
+        table = getattr(self.module, "stem_table", None)
+        return table is not None and table["strides"] == (2, 2)
+
+    def quad_stem(self) -> QuadStem:
+        """The bundle's ``QuadStem`` on its device, built at the first
+        call."""
+        if self.quad is None:
+            if not self.supports_s2d2():
+                raise ValueError(f"no quad-stem lowering for "
+                                 f"{self.spec.name}")
+            table = self.module.stem_table
+            dtype = next(m.weight.dtype for m in self.module.modules()
+                         if isinstance(m, torch.nn.Conv2d))
+            self.quad = QuadStem.from_variables(
+                self.stem_variables(), stem_names=table["stems"],
+                act=table["act"], bn_eps=table["bn_eps"], dtype=dtype,
+                device=self.device)
+        return self.quad

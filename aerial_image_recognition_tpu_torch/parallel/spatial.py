@@ -463,6 +463,7 @@ class _SpatialBundle:
             Int8Bundle, _Run)
         self.bundle = bundle
         self.spec = bundle.spec
+        self.module = bundle.module        # whose facts make_detect_fn reads
         self.device = bundle.device
         self.devices = tuple(devices)
         self.weights = {}

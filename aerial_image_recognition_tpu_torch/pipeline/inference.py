@@ -235,8 +235,10 @@ def make_detect_fn(bundle: ModelBundle, cfg: DetectorConfig,
             f"unknown tta_clahe_backend {extra['tta_clahe_backend']!r} "
             f"(expected one of {_CLAHE_BACKENDS})")
 
+    nms_free = getattr(bundle.module, "nms_free", False)
+
     def finish(boxes, scores, bounds):
-        if spec.family == "rtdetr":
+        if nms_free:
             det = _set_prediction_finish(boxes, scores, cfg)
             lon, lat = lonlat(det.boxes[..., :2], bounds, model_size)
             return det, lon, lat
@@ -418,10 +420,10 @@ def build_detect_step(cfg: Optional[DetectorConfig] = None, *,
     kwargs = dict(batch=batch, src_size=src_size, crop_size=crop_size,
                   model_size=model_size, mesh=mesh)
     if cfg.extra.get("quantize") == "int8" \
-            and bundle.spec.family == "rtdetr":
+            and getattr(bundle.module, "nms_free", False):
         raise NotImplementedError(
-            "quantize='int8' has no lowering for the rtdetr family: its "
-            "trunk runs in the configured dtype")
+            f"quantize='int8' has no lowering for {bundle.spec.name}, a "
+            "set-prediction model: its trunk runs in the configured dtype")
     if cfg.extra.get("quantize") == "int8":
         from aerial_image_recognition_tpu_torch.models.int8 import (
             Int8Bundle, load_absmax, quantize_bundle)

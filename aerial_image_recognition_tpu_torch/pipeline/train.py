@@ -401,14 +401,6 @@ def _apply(module, params, batch_stats, x):
     return functional_call(module, {**params, **batch_stats}, (x,))
 
 
-def _decode(bundle: ModelBundle, module, outs):
-    from aerial_image_recognition_tpu_torch.ops.decode import (
-        decode_yolov7, decode_yolov8)
-    if bundle.spec.family == "yolov8":
-        return decode_yolov8(outs, bundle.spec.num_classes)
-    return decode_yolov7(outs, module.anchors, bundle.spec.num_classes)
-
-
 class TrainStep:
     """``make_train_step``'s step: ``step(state, images_u8 [B,S,S,3],
     targets [B,T,5]) → (state, metrics)``. The state is not modified; the
@@ -863,7 +855,7 @@ def evaluate(bundle: ModelBundle, state: Dict, loader,
         for images, targets in loader.epoch(0):
             outs = _apply(module, params, stats,
                           _images_in(images, bundle.device))
-            boxes, scores = _decode(bundle, module, outs)
+            boxes, scores = module.decode(outs, images.shape[1])
             det = batched_nms(boxes, scores, num_classes=nc,
                               conf_threshold=conf_threshold, max_det=128)
             valid = det.valid.cpu().numpy()

@@ -724,3 +724,105 @@ def test_yolov7_base_variant_and_tiny_keep_their_forms():
     assert tiny.stem0.act == "leaky" and tiny.stem0.conv.bias is None
     fold_batchnorm(base)
     assert isinstance(base.rep3.bn, torch.nn.Identity)
+
+
+# ------------------------------------------------- family facts, pinned
+
+# every registry name's family facts written out as literals: (model
+# class, arch it builds, stem table or None, quad stem, NMS-free)
+_TINY_STEMS = {"stems": ("stem0", "stem1"), "act": "leaky", "bn_eps": 1e-5,
+               "strides": (2, 2)}
+_BASE_STEMS = {"stems": ("stem0", "stem1", "stem2", "stem3"), "act": "silu",
+               "bn_eps": 1e-5, "strides": (1, 2, 1, 2)}
+_V8_STEMS = {"stems": ("stem", "down2"), "act": "silu", "bn_eps": 1e-3,
+             "strides": (2, 2)}
+FAMILY_FACTS = {
+    "yolov7_itcvd": (YOLOv7, "tiny", _TINY_STEMS, True, False),
+    "yolov7_base": (YOLOv7, "base", _BASE_STEMS, False, False),
+    "yolov8_tokyo": (YOLOv8, "l", _V8_STEMS, True, False),
+    **{f"yolov8{sc}": (YOLOv8, sc, _V8_STEMS, True, False)
+       for sc in "nsmlx"},
+    "rtdetr_r50vd": ("RTDETR", "", None, False, True),
+    "xunet_256": ("XUnet", "", None, False, False),
+}
+_ANCHORS = {"tiny": ((10, 13), (16, 30), (33, 23), (30, 61), (62, 45),
+                     (59, 119), (116, 90), (156, 198), (373, 326)),
+            "base": ((12, 16), (19, 36), (40, 28), (36, 75), (76, 55),
+                     (72, 146), (142, 110), (192, 243), (459, 401))}
+
+
+def _decode_by_family(cls, arch, nc, outs, size):
+    """The decode each family's answer must equal, chosen by family."""
+    from aerial_image_recognition_tpu_torch.ops.decode import decode_yolov7
+    if cls == "XUnet":
+        return outs
+    if cls == "RTDETR":
+        return outs["boxes"] * size, torch.sigmoid(outs["logits"])
+    if cls is YOLOv8:
+        return decode_yolov8(outs, nc)
+    anchors = tuple(tuple(_ANCHORS[arch][3 * i:3 * i + 3]) for i in range(3))
+    return decode_yolov7(outs, anchors, nc)
+
+
+def _tensors(out):
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_FACTS) + ["s2d_stem"])
+def test_family_facts_live_on_the_model_class(name):
+    """Each registry model carries its family's facts on its class: the
+    arch its spec builds, its stem table (each stem's stride, activation
+    and BN epsilon as the module has them), whether the quad stem applies
+    (not for yolov7-tiny with ``s2d_stem``), the detection prior and the
+    NMS-free finish; ``ModelBundle.forward`` (and ``forward_s2d2``) equal
+    that decode of the module's outputs bit for bit."""
+    import dataclasses
+    s2d = name == "s2d_stem"
+    name = "yolov7_itcvd" if s2d else name
+    cls, arch, table, quad, nms_free = FAMILY_FACTS[name]
+    size = 128 if cls == "RTDETR" else 64      # ≥ 300 tokens for RT-DETR
+    bundle = create_model(name, seed=1, dtype=torch.float32, device="cpu")
+    spec, module = bundle.spec, bundle.module
+    nc = spec.num_classes
+    assert spec.arch == arch
+    assert type(module).__name__ == getattr(cls, "__name__", cls)
+    assert getattr(module, "variant", getattr(module, "scale", "")) == arch
+    # the detection prior of a fresh random model
+    if cls is YOLOv8:
+        assert all(torch.all(getattr(module.detect, f"cls{i}_out").bias
+                             == -5.0) for i in range(3))
+    elif cls is YOLOv7:
+        no = 5 + nc
+        assert all(torch.all(h.bias[a * no + 4:(a + 1) * no] == -5.0)
+                   for h in module.heads() for a in range(3))
+    else:
+        assert not hasattr(module, "init_detect_prior")
+    if s2d:
+        module = YOLOv7(num_classes=1, variant="tiny", s2d_stem=True).eval()
+        bundle = dataclasses.replace(bundle, module=module)
+        table, quad = dict(table, strides=(1, 2)), False
+    assert getattr(module, "stem_table", None) == table
+    assert bundle.supports_s2d2() is quad
+    assert getattr(module, "nms_free", False) is nms_free
+    for stem, stride in zip(*((table["stems"], table["strides"])
+                              if table else ((), ()))):
+        block = getattr(module, stem)
+        assert block.conv.stride == (stride, stride)
+        assert (block.act, block.bn.eps) == (table["act"], table["bn_eps"])
+    x = torch.rand(2, 3, size, size,
+                   generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        pairs = [(bundle.forward(x),
+                  _decode_by_family(cls, arch, nc, module(x), size))]
+        if quad:
+            xq = torch.randint(0, 256, (2, size // 4, size // 4, 48),
+                               dtype=torch.uint8,
+                               generator=torch.Generator().manual_seed(4))
+            p2 = bundle.quad_stem()(xq)
+            pairs.append((bundle.forward_s2d2(xq), _decode_by_family(
+                cls, arch, nc, module(p2, from_p2=True), size)))
+    for got, want in pairs:
+        got, want = _tensors(got), _tensors(want)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and torch.equal(g, w)

@@ -211,9 +211,10 @@ def test_rejects_unsupported_families(both):
                            absmax=absmax)
     px = P.quantize_bundle(xb, [], absmax=absmax)
     assert type(px).__name__ == type(jx).__name__ == "Int8XUnetBundle"
-    for family, arch in (("yolov7", "base"), ("yolov8", "l")):
-        assert P._family_meta(dataclasses.replace(pb.spec, family=family),
-                              arch)["act"] == "silu"
+    # int8's stems and trunk activation are the model class's stem table
+    from aerial_image_recognition_tpu_torch.models.yolov8 import YOLOv8
+    for model_cls, arch in ((YOLOv7, "base"), (YOLOv8, "l")):
+        assert model_cls.STEM_TABLES[arch]["act"] == "silu"
 
 
 def test_absmax_file_round_trip(tmp_path, both):

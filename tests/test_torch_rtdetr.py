@@ -394,6 +394,27 @@ def test_spans_show_in_a_profiler_trace(seeded, small_registry):
         assert f"rtdetr.{span}" in names, span
 
 
+def test_int8_is_refused_for_the_set_prediction_model(seeded,
+                                                      small_registry):
+    """RT-DETR ends without NMS (``nms_free``) and has no stem table: the
+    int8 step and ``quantize_bundle`` refuse it before any calibration."""
+    from aerial_image_recognition_tpu_torch.models.int8 import (
+        quantize_bundle)
+    bundle = create_model("rtdetr_r50vd", variables=seeded[3],
+                          dtype=torch.float32, device="cpu", fold_bn=True)
+    assert bundle.module.nms_free and not hasattr(bundle.module,
+                                                  "stem_table")
+    cfg = DetectorConfig.from_dict({
+        "model_path": "rtdetr_r50vd", "model_family": "rtdetr",
+        "dtype": "float32", "quantize": "int8"})
+    with pytest.raises(NotImplementedError, match="set-prediction model"):
+        build_detect_step(cfg, bundle=bundle, batch=2, model_size=SIZE,
+                          device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="no int8 detector lowering for rtdetr_r50vd"):
+        quantize_bundle(bundle, [])
+
+
 def test_registry_builds_the_published_model():
     """``rtdetr_r50vd`` at the published widths: 42.8 M parameters, the
     decoder f32 under a bf16 trunk, names resolved."""
