@@ -21,9 +21,11 @@ are left out. The published widths are the defaults below
   neck: top-down and bottom-up CSPRep blocks of three RepVGG units
   (3x3 + 1x1, SiLU);
 * decoder: 300 queries chosen by the encoder's own class head over every
-  token, 6 post-norm layers of self-attention, multi-scale deformable
-  cross-attention (8 heads, 3 levels x 4 points; ``ops/ms_deform_attn``)
-  and a ReLU FFN of 1024, each refining the boxes.
+  token, their first boxes by its box head on those 300 tokens alone (no
+  other token's box is read), 6 post-norm layers of self-attention,
+  multi-scale deformable cross-attention (8 heads, 3 levels x 4 points;
+  ``ops/ms_deform_attn``) and a ReLU FFN of 1024, each refining the
+  boxes.
 
 Submodule names equal the flax-format paths of the weights
 (``backbone.s2.b0.cv2``, ``decoder.layer3.cross.offsets``), so the weight
@@ -388,7 +390,15 @@ def anchors(shapes, device, grid_size: float = 0.05):
 
 class Decoder(nn.Module):
     """Input projections, the encoder's output head, the top-k query
-    selection and the refining layers; all f32."""
+    selection and the refining layers; all f32.
+
+    The class head scores every token; the box head runs on the ``queries``
+    selected tokens alone (at B=64 and 640 px, 19,200 rows and not 537,600,
+    so the select holds no [B,L,256] hidden map of the box MLP).
+    ``Decoder.enc_box_rows`` counts the rows the box head ran on, summed
+    over forwards."""
+
+    enc_box_rows = 0
 
     def __init__(self, in_dim, num_classes, d, queries, layers, heads, ffn,
                  levels, points, eps):
@@ -432,12 +442,13 @@ class Decoder(nn.Module):
             anc, valid = self._anchors_for(shapes, memory.device)
             om = self.enc_norm(self.enc_output(memory * valid))
             enc_scores = self.enc_score(om)
-            enc_boxes = self.enc_bbox(om) + anc
             top = torch.topk(enc_scores.max(-1).values, self.queries,
                              dim=1).indices
-            ref = torch.sigmoid(enc_boxes.gather(
-                1, top[..., None].expand(-1, -1, 4)))
             h = om.gather(1, top[..., None].expand(-1, -1, om.shape[-1]))
+            # the box head on the selected rows alone: no other row's box
+            # is read, and each row's arithmetic is the whole-token one's
+            ref = torch.sigmoid(self.enc_bbox(h) + anc[0][top])
+            Decoder.enc_box_rows += top.numel()
         with Tracer.annotate("rtdetr.decoder"):
             for i in range(self.layers):
                 pos = self.query_pos(ref)

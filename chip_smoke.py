@@ -6740,7 +6740,9 @@ def rtdetr_only(torch, record, card) -> None:
     bound and plain time there, and the share of the value map its samples
     read; the residual join's kernel (``check_residual_relu``); then the
     bf16 step at the scan's batch, timed and profiled, both kernels'
-    launches counted, its memory peak above what it found allocated."""
+    launches and the box head's rows counted, its memory peak above what
+    it found allocated, the peak of each span of its forward, and its
+    outputs against the whole-token select's (``rtdetr_spans``)."""
     import numpy as np
     from aerial_image_recognition_tpu_torch.kernels.build import (
         build_all, build_log)
@@ -6884,6 +6886,11 @@ def rtdetr_only(torch, record, card) -> None:
     torch.cuda.synchronize()
     step_peak = torch.cuda.max_memory_allocated() - held
     prof = profile_calls(torch, lambda: step(dev_images, dev_bounds), 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = rtdetr.Decoder.enc_box_rows
+    spans, select = rtdetr_spans(torch, bundle.module,
+                                 lambda: step(dev_images, dev_bounds))
+    rows = rtdetr.Decoder.enc_box_rows - rows
     det = out[0]
     record["rtdetr_step"] = {
         "batch": B, "size": SIZE, "dtype": "bfloat16", "step_ms": step_ms,
@@ -6891,16 +6898,94 @@ def rtdetr_only(torch, record, card) -> None:
         "detections": int(det.valid.sum()),
         "msda_launches_per_step": per_step,
         "residual_relu_launches_per_step": joins,
-        "step_peak_bytes_above_held": step_peak,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "profile": prof}
+        "enc_box_rows_per_step": rows,
+        "step_peak_bytes_above_held": step_peak, "held_bytes": held,
+        "span_peak_bytes": spans, "select_vs_whole_token": select,
+        "peak_mem_gb": peak_gb, "profile": prof}
     print(f"rtdetr step: {step_ms:.2f} ms a batch of {B} at {SIZE} px "
           f"(bf16 trunk), {B / step_ms * 1e3:.1f} tiles/s, "
           f"{int(det.valid.sum())} detections, {per_step} ms_deform_attn "
-          f"and {joins} residual_relu launches, peak {step_peak} B above "
-          f"the {held} B held; top device ops "
+          f"and {joins} residual_relu launches, {rows} enc_box_rows, peak "
+          f"{step_peak} B above the {held} B held; top device ops "
           f"{[(r['name'][:40], round(r['ms_per_step'], 3)) for r in prof.get('top', [])[:6]]} "
           f"[{card}]", flush=True)
+    print(f"rtdetr spans: peak bytes allocated {spans}; against the "
+          f"whole-token select, largest differences {select} [{card}]",
+          flush=True)
+    if rows != B * bundle.module.decoder.queries:
+        fail(f"one step's box head ran on {rows} rows, not B x Q")
+
+
+def rtdetr_spans(torch, module, run):
+    """One call of ``run`` (a step through RT-DETR ``module``): the peak
+    bytes allocated on the card within each span of its forward
+    (``backbone``, ``encoder``, ``select``, ``decoder``; weights and
+    batch included), by hooks that reset the allocator's peak at each
+    span's start; and the largest differences of that forward's
+    ``enc_scores``, ``topk``, ``logits`` and ``boxes`` from the
+    whole-token select's, computed afterwards on the decoder's inputs:
+    the encoder's box head over every token, the anchor logits added, the
+    top-k rows gathered, then the same decoder layers."""
+    from aerial_image_recognition_tpu_torch.models.rtdetr import (
+        inverse_sigmoid)
+    dec = module.decoder
+    peaks, caught = {}, {}
+
+    def start(_m, args):
+        torch.cuda.reset_peak_memory_stats()
+
+    def end(name):
+        def hook(*_):
+            if name not in peaks:
+                peaks[name] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        return hook
+
+    def inputs(_m, args):
+        caught["feats"] = args[0]
+
+    def outputs(_m, _args, out):
+        caught["out"] = out
+    hooks = [module.backbone.register_forward_pre_hook(start),
+             module.backbone.register_forward_hook(end("backbone")),
+             module.encoder.register_forward_pre_hook(start),
+             module.encoder.register_forward_hook(end("encoder")),
+             dec.register_forward_pre_hook(start),
+             dec.register_forward_pre_hook(inputs),
+             dec.query_pos.register_forward_pre_hook(end("select")),
+             dec.register_forward_hook(end("decoder")),
+             dec.register_forward_hook(outputs)]
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    feats, got = caught["feats"], caught["out"]
+    with torch.inference_mode():
+        shapes = [(int(f.shape[2]), int(f.shape[3])) for f in feats]
+        memory = torch.cat([dec._project(i, f)
+                            for i, f in enumerate(feats)], 1)
+        anc, valid = dec._anchors_for(shapes, memory.device)
+        om = dec.enc_norm(dec.enc_output(memory * valid))
+        enc_scores = dec.enc_score(om)
+        boxes = dec.enc_bbox(om) + anc
+        top = torch.topk(enc_scores.max(-1).values, dec.queries,
+                         dim=1).indices
+        ref = torch.sigmoid(boxes.gather(1, top[..., None].expand(-1, -1,
+                                                                  4)))
+        h = om.gather(1, top[..., None].expand(-1, -1, om.shape[-1]))
+        del om, boxes
+        for i in range(dec.layers):
+            pos = dec.query_pos(ref)
+            h = getattr(dec, f"layer{i}")(h, pos, ref, memory, shapes)
+            ref = torch.sigmoid(getattr(dec, f"bbox{i}")(h)
+                                + inverse_sigmoid(ref))
+        want = {"enc_scores": enc_scores, "topk": top, "boxes": ref,
+                "logits": getattr(dec, f"class{dec.layers - 1}")(h)}
+        diff = {k: float((got[k].double() - v.double()).abs().max())
+                for k, v in want.items()}
+    return peaks, diff
 
 
 def finish(torch, record, name, filename) -> None:

@@ -148,6 +148,137 @@ def test_port_matches_reference_f32(seeded, fold):
     assert float(best[:, -5:].max()) < 0.3
 
 
+def _module(cfg, tree, fold, **over):
+    """The port at the configuration's widths (``over`` on top), holding
+    the seeded weights, BN and RepVGG folded or not."""
+    from aerial_image_recognition_tpu_torch.models.layers import (
+        fold_batchnorm)
+    from aerial_image_recognition_tpu_torch.models.weights import (
+        load_flax_into)
+    module = RTDETR(cfg["nc"], **dict(_port_kwargs(cfg), **over)).eval()
+    load_flax_into(module, tree)
+    if fold:
+        fold_batchnorm(module)
+    return module
+
+
+def _whole_token(dec, feats):
+    """The decoder with its select in the whole-token form: ``dec``'s own
+    box head over every token, the anchor logits added, then the top-k
+    rows gathered; then ``dec``'s layers as ``Decoder.forward`` runs them.
+    The select's ``ref`` and ``h`` come out beside the outputs."""
+    from aerial_image_recognition_tpu_torch.models.rtdetr import (
+        inverse_sigmoid)
+    shapes = [(int(f.shape[2]), int(f.shape[3])) for f in feats]
+    memory = torch.cat([dec._project(i, f) for i, f in enumerate(feats)], 1)
+    anc, valid = dec._anchors_for(shapes, memory.device)
+    om = dec.enc_norm(dec.enc_output(memory * valid))
+    enc_scores = dec.enc_score(om)
+    enc_boxes = dec.enc_bbox(om) + anc
+    top = torch.topk(enc_scores.max(-1).values, dec.queries, dim=1).indices
+    ref = torch.sigmoid(enc_boxes.gather(1, top[..., None].expand(-1, -1,
+                                                                  4)))
+    h = om.gather(1, top[..., None].expand(-1, -1, om.shape[-1]))
+    out = {"enc_scores": enc_scores, "topk": top, "ref": ref, "h": h}
+    for i in range(dec.layers):
+        pos = dec.query_pos(ref)
+        h = getattr(dec, f"layer{i}")(h, pos, ref, memory, shapes)
+        ref = torch.sigmoid(getattr(dec, f"bbox{i}")(h)
+                            + inverse_sigmoid(ref))
+    out["logits"] = getattr(dec, f"class{dec.layers - 1}")(h)
+    out["boxes"] = ref
+    return out
+
+
+def _selected_form(dec, feats):
+    """``dec(feats)``, with the select's ``h`` (the box head's input) and
+    ``ref`` (the first layer's boxes) caught by hooks."""
+    seen = {}
+
+    def keep(name):
+        def hook(module, args, *out):
+            seen.setdefault(name, args[0])
+        return hook
+    hooks = [dec.enc_bbox.register_forward_hook(keep("h")),
+             dec.query_pos.register_forward_pre_hook(keep("ref"))]
+    try:
+        out = dec(feats)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return dict(out, **seen)
+
+
+def _assert_same_bits(got, want):
+    """Tolerance 0: each selected row meets the same Linear layers and the
+    same anchor add on the same f32 input row in both forms, and the CPU
+    sums a row of a matrix product in one order whatever the row count."""
+    for k in ("enc_scores", "topk", "h", "ref", "logits", "boxes"):
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), \
+            (k, float((got[k].double() - want[k].double()).abs().max()))
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_select_runs_the_box_head_on_the_chosen_rows(seeded, fold):
+    """The box head sees the Q chosen rows of each tile and not all L
+    tokens, and the select's ``topk``, ``ref`` and ``h`` and the forward's
+    ``logits`` and ``boxes`` are the whole-token form's bits."""
+    cfg, _, _, tree, x = seeded
+    module = _module(cfg, tree, fold)
+    with torch.no_grad():
+        feats = module.encoder(module.backbone(x))
+        got = _selected_form(module.decoder, feats)
+        want = _whole_token(module.decoder, feats)
+        whole = module(x)
+    assert got["h"].shape == (x.shape[0], cfg["num_queries"],
+                              cfg["d_model"])
+    _assert_same_bits(got, want)
+    for k in ("enc_scores", "topk", "logits", "boxes"):
+        assert torch.equal(whole[k], got[k]), k
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_select_of_border_tokens_reads_their_invalid_anchors(seeded, fold):
+    """At 416 px the stride-8 level is 52 × 52, so its outer ring of
+    cells lies within 1 % of the border and its anchors are invalid (f32's
+    largest value). With ``num_queries`` every token, those rows are
+    selected too: their first boxes are the sigmoid of that value, 1.0,
+    and the select and the outputs are the whole-token form's bits."""
+    cfg, _, _, tree, _ = seeded
+    size = 416
+    tokens = sum((size // s) ** 2 for s in (8, 16, 32))
+    module = _module(cfg, tree, fold, num_queries=tokens)
+    x = torch.rand(2, 3, size, size, generator=torch.Generator()
+                   .manual_seed(416))
+    with torch.no_grad():
+        feats = module.encoder(module.backbone(x))
+        got = _selected_form(module.decoder, feats)
+        want = _whole_token(module.decoder, feats)
+    _, valid = module.decoder._anchors_for(
+        [tuple(f.shape[2:]) for f in feats], x.device)
+    border = ~valid[0, :, 0][got["topk"]]
+    assert int(border.sum()) == 2 * 4 * (52 - 1)
+    assert bool((got["ref"][border] == 1.0).all())
+    assert bool((got["ref"][~border] < 1.0).all())
+    _assert_same_bits(got, want)
+
+
+def test_enc_box_rows_counts_b_times_q_a_forward(seeded):
+    """``Decoder.enc_box_rows`` adds B × Q each forward: the rows the
+    encoder's box head ran on."""
+    from aerial_image_recognition_tpu_torch.models.rtdetr import Decoder
+    cfg, _, _, tree, x = seeded
+    module = _module(cfg, tree, True)
+    before = Decoder.enc_box_rows
+    with torch.no_grad():
+        module(x)
+        assert Decoder.enc_box_rows - before == x.shape[0] * 20
+        module(x[:1])
+    assert Decoder.enc_box_rows - before == (x.shape[0] + 1) * 20
+    assert "enc_box_rows" not in vars(module.decoder)
+
+
 def _sampling_case(seed):
     """value, shapes, locations (inside, outside [0,1] and on cell
     borders) and softmaxed weights."""
